@@ -1,11 +1,12 @@
-"""CLI entry — the reference's main.rs analogue, for static meshless schemes.
+"""CLI entry — the reference's main.rs analogue, for static schemes of
+spheres, free triangles and `!Model` glTF meshes.
 
     python -m raytrace_tpu_torch.cli <scheme.yml> [no_ui] --device cuda \
         --samples N --out render_out.png [--checkpoint ck.npz] [--resume ck.npz]
 
 Renders to a PNG, rewritten (with the checkpoint, when asked) after every
 sample batch, as the reference's no-ui output loop (ui_util.rs:37-54).
-Animation schemes, meshes and cube maps are not ported yet and raise.
+Animation schemes and cube maps are not ported yet and raise.
 """
 from __future__ import annotations
 

@@ -2,9 +2,9 @@
 
 Mirrors `raytrace_tpu/models/config.py` (same field names, defaults and
 parsing rules) for what the port renders: render info, camera, spheres
-and free triangles. `!Model` and `!DistantCubeMap` members parse to
-placeholders that `models.scene.build_scene` rejects until their ROADMAP
-items land; keyframe animation is not parsed (static schemes only).
+free triangles and `!Model` glTF members. `!DistantCubeMap` parses to a
+placeholder that `models.scene.build_scene` rejects until its ROADMAP
+item lands; keyframe animation is not parsed (static schemes only).
 
 PyYAML is imported only by `load_scheme`, so building a scheme from a
 dict (`parse_scheme`) needs nothing beyond numpy.
@@ -93,9 +93,16 @@ class CubeMapMember:
 
 @dataclass
 class ModelMember:
-    """Placeholder: glTF meshes are not ported yet."""
+    """A glTF model placed by T(translation) @ S(uniform_scale) @
+    R(euler_angles). `loaded` holds in-memory meshes (a list of
+    models.gltf.LoadedMesh, already in world space) that stand in for
+    the file, as the procedural a380-class scene does."""
 
     path: str
+    uniform_scale: float = 1.0
+    translation: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    euler_angles: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    loaded: Optional[list] = None
 
 
 @dataclass
@@ -165,8 +172,29 @@ def parse_member(m):
     if m.tag == "DistantCubeMap":
         return CubeMapMember(faces=dict(v))
     if m.tag == "Model":
-        return ModelMember(path=v["path"])
+        if v.get("animation") is not None:
+            raise NotImplementedError("animated models are not ported yet (ROADMAP queue 1, item 14)")
+        return ModelMember(
+            path=v["path"], uniform_scale=float(v["uniform_scale"]),
+            translation=_vec(v["translation"]), euler_angles=_vec(v["euler_angles"]),
+        )
     raise ValueError(f"unknown member tag !{m.tag}")
+
+
+def resolve_asset_path(path: str, scheme_dir: str) -> str:
+    """An asset path as the JAX package resolves it
+    (raytrace_tpu/models/config.py:309-323): as given, relative to the
+    scheme, or as <scheme_dir>/../assets/<suffix> for the reference's
+    '../../assets/...' forms."""
+    candidates = [path, os.path.join(scheme_dir, path)]
+    if "assets/" in path:
+        suffix = path.split("assets/", 1)[1]
+        candidates.append(os.path.join(scheme_dir, "..", "assets", suffix))
+        candidates.append(os.path.join(scheme_dir, "assets", suffix))
+    for cand in candidates:
+        if os.path.exists(cand):
+            return cand
+    raise FileNotFoundError(f"asset {path!r} not found (searched {candidates})")
 
 
 def load_scheme(path: str) -> Scheme:

@@ -48,9 +48,12 @@ def sphere_t(ox, oy, oz, dx, dy, dz, row):
     return torch.where(pos & (near > 0.0), near, torch.full_like(near, INF))
 
 
-def triangle_t(ox, oy, oz, dx, dy, dz, row):
-    """Moller-Trumbore distance to the free triangle `row`, INF on miss."""
-    e1x, e1y, e1z, e2x, e2y, e2z = row[3], row[4], row[5], row[6], row[7], row[8]
+def triangle_tuv(ox, oy, oz, dx, dy, dz, v0, e1, e2):
+    """Moller-Trumbore (the JAX integrator's `_triangle_t`, :117-131):
+    rays and the triangle's v0 / e1 / e2 (3-tuples) are broadcastable
+    tensors or floats. Returns (t, u, w); t is INF on a miss."""
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x
@@ -58,7 +61,7 @@ def triangle_t(ox, oy, oz, dx, dy, dz, row):
     ok = torch.abs(det) >= EPS
     one = torch.ones_like(det)
     inv_det = torch.where(ok, 1.0 / torch.where(ok, det, one), torch.zeros_like(det))
-    hx, hy, hz = ox - row[0], oy - row[1], oz - row[2]
+    hx, hy, hz = ox - v0[0], oy - v0[1], oz - v0[2]
     u = inv_det * (hx * pvx + hy * pvy + hz * pvz)
     qx = hy * e1z - hz * e1y
     qy = hz * e1x - hx * e1z
@@ -66,7 +69,12 @@ def triangle_t(ox, oy, oz, dx, dy, dz, row):
     w = inv_det * (dx * qx + dy * qy + dz * qz)
     t = inv_det * (e2x * qx + e2y * qy + e2z * qz)
     ok = ok & (u >= 0.0) & (u <= 1.0) & (w >= 0.0) & (u + w <= 1.0) & (t >= EPS)
-    return torch.where(ok, t, torch.full_like(t, INF))
+    return torch.where(ok, t, torch.full_like(t, INF)), u, w
+
+
+def triangle_t(ox, oy, oz, dx, dy, dz, row):
+    """Moller-Trumbore distance to the free triangle `row`, INF on miss."""
+    return triangle_tuv(ox, oy, oz, dx, dy, dz, row[0:3], row[3:6], row[6:9])[0]
 
 
 def closest_sph_ft(sph, ft, ox, oy, oz, dx, dy, dz, *, n_sph: int, n_ft: int):

@@ -1,0 +1,575 @@
+"""The path-tracing kernel for mesh scenes: the gpu-semantics path of
+every lane over spheres, free triangles and one glTF mesh.
+
+Port of `raytrace_tpu/ops/pallas/mesh_bounce_kernel.py::bounce_tiles`
+(:698, body :94) together with the XLA half of its driver,
+`raytrace_tpu/render/fused_mesh._mesh_shade` (:184-271): on the TPU the
+kernel cannot gather a mesh hit's attributes and texels, so it leaves
+mesh-hit lanes pending for fused_mesh.py; here one call finishes every
+bounce of every lane itself. Per lane: counter-RNG seed, camera raygen,
+closest hit over <= 64 spheres, <= 64 free triangles and the mesh,
+shading of either kind, Russian roulette, and in place regeneration of
+`samples_per_lane` consecutive sample ids. It returns the lane's
+radiance sum. The pend protocol, the lane queue, fast2 and the
+`RTPU_*` knobs are not ported (ROADMAP, "Not to port").
+
+The mesh nearest hit has two routes, each its own CUDA entry point in
+`csrc/mesh_kernel.cu`:
+- "walk" (`mesh_trace`, replacing the cluster walk `mesh_walk`,
+  :375-479): a 3-level slab walk (supergroup, supercluster, cluster)
+  over the tables of `pack_mesh_tables`, pruned by `entry < t_best`,
+  strict-< updates in scan order;
+- "brute" (`mesh_trace_brute`, replacing `woop.mxu_mesh_hit`,
+  woop.py:268): every triangle, in f32 Moller-Trumbore, for meshes of
+  at most MAX_BRUTE_TRIS triangles (the JAX scene gate, woop.MAX_TRIS).
+
+Draws: 8 uniforms per bounce for EVERY lane of a mesh scene, u0..u7
+(integrator.py:862-869). Mesh hits use u0 (lobe), u1 u2 (diffuse),
+u4 u5 u6 (roughness scatter), u7 (RR); u3 is drawn and unused.
+Sphere / free-triangle hits use u0-u3 in `uniform_bsdf` and u7.
+
+Two normalizes, as in the JAX package: raygen and regeneration use
+rsqrt (`raygen.norm3`, fused_mesh._generate_rsqrt), the mesh shade uses
+sqrt then divide with an eps of 1e-20 where the JAX code has one
+(ops/vec.normalize).
+
+- On a CUDA tensor, `mesh_trace` launches the CUDA kernel or raises.
+- On a CPU tensor, it runs `mesh_trace_reference`, the plain torch
+  version of the same function, which the CPU tests hold against the
+  JAX package and `chip_smoke.py` holds the kernel against.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import raygen, rng
+from .bsdf import uniform_bsdf
+from .intersect import EPS, INF, closest_sph_ft, triangle_tuv
+from .texture import pool_tensor, sample_nearest
+from .trace_kernel import CAM_LEN, FT_COLS, MAX_PRIMS, SPH_COLS, make_cam_vec, pack_scene_tables
+
+MAX_BRUTE_TRIS = 2560  # brute route up to this many triangles (JAX woop.MAX_TRIS)
+GROUP = 16  # clusters per supercluster
+SGROUP = 8  # superclusters per supergroup
+TRI_COLS = 12  # v0 xyz | e1 xyz | e2 xyz | 3 zero: three float4 loads a triangle
+BRUTE_CHUNK = 64  # triangles per shared-memory chunk of the brute route
+ROUTES = {"walk": "mesh_trace", "brute": "mesh_trace_brute"}
+_NOHIT_LO, _NOHIT_HI = 3.0e38, -3.0e38  # inverted AABB of padding clusters (the
+# JAX layout; the slab test does not retire it, the walks skip count-0 clusters)
+
+# launches of each CUDA entry point in this process (read by chip_smoke.py)
+LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0}
+
+
+# --- host-side packing -----------------------------------------------------
+
+
+def pack_mesh_tables(cl_idx, cl_lo, cl_hi, cl_v0, cl_e1, cl_e2, cam_o):
+    """Cluster arrays -> the walk's tables, numpy, in the JAX packer's
+    layout and order (`pack_mesh_tables_np`, mesh_hit_kernel.py:192-265):
+    C padded to a GROUP * SGROUP multiple Cp, padding and empty clusters
+    with inverted AABBs, and the camera-ordered front-to-back
+    permutation (clusters within their supercluster, superclusters
+    within their supergroup, supergroups globally, by distance from
+    cam_o to the AABB). The permutation is the scan order, and exact-t
+    ties go to the earlier triangle in it.
+
+    Returns dict: bounds (Cp, 8), sbounds (Cp/GROUP, 8), sgbounds
+    (Cp/GROUP/SGROUP, 8) f32 [lo xyz, hi xyz, 0, 0]; tri (Cp, W, 12)
+    f32; gid (Cp, W) int32 mesh-triangle ids, -1 padding (ids stay
+    integers: stored as f32 bit patterns they flushed to denormals once);
+    count (Cp,) int32 valid rows, which lead each cluster's row."""
+    cl_idx = np.asarray(cl_idx)
+    C, W = cl_idx.shape
+    if W % 8:
+        raise ValueError(f"cluster width {W} is not a multiple of 8")
+    valid = cl_idx >= 0
+    count = valid.sum(axis=1)
+    if not (valid == (np.arange(W)[None, :] < count[:, None])).all():
+        raise ValueError("cluster rows must hold their triangles first, then -1 padding")
+    granule = GROUP * SGROUP
+    Cp = -(-max(C, 1) // granule) * granule
+    lo = np.full((Cp, 3), _NOHIT_LO, np.float32)
+    hi = np.full((Cp, 3), _NOHIT_HI, np.float32)
+    nonempty = count > 0
+    lo[:C][nonempty] = np.asarray(cl_lo)[nonempty]
+    hi[:C][nonempty] = np.asarray(cl_hi)[nonempty]
+    tri = np.zeros((Cp, W, TRI_COLS), np.float32)
+    tri[:C, :, 0:3] = cl_v0
+    tri[:C, :, 3:6] = cl_e1
+    tri[:C, :, 6:9] = cl_e2
+    gid = np.full((Cp, W), -1, np.int32)
+    gid[:C] = cl_idx
+    cnt = np.zeros((Cp,), np.int32)
+    cnt[:C] = count
+
+    if C:
+        cam = np.asarray(cam_o, np.float32).reshape(1, 3)
+        ok = lo[:, 0] <= hi[:, 0]
+        d = np.full((Cp,), np.inf, np.float32)
+        d[ok] = np.linalg.norm(np.clip(cam, lo[ok], hi[ok]) - cam, axis=1)
+        S = Cp // GROUP
+        dg = d.reshape(S, GROUP)
+        within = np.argsort(dg, axis=1, kind="stable")
+        dsg = dg.min(axis=1).reshape(S // SGROUP, SGROUP)
+        within_s = np.argsort(dsg, axis=1, kind="stable")
+        sg_order = np.argsort(dsg.min(axis=1), kind="stable")
+        sperm = (sg_order[:, None] * SGROUP + within_s[sg_order]).reshape(-1)
+        perm = (sperm[:, None] * GROUP + within[sperm]).reshape(-1)
+        lo, hi, tri, gid, cnt = lo[perm], hi[perm], tri[perm], gid[perm], cnt[perm]
+
+    def boxes(a, b):
+        return np.concatenate([a, b, np.zeros((a.shape[0], 2), np.float32)], axis=1)
+
+    S = Cp // GROUP
+    slo, shi = lo.reshape(S, GROUP, 3).min(axis=1), hi.reshape(S, GROUP, 3).max(axis=1)
+    sglo = slo.reshape(S // SGROUP, SGROUP, 3).min(axis=1)
+    sghi = shi.reshape(S // SGROUP, SGROUP, 3).max(axis=1)
+    return dict(bounds=boxes(lo, hi), sbounds=boxes(slo, shi), sgbounds=boxes(sglo, sghi),
+                tri=tri, gid=gid, count=cnt)
+
+
+def pack_brute_table(cl_idx, cl_v0, cl_e1, cl_e2):
+    """The brute route's rows: every triangle once, in the clusters'
+    (unpermuted) scan order, padded to a BRUTE_CHUNK multiple with gid
+    -1. Returns (tri (Mb, 12) f32, gid (Mb,) int32)."""
+    valid = np.asarray(cl_idx) >= 0
+    M = int(valid.sum())
+    Mb = -(-max(M, 1) // BRUTE_CHUNK) * BRUTE_CHUNK
+    tri = np.zeros((Mb, TRI_COLS), np.float32)
+    tri[:M, 0:3] = np.asarray(cl_v0)[valid]
+    tri[:M, 3:6] = np.asarray(cl_e1)[valid]
+    tri[:M, 6:9] = np.asarray(cl_e2)[valid]
+    gid = np.full((Mb,), -1, np.int32)
+    gid[:M] = np.asarray(cl_idx)[valid]
+    return tri, gid
+
+
+def supports(scene, params) -> bool:
+    """The JAX package's fused_mesh.supports (:169-181): gpu semantics,
+    a mesh with clusters, <= 64 spheres and free triangles; and no cube
+    map, which the port does not have yet."""
+    return (
+        params.mode == "gpu"
+        and not params.debug_single_ray
+        and scene.n_mesh_tris > 0
+        and scene.n_clusters > 0
+        and scene.n_spheres <= MAX_PRIMS
+        and scene.n_free_tris <= MAX_PRIMS
+        and not scene.has_cubemap
+    )
+
+
+class MeshTables(nn.Module):
+    """A mesh scene's packed tables and camera as buffers, moved with
+    `.to(device)`. `route` is the nearest-hit route the scene takes:
+    brute up to MAX_BRUTE_TRIS triangles, the walk above."""
+
+    def __init__(self, scene, cam, max_thres: float):
+        super().__init__()
+        if not scene.n_mesh_tris:
+            raise ValueError("MeshTables needs a scene with a mesh")
+        sph, ft = pack_scene_tables(scene)
+        walk = pack_mesh_tables(scene.cl_idx, scene.cl_lo, scene.cl_hi, scene.cl_v0,
+                                scene.cl_e1, scene.cl_e2, cam_o=cam.o)
+        btri, bgid = pack_brute_table(scene.cl_idx, scene.cl_v0, scene.cl_e1, scene.cl_e2)
+        pool, self.pool_kind = pool_tensor(scene.tex_pool)
+        arrays = dict(sph=sph, ft=ft, cam_vec=make_cam_vec(cam, max_thres), **walk,
+                      btri=btri, bgid=bgid, attr=scene.mt_attr, desc=scene.mt_desc)
+        for k, a in arrays.items():
+            self.register_buffer(k, torch.from_numpy(np.ascontiguousarray(a)))
+        self.register_buffer("pool", pool)
+        self.n_sph = int(scene.n_spheres)
+        self.n_ft = int(scene.n_free_tris)
+        self.n_tris = int(scene.n_mesh_tris)
+        self.has_lens = cam.lens_r is not None
+        self.route = "brute" if self.n_tris <= MAX_BRUTE_TRIS else "walk"
+
+
+# --- the plain torch version -----------------------------------------------
+
+def _chunks(dev):
+    """(slab or triangle tests per chunk, (lane, cluster) pairs per chunk
+    of the walk's triangle tests): larger on the card, where a chunk's
+    elementwise kernels are cheap and their launches dominate."""
+    return (1 << 20, 1 << 14) if dev.type == "cpu" else (1 << 24, 1 << 18)
+
+
+def _slab_clamp(d):
+    """|d| < EPS -> +-EPS (the reference's aabb.rs:33-35)."""
+    return torch.where(torch.abs(d) < EPS, torch.where(d < 0.0, -EPS, EPS), d)
+
+
+def _reach(o, f, t_best, lane, box):
+    """Slab test of the lanes `lane` against the (P, 8) boxes `box`:
+    (entry <= exit) & (exit >= 0) & (entry < t_best)."""
+    t0 = [(box[:, k] - o[k][lane]) * f[k][lane] for k in range(3)]
+    t1 = [(box[:, 3 + k] - o[k][lane]) * f[k][lane] for k in range(3)]
+    mn = [torch.minimum(a, b) for a, b in zip(t0, t1)]
+    mx = [torch.maximum(a, b) for a, b in zip(t0, t1)]
+    entry = torch.maximum(torch.maximum(mn[0], mn[1]), mn[2])
+    exit_ = torch.minimum(torch.minimum(mx[0], mx[1]), mx[2])
+    return (entry <= exit_) & (exit_ >= 0.0) & (entry < t_best[lane])
+
+
+def _descend(o, f, t_best, lane, node, fanout, boxes):
+    """(lane, parent) pairs -> the (lane, child) pairs whose slab test
+    reaches the child, children parent * fanout + 0 .. fanout - 1."""
+    out_l, out_n = [lane[:0]], [node[:0]]
+    step = max(1, _chunks(node.device)[0] // fanout)
+    kid = torch.arange(fanout, device=node.device)
+    for s in range(0, lane.numel(), step):
+        cl = lane[s:s + step].repeat_interleave(fanout)
+        cn = (node[s:s + step, None] * fanout + kid).reshape(-1)
+        keep = _reach(o, f, t_best, cl, boxes[cn])
+        out_l.append(cl[keep])
+        out_n.append(cn[keep])
+    return torch.cat(out_l), torch.cat(out_n)
+
+
+def _resolve(t_seed, lane, t, pos, gid, u, v):
+    """Per lane, the candidate of least t, exact ties to the least scan
+    position `pos`; candidates are (lane, t, pos, gid, u, v) with t <
+    t_seed[lane]. Returns (t, gid, u, v) per lane, gid -1 without one."""
+    n = t_seed.numel()
+    t_out = t_seed.clone()
+    gid_out = torch.full((n,), -1, dtype=torch.int64, device=t_seed.device)
+    u_out, v_out = torch.zeros_like(t_seed), torch.zeros_like(t_seed)
+    if lane.numel() == 0:
+        return t_out, gid_out, u_out, v_out
+    tmin = torch.full_like(t_seed, INF).scatter_reduce(0, lane, t, "amin")
+    tie = t == tmin[lane]
+    big = torch.iinfo(torch.int64).max
+    pmin = torch.full((n,), big, dtype=torch.int64, device=t_seed.device)
+    pmin = pmin.scatter_reduce(0, lane[tie], pos[tie], "amin")
+    win = tie & (pos == pmin[lane])
+    wl = lane[win]
+    t_out[wl], gid_out[wl], u_out[wl], v_out[wl] = t[win], gid[win], u[win], v[win]
+    return t_out, gid_out, u_out, v_out
+
+
+def mesh_hit_walk(o, d, t_seed, tables):
+    """Nearest mesh hit by the slab-culled cluster walk: a triangle is
+    tested only for the lanes whose slab tests reach its supergroup,
+    supercluster and cluster (pruned by entry < t_seed). o, d: 3-tuples
+    of (N,) f32; t_seed (N,) f32. Returns (t, gid (int64, -1 where no
+    triangle beat t_seed), u, v). The kernel prunes by its running best
+    instead of t_seed: the same nearest hit except where an exact-t tie
+    straddles two clusters."""
+    n = t_seed.numel()
+    f = [1.0 / _slab_clamp(dk) for dk in d]
+    dev = t_seed.device
+    n_sg = tables.sgbounds.shape[0]
+    lane = torch.arange(n, device=dev).repeat_interleave(n_sg)
+    node = torch.arange(n_sg, device=dev).repeat(n)
+    keep = _reach(o, f, t_seed, lane, tables.sgbounds[node])
+    lane, node = lane[keep], node[keep]
+    lane, node = _descend(o, f, t_seed, lane, node, SGROUP, tables.sbounds)
+    lane, node = _descend(o, f, t_seed, lane, node, GROUP, tables.bounds)
+    # padding clusters' inverted AABBs pass the slab test (their slabs
+    # span -inf..inf): skip them by count, as the kernel does
+    full = tables.count[node] > 0
+    lane, node = lane[full], node[full]
+    W = tables.tri.shape[1]
+    w_idx = torch.arange(W, device=dev)
+    cand = [[] for _ in range(6)]
+    step = _chunks(dev)[1]
+    for s in range(0, lane.numel(), step):
+        pl, pn = lane[s:s + step], node[s:s + step]
+        rows = tables.tri[pn]  # (P, W, 12)
+        ray = [c[pl, None] for c in (*o, *d)]
+        t, u, v = triangle_tuv(*ray, (rows[..., 0], rows[..., 1], rows[..., 2]),
+                               (rows[..., 3], rows[..., 4], rows[..., 5]),
+                               (rows[..., 6], rows[..., 7], rows[..., 8]))
+        t = torch.where(w_idx[None, :] < tables.count[pn, None], t, torch.full_like(t, INF))
+        tmin, arg = t.min(dim=1)  # the first of equal minima: scan order
+        hit = tmin < t_seed[pl]
+        a = arg[hit, None]
+        for k, val in enumerate((pl[hit], tmin[hit], pn[hit] * W + arg[hit],
+                                 tables.gid[pn[hit], arg[hit]].long(),
+                                 u[hit].gather(1, a)[:, 0], v[hit].gather(1, a)[:, 0])):
+            cand[k].append(val)
+    if not cand[0]:
+        return _resolve(t_seed, *(torch.zeros(0, dtype=dt, device=dev) for dt in
+                                  (torch.int64, torch.float32, torch.int64, torch.int64,
+                                   torch.float32, torch.float32)))
+    return _resolve(t_seed, *(torch.cat(c) for c in cand))
+
+
+def mesh_hit_brute(o, d, t_seed, tables):
+    """Nearest mesh hit over every triangle of the brute table, in its
+    row order (the function `woop.mxu_mesh_hit` computes, in plain f32
+    Moller-Trumbore). Same arguments and returns as mesh_hit_walk."""
+    tri, gid = tables.btri, tables.bgid
+    n, Mb = t_seed.numel(), tri.shape[0]
+    cols = [tri[None, :, k] for k in range(9)]
+    valid = gid[None, :] >= 0
+    out = [t_seed.clone(), torch.full((n,), -1, dtype=torch.int64, device=t_seed.device),
+           torch.zeros_like(t_seed), torch.zeros_like(t_seed)]
+    step = max(1, _chunks(t_seed.device)[0] // Mb)
+    for s in range(0, n, step):
+        sl = slice(s, s + step)
+        ray = [c[sl, None] for c in (*o, *d)]
+        t, u, v = triangle_tuv(*ray, cols[0:3], cols[3:6], cols[6:9])
+        t = torch.where(valid, t, torch.full_like(t, INF))
+        tmin, arg = t.min(dim=1)
+        hit = tmin < t_seed[sl]
+        a = arg[:, None]
+        out[0][sl] = torch.where(hit, tmin, t_seed[sl])
+        out[1][sl] = torch.where(hit, gid[arg].long(), out[1][sl])
+        out[2][sl] = torch.where(hit, u.gather(1, a)[:, 0], out[2][sl])
+        out[3][sl] = torch.where(hit, v.gather(1, a)[:, 0], out[3][sl])
+    return tuple(out)
+
+
+def _vnorm(x, y, z, eps: float = 0.0):
+    """sqrt-then-divide normalize (the JAX package's ops/vec.normalize)."""
+    n2 = x * x + y * y + z * z
+    tiny = float(np.float32(max(eps * eps, 1e-30)))
+    n = torch.sqrt(torch.where(n2 > tiny, n2, torch.full_like(n2, tiny)))
+    if eps:
+        n = torch.clamp(n, min=float(np.float32(eps)))
+    inv = 1.0 / n
+    return x * inv, y * inv, z * inv
+
+
+def mesh_attrs(attr, desc, pool, pool_kind: int, mi, bu, bv):
+    """Shading attributes of mesh hits (integrator.mesh_attrs_dense,
+    :546-630): shading normal (normal-mapped, the raw [0, 1] texel taken
+    as the tangent-space vector, no 2x-1 remap), base colour times its
+    texel, metal from the blue texel channel and rough from the green.
+    attr (M, 48) f32, desc (M, 9) int32; mi (N,) triangle ids; bu, bv
+    barycentrics. Returns (nx, ny, nz, r, g, b, metal, rough)."""
+    a = attr[mi]
+    dsc = desc[mi]
+    col = lambda j: a[:, j]
+    b0 = 1.0 - bu - bv
+
+    def interp(base):
+        return (b0 * col(base) + bu * col(base + 2) + bv * col(base + 4),
+                b0 * col(base + 1) + bu * col(base + 3) + bv * col(base + 5))
+
+    def fetch(k, base):
+        return sample_nearest(pool, pool_kind, dsc[:, k], dsc[:, k + 1], dsc[:, k + 2],
+                              *interp(base))
+
+    _, tn = fetch(3, 25)
+    mapped = _vnorm(*((col(r) * tn[0] + col(r + 1) * tn[1] + col(r + 2) * tn[2]) * col(12)
+                      for r in (3, 6, 9)), eps=1e-20)
+    has_nm = col(18) > 0.5
+    n = [torch.where(has_nm, mapped[k], col(k)) for k in range(3)]
+    has_rt, tr = fetch(0, 19)
+    one = torch.ones_like(bu)
+    rgb = [col(13 + k) * torch.where(has_rt, tr[k], one) for k in range(3)]
+    has_mr, tm = fetch(6, 31)
+    metal = col(16) * torch.where(has_mr, tm[2], one)
+    rough = col(17) * torch.where(has_mr, tm[1], one)
+    return (*n, *rgb, metal, rough)
+
+
+def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int,
+                         samples_per_lane: int = 1, route: str | None = None):
+    """Plain torch mirror of the kernel on flat lanes: masked
+    `torch.where` updates and a Python loop bounded by max_bounces *
+    samples_per_lane that stops once no lane is active. The mesh nearest
+    hit runs on the active lanes only, on `route` (default tables.route).
+    Returns the radiance (r, g, b), 3 f32 tensors shaped like xs."""
+    route = tables.route if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {tuple(ROUTES)}, not {route!r}")
+    nearest = mesh_hit_walk if route == "walk" else mesh_hit_brute
+    shape = xs.shape
+    xs, ys, samp = xs.reshape(-1), ys.reshape(-1), samp.reshape(-1)
+    spl = samples_per_lane
+    cam = [float(v) for v in tables.cam_vec.reshape(-1).tolist()]
+    max_thres = float(np.float32(cam[17]))
+    inv_thres = float(np.float32(1.0) / np.float32(max_thres))
+    bd = raygen.base_dir(xs, ys, cam)
+
+    def start_sample(samp_id):
+        return raygen.start(rng.init_state(xs, ys, samp_id), bd, cam, tables.has_lens)
+
+    samp0 = rng.as_u32(samp)
+    state, o, d = start_sample(samp0)
+    zero = torch.zeros_like(o[0])
+    ci = [torch.ones_like(zero) for _ in range(3)]
+    inten = torch.ones_like(zero)
+    L = [zero] * 3
+    active = torch.ones_like(zero, dtype=torch.bool)
+    depth = torch.zeros_like(zero)
+    sk = torch.zeros_like(samp0)
+    where = torch.where
+
+    for _ in range(max_bounces * spl):
+        if not bool(active.any()):
+            break
+        h = closest_sph_ft(tables.sph, tables.ft, *o, *d, n_sph=tables.n_sph, n_ft=tables.n_ft)
+        ai = active.nonzero()[:, 0]
+        r = nearest(tuple(c[ai] for c in o), tuple(c[ai] for c in d), h["t_best"][ai], tables)
+        t_m, gid, bu, bv = (full.index_put((ai,), part) for full, part in
+                            zip((zero, torch.full_like(samp0, -1), zero, zero), r))
+        mesh = active & (gid >= 0)
+        sph_ft = active & ~mesh & (h["kind"] > 0.5)
+        state, (u0, u1, u2, u3, u4, u5, u6, u7) = rng.next_f32_n(state, 8)
+        rr_kill = (depth >= float(assured)) & (u7 > max_thres)
+
+        # ---- sphere / free-triangle hits: trace_tiles' shading ----
+        t_safe = where(sph_ft, h["t_best"], zero)
+        p = [o[k] + d[k] * t_safe for k in range(3)]
+        n = [h["nxv"], h["nyv"], h["nzv"]]
+        if tables.n_sph:
+            is_sph = h["kind"] == 1.0
+            sn = raygen.norm3(p[0] - h["scx"], p[1] - h["scy"], p[2] - h["scz"])
+            n = [where(is_sph, sn[k], n[k]) for k in range(3)]
+        pos_s = [p[k] + n[k] * EPS for k in range(3)]
+        *nd_s, weight = uniform_bsdf(*d, *n, h["mkind"], h["diffp"], h["n_out"], h["n_in"],
+                                     u0, u1, u2, u3)
+        rgb = (h["rgb_r"], h["rgb_g"], h["rgb_b"])
+        em = (h["em_r"], h["em_g"], h["em_b"])
+        add_em = sph_ft & (h["has_em"] > 0.5)
+        L = [L[k] + where(add_em, em[k] * (ci[k] * inten), zero) for k in range(3)]
+        ci = [where(add_em, ci[k] * rgb[k], ci[k]) for k in range(3)]
+        ci = [where(sph_ft, ci[k] * rgb[k], ci[k]) for k in range(3)]
+
+        # ---- mesh hits: PBR divert (_mesh_shade), mesh emissive is zero ----
+        mi = where(mesh, gid, torch.zeros_like(gid))
+        *nm, mr, mg, mb, metal, rough = mesh_attrs(tables.attr, tables.desc, tables.pool,
+                                                   tables.pool_kind, mi, bu, bv)
+        t_safe = where(mesh, t_m, zero)
+        pos_m = [o[k] + d[k] * t_safe + nm[k] * EPS for k in range(3)]
+        dn = d[0] * nm[0] + d[1] * nm[1] + d[2] * nm[2]
+        k2 = 2.0 * dn
+        spec = _vnorm(*(d[k] - nm[k] * k2 for k in range(3)))
+        xd = _vnorm(*(d[k] - nm[k] * dn for k in range(3)), eps=1e-20)
+        yd = (nm[1] * xd[2] - nm[2] * xd[1], nm[2] * xd[0] - nm[0] * xd[2],
+              nm[0] * xd[1] - nm[1] * xd[0])
+        r_ = torch.sqrt(u1)
+        th = raygen.TWO_PI * u2
+        ca, sa = r_ * torch.cos(th), r_ * torch.sin(th)
+        zz = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+        diff = [xd[k] * ca + yd[k] * sa + nm[k] * zz for k in range(3)]
+        r0 = 0.04 + (1.0 - 0.04) * metal
+        adn = torch.abs(dn)
+        a2 = adn * adn
+        refl = r0 + (1.0 - r0) * (1.0 - a2 * a2 * adn)
+        pbr_diff = u0 < (1.0 - refl)
+        sc = _vnorm(u4, u5, u6, eps=1e-20)
+        nd_m = _vnorm(*(where(pbr_diff, diff[k], spec[k]) + sc[k] * rough for k in range(3)))
+        mrgb = (mr, mg, mb)
+        ci = [where(mesh, ci[k] * mrgb[k], ci[k]) for k in range(3)]
+
+        # ---- Russian roulette and the next ray, both kinds ----
+        hm = sph_ft | mesh
+        term = hm & rr_kill
+        L = [L[k] + where(term, ci[k] * inv_thres * inten, zero) for k in range(3)]
+        ci = [where(term, ci[k] * inv_thres, ci[k]) for k in range(3)]
+        surv_s, surv_m = sph_ft & ~rr_kill, mesh & ~rr_kill
+        inten = where(surv_s, inten * weight, inten)
+        o = [where(surv_s, pos_s[k], where(surv_m, pos_m[k], o[k])) for k in range(3)]
+        d = [where(surv_s, nd_s[k], where(surv_m, nd_m[k], d[k])) for k in range(3)]
+        survive = surv_s | surv_m
+        depth = depth + survive.to(depth.dtype)
+
+        if spl > 1:
+            alive = survive & (depth < float(max_bounces))
+            regen = ~alive & (sk + 1 < spl)
+            sk = sk + regen.to(sk.dtype)
+            st2, o2, d2 = start_sample(samp0 + sk)
+            state = where(regen, st2, state)
+            o = [where(regen, o2[k], o[k]) for k in range(3)]
+            d = [where(regen, d2[k], d[k]) for k in range(3)]
+            ci = [where(regen, 1.0, ci[k]) for k in range(3)]
+            inten = where(regen, 1.0, inten)
+            depth = where(regen, 0.0, depth)
+            active = alive | regen
+        else:
+            active = survive
+
+    return tuple(v.reshape(shape) for v in L)
+
+
+# --- the dispatcher --------------------------------------------------------
+
+_F32_BUFFERS = ("sph", "ft", "cam_vec", "sgbounds", "sbounds", "bounds", "tri", "btri", "attr")
+_I32_BUFFERS = ("count", "gid", "bgid", "desc")
+
+
+def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_lane):
+    from ..kernels import build
+
+    dev = xs.device
+    for name, t in (("xs", xs), ("ys", ys), ("samp", samp)):
+        if t.shape != xs.shape or t.dtype != torch.int32 or t.device != dev:
+            raise ValueError(f"{name} must be int32 on {dev} shaped {tuple(xs.shape)}")
+    for names, dtype in ((_F32_BUFFERS, torch.float32), (_I32_BUFFERS, torch.int32)):
+        for name in names:
+            t = getattr(tables, name)
+            if t.dtype != dtype or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"tables.{name} must be contiguous {dtype} on {dev}")
+    if tables.pool.device != dev or not tables.pool.is_contiguous():
+        raise ValueError(f"tables.pool must be contiguous on {dev}")
+    if (tables.sph.shape[1] != SPH_COLS or tables.ft.shape[1] != FT_COLS
+            or tables.cam_vec.numel() != CAM_LEN or tables.tri.shape[2] != TRI_COLS):
+        raise ValueError("tables do not have the packed column layout")
+    if samples_per_lane < 1 or max_bounces < 1:
+        raise ValueError("samples_per_lane and max_bounces must be >= 1")
+
+    entry = ROUTES[route]
+    lib = build.build("mesh_kernel").lib
+    fn = getattr(lib, f"{entry}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 2)
+    xs_c, ys_c, samp_c = xs.contiguous(), ys.contiguous(), samp.contiguous()
+    n = xs_c.numel()
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    tb = tables
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(xs_c.data_ptr(), ys_c.data_ptr(), samp_c.data_ptr(), n,
+                tb.sph.data_ptr(), tb.ft.data_ptr(), tb.cam_vec.data_ptr(),
+                tb.n_sph, tb.n_ft, int(tb.has_lens), assured, max_bounces, samples_per_lane,
+                tb.sgbounds.data_ptr(), tb.sbounds.data_ptr(), tb.bounds.data_ptr(),
+                tb.count.data_ptr(), tb.tri.data_ptr(), tb.gid.data_ptr(),
+                tb.sgbounds.shape[0], tb.tri.shape[1],
+                tb.btri.data_ptr(), tb.bgid.data_ptr(), tb.btri.shape[0],
+                tb.attr.data_ptr(), tb.desc.data_ptr(), tb.pool.data_ptr(),
+                tb.pool_kind, tb.pool.numel(),
+                out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[entry] += 1
+    return tuple(out[k].view(xs.shape) for k in range(3))
+
+
+def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: int,
+               samples_per_lane: int = 1, route: str | None = None):
+    """xs, ys, samp: int32 lane tensors of any shape; tables: a
+    MeshTables on the same device; route "walk" or "brute", by default
+    tables.route (the 2,560-triangle gate; the tests and chip_smoke.py
+    pass both routes on one scene). Lane i covers sample ids samp[i] ..
+    samp[i] + samples_per_lane - 1. Returns the radiance sum (r, g, b):
+    3 f32 tensors shaped like xs.
+
+    CPU tensors run `mesh_trace_reference`; CUDA tensors launch the CUDA
+    kernel's entry point of the route or raise."""
+    route = tables.route if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {tuple(ROUTES)}, not {route!r}")
+    if tables.n_sph > MAX_PRIMS or tables.n_ft > MAX_PRIMS:
+        raise NotImplementedError(f"mesh_trace takes <= {MAX_PRIMS} spheres and free triangles")
+    kw = dict(route=route, assured=assured, max_bounces=max_bounces,
+              samples_per_lane=samples_per_lane)
+    if xs.device.type == "cuda":
+        return _launch(xs, ys, samp, tables, **kw)
+    if xs.device.type == "cpu":
+        return mesh_trace_reference(xs, ys, samp, tables, **kw)
+    raise ValueError(f"mesh_trace runs on cpu or cuda tensors, not {xs.device}")

@@ -117,11 +117,12 @@ def make_cam_vec(cam, max_thres: float = 0.5) -> np.ndarray:
 
 
 def supports(scene, params) -> bool:
-    """gpu semantics, spheres + free triangles only (the port's scene
-    holds no mesh), each <= 64."""
+    """gpu semantics, spheres + free triangles only, each <= 64, and no
+    mesh (the JAX package's trace_kernel.supports, :704-712)."""
     return (
         params.mode == "gpu"
         and not params.debug_single_ray
+        and scene.n_mesh_tris == 0
         and scene.n_spheres <= MAX_PRIMS
         and scene.n_free_tris <= MAX_PRIMS
     )

@@ -1,18 +1,20 @@
-"""Renderer driver: the walled-class main path on one device.
+"""Renderer driver: the walled-class and mesh-scene paths on one device.
 
-Port of `raytrace_tpu/render/renderer.py` for the fused-kernel path
-(`sample_batch_fused` :125-193, `Renderer` :351-506 and `render`
-:740-943), for gpu-semantics sphere + free-triangle scenes without a
-cube map. One `trace_tiles` launch covers every pixel for up to
-`samples_per_launch` consecutive sample ids (the kernel regenerates
-samples in place), so any sample count runs through the kernel and the
+Port of `raytrace_tpu/render/renderer.py` for its two fused-kernel
+paths: meshless scenes through `trace_tiles` (`sample_batch_fused`
+:125-193) and mesh scenes through the mesh path kernel (the JAX
+`fused_mesh.sample_batch_mesh_fused`, :274), routed as the JAX
+`Renderer` routes them (:409-427), with `render` (:740-943). gpu
+semantics, no cube map. One launch covers every pixel for up to
+`samples_per_launch` consecutive sample ids (the kernels regenerate
+samples in place), so any sample count runs through a kernel and the
 JAX driver's plain-integrator tail is not needed. Sample ids continue at
 `target.count`, so an incremental or checkpoint-resumed render is
 bit-exact.
 
-Anything outside that slice raises NotImplementedError; nothing is
+Anything outside those paths raises NotImplementedError; nothing is
 routed to a substitute path. The device is explicit: a CUDA device runs
-the CUDA kernel, the CPU runs its plain torch version.
+the CUDA kernels, the CPU runs their plain torch versions.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from ..models.camera import build_camera
 from ..models.config import Scheme
 from ..models.scene import build_scene
+from ..ops import mesh_kernel as mk
 from ..ops import trace_kernel as tk
 from .target import RenderTarget
 
@@ -72,6 +75,23 @@ def sample_batch_fused(tables: tk.SceneTables, params: RenderParams, xs, ys,
     return acc
 
 
+def sample_batch_mesh(tables: mk.MeshTables, params: RenderParams, xs, ys,
+                      sample_base: int, n_samples: int, *,
+                      samples_per_launch: int) -> torch.Tensor:
+    """sample_batch_fused for mesh scenes: radiance SUM over sample ids
+    sample_base .. sample_base+n_samples-1 of the pixels (xs, ys), in
+    `mesh_trace` launches of up to samples_per_launch samples per lane
+    on the scene's route. Returns an (n_pix, 3) f32 tensor."""
+    acc = torch.zeros((xs.numel(), 3), dtype=torch.float32, device=xs.device)
+    for s0 in range(0, n_samples, samples_per_launch):
+        spl = min(samples_per_launch, n_samples - s0)
+        samp = torch.full_like(xs, sample_base + s0)
+        acc += torch.stack(mk.mesh_trace(
+            xs, ys, samp, tables, assured=params.assured_depth,
+            max_bounces=params.max_bounces, samples_per_lane=spl), dim=1)
+    return acc
+
+
 class Renderer:
     """Static-scene renderer (the reference's renderer.rs:41-63)."""
 
@@ -81,23 +101,29 @@ class Renderer:
             raise RuntimeError("device='cuda' was asked for but torch.cuda.is_available() is False")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device} (cuda or cpu)")
+        if samples_per_launch < 1:
+            raise ValueError("samples_per_launch must be >= 1")
         self.scheme = scheme
         info = scheme.render_info
         self.width, self.height = info.width, info.height
         self.params = params_from_scheme(scheme)
-        # build_scene raises NotImplementedError on meshes and the cube map
+        # build_scene raises NotImplementedError on the cube map
         self.scene = build_scene(scheme)
-        if not tk.supports(self.scene, self.params):
-            raise NotImplementedError(
-                "outside the ported slice: needs gpu semantics, no debug_single_ray and "
-                f"<= {tk.MAX_PRIMS} spheres and free triangles (ROADMAP queue 1, items 3 and 7)")
-        if samples_per_launch < 1:
-            raise ValueError("samples_per_launch must be >= 1")
         self.samples_per_launch = samples_per_launch
         self.camera = build_camera(scheme.cam, self.width, self.height)
         self.target = RenderTarget(self.width, self.height)
+        max_thres = self.params.max_thres
         # the scene is uploaded once per Renderer, not per render() call
-        self.tables = tk.SceneTables(self.scene, self.camera, self.params.max_thres).to(self.device)
+        if tk.supports(self.scene, self.params):
+            self.tables = tk.SceneTables(self.scene, self.camera, max_thres).to(self.device)
+            self._batch = sample_batch_fused
+        elif mk.supports(self.scene, self.params):
+            self.tables = mk.MeshTables(self.scene, self.camera, max_thres).to(self.device)
+            self._batch = sample_batch_mesh
+        else:
+            raise NotImplementedError(
+                "outside the ported paths: needs gpu semantics, no debug_single_ray and "
+                f"<= {tk.MAX_PRIMS} spheres and free triangles (ROADMAP queue 1, items 3 and 7)")
         flat = torch.arange(self.width * self.height, dtype=torch.int32)
         self._xs = (flat % self.width).to(self.device)
         self._ys = (flat // self.width).to(self.device)
@@ -116,7 +142,7 @@ class Renderer:
         rendered = 0
         while rendered < total:
             n = min(b, total - rendered)
-            out = sample_batch_fused(
+            out = self._batch(
                 self.tables, self.params, self._xs, self._ys, self.target.count, n,
                 samples_per_launch=self.samples_per_launch,
             )

@@ -79,12 +79,20 @@ def _too_many_spheres(s):
     s.scene_members = s.scene_members * 5  # 65 spheres
 
 
+def _mesh_too_many_spheres(s):
+    """A mesh scene beyond the mesh path: 65 spheres (the walled ones)."""
+    from raytrace_tpu_torch.models.procedural import make_mesh
+
+    _too_many_spheres(s)
+    s.scene_members.append(cfg.ModelMember(path="<surface>", loaded=[make_mesh(64, 0)]))
+
+
 @pytest.mark.parametrize("change", [
     lambda s: setattr(s.render_info, "use_gpu", False),
     lambda s: setattr(s.render_info.rad_info, "debug_single_ray", True),
     _too_many_spheres,
     lambda s: s.scene_members.append(cfg.CubeMapMember(faces={})),
-    lambda s: s.scene_members.append(cfg.ModelMember(path="x.gltf")),
+    _mesh_too_many_spheres,
 ], ids=["cpu-mode", "debug-single-ray", "65-spheres", "cubemap", "mesh"])
 def test_unsupported_scenes_raise(change):
     scheme = walled_scheme(W, H)
