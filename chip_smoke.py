@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives raytrace_tpu_torch's main paths on the card and checks them:
+Drives raytrace_tpu_torch's paths on the card and checks them:
 
 1. environment: the card's name and power limit, CUDA and nvcc versions;
 2. build: compiles csrc/trace_kernel.cu and csrc/mesh_kernel.cu with nvcc
@@ -38,7 +38,28 @@ Drives raytrace_tpu_torch's main paths on the card and checks them:
    brute route), each with the launch counts reset just before and read
    just after; finite images, paths/s with the card's name and power
    limit, a small frame of the a380-class scene on the card against the
-   CPU under the tile gate, and a bitwise exact resume on the card.
+   CPU under the tile gate, and a bitwise exact resume on the card;
+7. the integrator's mesh hit on the card: `mesh_hit` (the CUDA entry)
+   against `mesh_hit_walk` (plain torch) on the primary rays of the whole
+   a380-class 1216x608 frame and the secondary rays of one bounce, a
+   quarter of the lanes dead (seeded -inf), at t_min EPS (gpu semantics)
+   and 20*EPS (cpu semantics): gid must agree on >= 99.9% of lanes and t,
+   u, v pass the lane gate; both versions timed with CUDA events on a
+   pool of 131,072 of those rays (the wavefront's launch), in turns
+   plain, kernel, kernel, plain;
+8. the integrator paths at full width, each render with the launch
+   counts reset just before and read just after, with paths/s, the
+   wavefront's iterations and lane-bounces, and the card's name and
+   power limit: Renderer(a380-class 1216x608 in cpu semantics,
+   "cuda").render(16), the slice's main path (the wavefront, mesh_hit
+   launches > 0, no other kernel); the same with direct-light sampling
+   (its shadow rays add mesh_hit launches); the a380-class frame in gpu
+   semantics through the wavefront (use_mesh_fused=False) against the
+   mesh path kernel's image, and walled 1200x600 through the wavefront
+   (use_fused=False) against trace_tiles' image, at 16 spp, under the
+   tile gate; a cpu-semantics 96x48 a380-class frame on the card against
+   the CPU; a bitwise exact resume on the card in cpu semantics; and a
+   torch.profiler table of one warm cpu-semantics render(16).
 
 Any failure raises (exit code != 0). The line before the last is the
 kernels' JSON record; the last line is the device JSON object. Without a
@@ -119,11 +140,18 @@ MESH_KERNELS = {  # entry point -> (route, the TPU kernel it replaces)
 }
 
 
-def resized(scheme, width, height):
-    """The scheme at another frame size, sharing its (large) members."""
+def variant(scheme, width=None, height=None, use_gpu=None, dir_light_samp=None):
+    """The scheme at another frame size or in other semantics, sharing
+    its (large) members."""
     s = copy.copy(scheme)
-    s.render_info = copy.copy(scheme.render_info)
-    s.render_info.width, s.render_info.height = width, height
+    info = s.render_info = copy.copy(scheme.render_info)
+    info.rad_info = copy.copy(info.rad_info)
+    if width is not None:
+        info.width, info.height = width, height
+    if use_gpu is not None:
+        info.use_gpu = use_gpu
+    if dir_light_samp is not None:
+        info.rad_info.dir_light_samp = dir_light_samp
     return s
 
 
@@ -323,7 +351,7 @@ def mesh_phases(dev, card):
         print(f"[mesh] {label} image mean per channel {img.mean(axis=(0, 1)).tolist()}",
               flush=True)
 
-    small = resized(a380, 96, 48)
+    small = variant(a380, 96, 48)
     t0 = time.perf_counter()
     cpu_img = Renderer(small, device="cpu").render(samples=MESH_SPP)
     cpu_s = time.perf_counter() - t0
@@ -353,6 +381,241 @@ def mesh_phases(dev, card):
              "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
              "ms": ms[name], "plain_ms": plain_ms[name]}
             for name, (_, replaces) in MESH_KERNELS.items()]
+
+
+WALLED_WF_SPP = 16  # the walled frame through the wavefront (trace_tiles takes 64 in phase 4)
+HIT_POOL = 1 << 17  # the wavefront's lane pool: the launch shape of mesh_hit
+
+
+def mesh_hit_phase(dev, card, a380):
+    """Phase 7: `mesh_hit` (the CUDA entry) against `mesh_hit_walk` (its
+    plain version) on the card; returns (max_abs_err, ms, plain_ms)."""
+    import torch
+
+    from raytrace_tpu_torch.models.camera import build_camera
+    from raytrace_tpu_torch.models.scene import SceneTensors, build_scene
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.ops import raygen, rng
+    from raytrace_tpu_torch.ops.intersect import EPS, INF
+    from raytrace_tpu_torch.render import integrator as itg
+    from raytrace_tpu_torch.render.renderer import tile_order
+
+    scene = SceneTensors(build_scene(a380), build_camera(a380.cam, MESH_W, MESH_H),
+                         a380.render_info.rad_info.russ_roull_info.max_thres).to(dev)
+    order = torch.from_numpy(tile_order(MESH_W, MESH_H)).to(dev)
+    xs, ys = (order % MESH_W).int(), (order // MESH_W).int()
+    state, ro, rd = raygen.generate_paths(rng.init_state(xs, ys, torch.zeros_like(xs)), xs, ys,
+                                          scene.cam, scene.has_lens)
+    params = itg.IntegratorParams(mode="cpu", assured_depth=5, max_bounces=24)
+    st = itg._bounce_step(scene, params, itg.init_lanes(scene, params, ro, rd, state))
+    n = xs.numel()
+    # the primary rays of the whole frame, then the secondary rays of one
+    # bounce (lanes whose path ended keep their primary ray)
+    o = tuple(torch.cat([ro[k], st["ro"][k]]).contiguous() for k in range(3))
+    d = tuple(torch.cat([rd[k], st["rd"][k]]).contiguous() for k in range(3))
+    lane = torch.arange(2 * n, device=dev)
+    dead = lane % 4 == 3
+    seed = torch.where(dead, torch.full_like(o[0], itg.DEAD_SEED), torch.full_like(o[0], INF))
+    err = 0.0
+    print(f"[hit] a380-class {MESH_W}x{MESH_H}: {n} primary + {n} secondary rays "
+          f"({int(st['active'].sum())} lanes survived the bounce), {int(dead.sum())} dead",
+          flush=True)
+    for t_min in (EPS, itg.CPU_GUARD):
+        ours = mk.mesh_hit(o, d, seed, scene.mesh, t_min=t_min)
+        ref = mk.mesh_hit_walk(o, d, seed, scene.mesh, t_min=t_min)
+        torch.cuda.synchronize()
+        g, rg = ours[1].long(), ref[1]
+        assert bool((g[dead] == -1).all()) and bool((ours[0][dead] == seed[dead]).all()), \
+            "a dead lane reached the mesh"
+        same = g == rg
+        agree = float(same.float().mean())
+        live = ~dead
+        hits = int((rg >= 0).sum())
+        line = [f"[hit] t_min {t_min:.4g}: {hits} hits, gid agrees on {agree:.6f} of lanes"]
+        for k, name in ((0, "t"), (2, "u"), (3, "v")):
+            a, b = ours[k][live], ref[k][live]
+            bad, _ = lane_gate(a, b)
+            both = same[live] & (rg[live] >= 0)
+            e = float((a[both] - b[both]).abs().max()) if bool(both.any()) else 0.0
+            err = max(err, e)
+            line.append(f"{name}: bad-lane fraction {bad:.6f} max|d| on equal hits {e:.3e}")
+            assert bad < 0.01, f"mesh_hit t_min {t_min}: {name} differs on {bad:.4f} of lanes"
+        print("; ".join(line), flush=True)
+        assert agree >= 0.999, f"mesh_hit t_min {t_min}: gid agrees on only {agree:.5f}"
+
+    # the wavefront's launch shape: a pool of HIT_POOL rays, half primary and
+    # half secondary, a quarter dead; in turns plain, kernel, kernel, plain
+    half = HIT_POOL // 2
+    pick = torch.cat([lane[:half], lane[n:n + half]])
+    po, pd, ps = tuple(c[pick] for c in o), tuple(c[pick] for c in d), seed[pick]
+
+    def timed(fn, reps):
+        fn(po, pd, ps, scene.mesh, t_min=itg.CPU_GUARD)  # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn(po, pd, ps, scene.mesh, t_min=itg.CPU_GUARD)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    t = {"plain": [], "kernel": []}
+    for kind, fn, reps in (("plain", mk.mesh_hit_walk, 2), ("kernel", mk.mesh_hit, 20),
+                           ("kernel", mk.mesh_hit, 20), ("plain", mk.mesh_hit_walk, 2)):
+        t[kind].append(timed(fn, reps))
+        print(f"[timing] {kind} mesh_hit a380-class pool of {HIT_POOL} rays: "
+              f"{t[kind][-1]:.4f} ms/launch [{card}]", flush=True)
+    return err, sum(t["kernel"]) / 2, sum(t["plain"]) / 2
+
+
+def integrator_phases(dev, card):
+    """Phases 7 and 8; returns the mesh_hit kernel's JSON record."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.models.walled import walled_scheme
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.ops import trace_kernel as tk
+    from raytrace_tpu_torch.render.renderer import Renderer
+    from raytrace_tpu_torch.render.target import RenderTarget
+    from raytrace_tpu_torch.utils import checkpoint as ckpt
+
+    a380 = procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP)
+    a380_cpu = variant(a380, use_gpu=False)
+
+    # ---- 7. mesh_hit against its plain version on the card ----
+    err, ms, plain_ms = mesh_hit_phase(dev, card, a380_cpu)
+
+    # ---- 8. the integrator paths at full width ----
+    def reset():
+        tk.LAUNCHES = 0
+        for k in mk.LAUNCHES:
+            mk.LAUNCHES[k] = 0
+
+    def render(label, scheme, spp, **kw):
+        """One warm render (a 1-spp render first, then a fresh target)
+        with the counts reset just before and read just after."""
+        w, h = scheme.render_info.width, scheme.render_info.height
+        r = Renderer(scheme, device="cuda", **kw)
+        r.render(samples=1)  # loads the torch kernels it uses, grows the allocator
+        r.target = RenderTarget(w, h)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        img = r.render(samples=spp)  # ends in a device -> host copy
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(mk.LAUNCHES, trace_tiles=tk.LAUNCHES)
+        print(f"[paths] Renderer({label} {w}x{h}, cuda{''.join(f', {k}={v}' for k, v in kw.items())})"
+              f".render({spp}): {dt:.4f} s, {w * h * spp / dt:.1f} paths/s, {r.mode} semantics, "
+              f"driver {r.driver}, stats {r.stats}, launches {counts} [{card}]", flush=True)
+        assert img.shape == (h, w, 3) and np.isfinite(img).all(), f"{label}: bad image"
+        print(f"[paths] {label} image mean per channel {img.mean(axis=(0, 1)).tolist()}",
+              flush=True)
+        return r, img, counts
+
+    def gate(label, img, ref):
+        mean_d, bad_tiles = tile_gate(img, ref)
+        print(f"[paths] {label}: channel-mean |d| {mean_d:.3e}, bad 8x8 tiles {bad_tiles:.4f}",
+              flush=True)
+        assert mean_d < 2e-3 and bad_tiles < 0.02, f"{label}: the images disagree"
+
+    # the slice's main path: cpu semantics through the wavefront
+    r, _, counts = render("a380-class", a380_cpu, MESH_SPP)
+    launches = counts["mesh_hit"]
+    assert r.driver == "wavefront" and launches > 0, "the main path did not launch mesh_hit"
+    assert counts["mesh_trace"] == counts["mesh_trace_brute"] == counts["trace_tiles"] == 0
+    _, _, dls = render("a380-class DLS", variant(a380_cpu, dir_light_samp=True), MESH_SPP)
+    assert dls["mesh_hit"] > launches, "the shadow rays did not go through mesh_hit"
+
+    # gpu semantics through the wavefront against the mesh path kernel
+    _, wf_img, counts = render("a380-class", a380, MESH_SPP, use_mesh_fused=False)
+    assert counts["mesh_hit"] > 0 and counts["mesh_trace"] == 0
+    _, fused_img, counts = render("a380-class", a380, MESH_SPP)
+    assert counts["mesh_trace"] > 0 and counts["mesh_hit"] == 0
+    gate(f"a380-class {MESH_W}x{MESH_H}x{MESH_SPP} wavefront vs mesh_trace", wf_img, fused_img)
+
+    walled = walled_scheme(W, H)
+    _, wf_img, counts = render("walled", walled, WALLED_WF_SPP, use_fused=False)
+    assert counts["trace_tiles"] == 0
+    _, fused_img, counts = render("walled", walled, WALLED_WF_SPP)
+    assert counts["trace_tiles"] > 0
+    gate(f"walled {W}x{H}x{WALLED_WF_SPP} wavefront vs trace_tiles", wf_img, fused_img)
+
+    small = variant(a380_cpu, 96, 48)
+    t0 = time.perf_counter()
+    cpu_img = Renderer(small, device="cpu").render(samples=MESH_SPP)
+    cpu_s = time.perf_counter() - t0
+    gpu_img = Renderer(small, device="cuda").render(samples=MESH_SPP)
+    gate(f"a380-class cpu semantics 96x48x{MESH_SPP} card vs cpu ({cpu_s:.1f} s on the cpu)",
+         gpu_img, cpu_img)
+
+    k = 4
+    full = Renderer(a380_cpu, device="cuda")
+    full.render(samples=2 * k, batch=k)
+    first = Renderer(a380_cpu, device="cuda")
+    first.render(samples=k)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        ckpt.save(path, first.target)
+        resumed = Renderer(a380_cpu, device="cuda")
+        resumed.target = ckpt.load(path)
+    resumed.render(samples=k)
+    assert resumed.target.count == full.target.count == 2 * k
+    assert np.array_equal(resumed.target.acc, full.target.acc), "resume is not bitwise exact"
+    print(f"[paths] resume at {k} spp: bitwise exact ({2 * k} spp, a380-class {MESH_W}x{MESH_H}, "
+          f"cpu semantics, wavefront)", flush=True)
+
+    profile(full, card)
+    return {"name": "mesh_hit", "route": "cuda", "source": "raytrace_tpu_torch/csrc/mesh_kernel.cu",
+            "replaces": "raytrace_tpu/ops/pallas/mesh_hit_kernel.py:269", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def profile(renderer, card):
+    """torch.profiler over one warm render(16) of the renderer: device
+    time per kernel, the mesh_hit kernel's share, host syncs per
+    wavefront iteration, and the device's idle share of an unprofiled
+    warm render(16)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    renderer.render(samples=MESH_SPP)  # warm, unprofiled
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        renderer.render(samples=MESH_SPP)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    # the kernels' own rows: an operator's row repeats its kernels' time
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+    def dev_us(e):
+        return float(e.self_device_time_total)
+
+    total = sum(dev_us(e) for e in kernels)
+    iters = renderer.stats["iterations"]
+    print(f"[profile] a380-class cpu semantics render({MESH_SPP}), warm: {iters} wavefront "
+          f"iterations, {renderer.stats['lane_bounces']} lane-bounces, device time "
+          f"{total / 1e3:.3f} ms [{card}]", flush=True)
+    if total <= 0:
+        print("[profile] the profiler recorded no device time", flush=True)
+        return
+    print(f"[profile] the same render unprofiled: {wall_ms:.3f} ms wall, so the device is idle "
+          f"{1 - total / 1e3 / wall_ms:.1%} of it [{card}]", flush=True)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:14]:
+        print(f"[profile] {dev_us(e) / total:7.2%} {dev_us(e) / 1e3:10.3f} ms {e.count:7d}x "
+              f"{e.key[:90]}", flush=True)
+    hit = sum(dev_us(e) for e in kernels if "mesh_hit_kernel" in e.key)
+    print(f"[profile] mesh_hit kernel {hit / total:.2%} of device time; the elementwise "
+          f"integrator and the rest {1 - hit / total:.2%}", flush=True)
+    for name in ("cudaStreamSynchronize", "aten::_local_scalar_dense", "cudaLaunchKernel"):
+        c = sum(e.count for e in rows if e.key == name)
+        print(f"[profile] {name}: {c} calls, {c / max(iters, 1):.1f} per iteration", flush=True)
 
 
 def main() -> int:
@@ -512,6 +775,7 @@ def main() -> int:
         "plain_ms": plain_ms,
     }]
     kernels += mesh_phases(dev, card)
+    kernels.append(integrator_phases(dev, card))
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

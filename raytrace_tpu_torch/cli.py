@@ -2,7 +2,8 @@
 spheres, free triangles and `!Model` glTF meshes.
 
     python -m raytrace_tpu_torch.cli <scheme.yml> [no_ui] --device cuda \
-        --samples N --out render_out.png [--checkpoint ck.npz] [--resume ck.npz]
+        [--mode gpu|cpu] --samples N --out render_out.png [--checkpoint ck.npz] \
+        [--resume ck.npz]
 
 Renders to a PNG, rewritten (with the checkpoint, when asked) after every
 sample batch, as the reference's no-ui output loop (ui_util.rs:37-54).
@@ -18,7 +19,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="path tracer (PyTorch / CUDA)")
     ap.add_argument("scheme", help="scheme YAML path")
     ap.add_argument("no_ui", nargs="?", default=None, help="compat positional (no window in this build)")
-    ap.add_argument("--device", default="cuda", help="cuda (the CUDA kernel) or cpu (plain torch)")
+    ap.add_argument("--device", default="cuda", help="cuda (the CUDA kernels) or cpu (plain torch)")
+    ap.add_argument("--mode", choices=("gpu", "cpu"), default=None,
+                    help="the reference backend's semantics to reproduce (default: the "
+                         "scheme's use_gpu)")
     ap.add_argument("--out", default="render_out.png")
     ap.add_argument("--samples", type=int, default=None, help="override samps_per_pix")
     ap.add_argument("--scale", type=int, default=1, help="divide width/height by this (smoke runs)")
@@ -39,7 +43,7 @@ def main(argv=None):
         info.width //= args.scale
         info.height //= args.scale
 
-    renderer = Renderer(scheme, device=args.device)
+    renderer = Renderer(scheme, device=args.device, mode=args.mode)
     if args.resume:
         loaded = ckpt.load(args.resume)
         if (loaded.width, loaded.height) != (renderer.width, renderer.height):
@@ -57,7 +61,8 @@ def main(argv=None):
     renderer.render(samples=args.samples, update_hook=hook)
     save_png(args.out, renderer.target.to_u8_rgba())
     print(f"saved {args.out} ({renderer.target.count} spp, {time.perf_counter() - t0:.1f}s, "
-          f"device {renderer.device})", flush=True)
+          f"device {renderer.device}, {renderer.mode} semantics, {renderer.driver} driver)",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-// Path-tracing kernel for mesh scenes (Hopper, sm_90a): two entry points.
+// Mesh kernels (Hopper, sm_90a): the path-tracing kernel of mesh scenes
+// (two entry points) and the integrator's nearest mesh hit (a third).
 //
 // Replaces raytrace_tpu/ops/pallas/mesh_bounce_kernel.py::bounce_tiles
 // (the body `_kernel`, its cluster walk `mesh_walk`) and the in-kernel MXU
@@ -51,6 +52,23 @@
 // fetch trunc(clip(u * w, 0, w - 1)) without a v flip, zero mesh
 // emissive, divert weight 1) follow the JAX package; only float rounding
 // (FMA contraction, sinf/cosf, rsqrtf) may differ.
+//
+// The third entry point, mesh_hit, replaces
+// raytrace_tpu/ops/pallas/mesh_hit_kernel.py::mesh_hit_tiles (body
+// `_kernel`): the nearest mesh hit (t, global triangle id, u, v) of each
+// ray of the XLA integrator and the wavefront driver
+// (render/integrator.closest_hit, at every bounce and for every shadow ray
+// of direct-light sampling), seeded with the sphere / free-triangle best
+// t. One thread per ray runs the same walk as mesh_trace, with a lower
+// bound t_min applied after the triangle test (EPS in gpu semantics; the
+// cpu semantics' 20*EPS self-hit guard, which the TPU kernel left out);
+// a lane seeded with -INF (a dead lane) reaches no cluster. Where the TPU
+// kernel streamed reached superclusters into VMEM by DMA, the tables stay
+// in global memory and L2 behind __ldg. What bounds it is the walk's:
+// dependent global loads along the walk and warp divergence. This first
+// version relies on the wavefront's 32x32-tile lane order to keep the
+// rays of a warp together; wider BVH nodes, ray sorting and persistent
+// threads are later work.
 //
 // Built by raytrace_tpu_torch/kernels/build.py (nvcc -arch sm_90a, no
 // --use_fast_math); called through ctypes from ops/mesh_kernel.py.
@@ -114,8 +132,10 @@ __device__ __forceinline__ void test_tri(const Ray& r, float4 a, float4 b, float
   }
 }
 
-// the 3-level cluster walk of one lane; tt in: the sphere / free-triangle best
-__device__ void walk(const Mesh& m, const Ray& r, float& tt, int& gid, float& bu, float& bv) {
+// the 3-level cluster walk of one lane; tt in: the sphere / free-triangle
+// best; a hit counts at t_min <= t < tt (tri_hit already implies t >= EPS)
+__device__ void walk(const Mesh& m, const Ray& r, float t_min, float& tt, int& gid, float& bu,
+                     float& bv) {
   const float fx = 1.f / slab_dir(r.dx);
   const float fy = 1.f / slab_dir(r.dy);
   const float fz = 1.f / slab_dir(r.dz);
@@ -132,7 +152,8 @@ __device__ void walk(const Mesh& m, const Ray& r, float& tt, int& gid, float& bu
           float t, u, v;
           const float4 a = __ldg(rows + 3 * w), b = __ldg(rows + 3 * w + 1),
                        cc = __ldg(rows + 3 * w + 2);
-          if (tri_hit(r, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, cc.x, t, u, v) && t < tt) {
+          if (tri_hit(r, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, cc.x, t, u, v) && t >= t_min &&
+              t < tt) {
             tt = t;
             gid = __ldg(ids + w);
             bu = u;
@@ -363,7 +384,7 @@ mesh_trace_kernel(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys
     if (kBrute) {
       brute(m, p.ray, active, s_tri, s_gid, tm, mgid, bu, bv);
     } else {
-      walk(m, p.ray, tm, mgid, bu, bv);
+      walk(m, p.ray, kEps, tm, mgid, bu, bv);
     }
     if (!active) continue;
 
@@ -430,7 +451,43 @@ int launch(const int32_t* xs, const int32_t* ys, const int32_t* samp, int n, con
   return static_cast<int>(cudaGetLastError());
 }
 
+// the integrator's nearest mesh hit: one thread per ray, SoA in and out
+__global__ void __launch_bounds__(kThreads)
+mesh_hit_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+                const float* __restrict__ oz, const float* __restrict__ dx,
+                const float* __restrict__ dy, const float* __restrict__ dz,
+                const float* __restrict__ seed, int n, float t_min, const Mesh m,
+                float* __restrict__ t_out, int* __restrict__ gid_out, float* __restrict__ u_out,
+                float* __restrict__ v_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
+  float tt = seed[i], bu = 0.f, bv = 0.f;
+  int gid = -1;
+  walk(m, r, t_min, tt, gid, bu, bv);
+  t_out[i] = tt;
+  gid_out[i] = gid;
+  u_out[i] = bu;
+  v_out[i] = bv;
+}
+
 }  // namespace
+
+extern "C" int mesh_hit_launch(const float* ox, const float* oy, const float* oz,
+                               const float* dx, const float* dy, const float* dz,
+                               const float* seed, int n, float t_min, const float* sgbounds,
+                               const float* sbounds, const float* bounds, const int* count,
+                               const float* tri, const int* gid, int n_sg, int width,
+                               float* t_out, int* gid_out, float* u_out, float* v_out,
+                               void* stream) {
+  if (n <= 0) return 0;
+  const Mesh m{sgbounds, sbounds, bounds, count, reinterpret_cast<const float4*>(tri), gid,
+               n_sg, width, nullptr, nullptr, 0, nullptr, nullptr, nullptr, 0, 0};
+  const int blocks = (n + kThreads - 1) / kThreads;
+  mesh_hit_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ox, oy, oz, dx, dy, dz, seed, n, t_min, m, t_out, gid_out, u_out, v_out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 #define MESH_TRACE_ARGS                                                                      \
   const int32_t *xs, const int32_t *ys, const int32_t *samp, int n, const float *sph,        \

@@ -11,6 +11,10 @@ multiple of 2,048 for its TPU chunking); `mt_tri12`, the MXU Woop table
 and the asset-local instancing tables are not built (see
 ops/mesh_kernel.py). The cube map is not ported yet; `build_scene`
 rejects it.
+
+`SceneTensors` is the scene on the device for the integrator and the
+wavefront driver (render/integrator.py): the JAX Renderer's one
+`jax.device_put(self.scene)` per Renderer (renderer.py:828-830).
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from dataclasses import dataclass, field, fields
 from typing import Mapping, Optional
 
 import numpy as np
+import torch
+from torch import nn
 
 from . import gltf
 from .config import (CubeMapMember, FreeTriangleMember, ModelMember, Scheme, SphereMember,
@@ -385,3 +391,41 @@ def from_reference(ref_fields: Mapping) -> SceneArrays:
         n_mesh_tris=M,
         has_cubemap=False,
     )
+
+
+_SPH_TENSORS = ("sph_c", "sph_r", "sph_rgb", "sph_emissive", "sph_has_em", "sph_kind",
+                "sph_diffp", "sph_n_out", "sph_n_in")
+_FT_TENSORS = ("ft_v0", "ft_e1", "ft_e2", "ft_norm", "ft_rgb", "ft_emissive", "ft_has_em",
+               "ft_kind", "ft_diffp", "ft_n_out", "ft_n_in")
+
+
+class SceneTensors(nn.Module):
+    """Every SceneArrays field the integrator reads, as buffers moved
+    once with `.to(device)`: the sphere and free-triangle columns
+    without their padding rows (their rows keep the SceneArrays order,
+    so sphere indices are the JAX integrator's), and for a mesh scene
+    `mesh`, the flattened, camera-ordered walk tables and shading
+    attributes of `ops.mesh_kernel.MeshTables` (None without a mesh).
+    `cam` is the camera row as Python floats (raygen's constants) and
+    `emitters` the emissive spheres (index, center, emissive) that
+    direct-light sampling sums over, as float32 values."""
+
+    def __init__(self, scene: SceneArrays, cam, max_thres: float):
+        super().__init__()
+        from ..ops.mesh_kernel import MeshTables
+        from ..ops.trace_kernel import make_cam_vec
+
+        self.n_spheres = S = int(scene.n_spheres)
+        self.n_free_tris = F = int(scene.n_free_tris)
+        self.n_mesh_tris = int(scene.n_mesh_tris)
+        for names, n in ((_SPH_TENSORS, S), (_FT_TENSORS, F)):
+            for k in names:
+                a = np.ascontiguousarray(getattr(scene, k)[:n])
+                self.register_buffer(k, torch.from_numpy(a.astype(np.int64) if a.dtype == np.int32
+                                                         else a))
+        self.mesh = MeshTables(scene, cam, max_thres) if self.n_mesh_tris else None
+        self.cam = [float(v) for v in make_cam_vec(cam, max_thres).reshape(-1)]
+        self.has_lens = cam.lens_r is not None
+        self.emitters = [(e, [float(v) for v in scene.sph_c[e]],
+                          [float(v) for v in scene.sph_emissive[e]])
+                         for e in range(S) if bool(scene.sph_has_em[e])]

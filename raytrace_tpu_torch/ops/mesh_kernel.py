@@ -47,6 +47,7 @@ import torch
 from torch import nn
 
 from . import raygen, rng
+from .raygen import normalize
 from .bsdf import uniform_bsdf
 from .intersect import EPS, INF, closest_sph_ft, triangle_tuv
 from .texture import pool_tensor, sample_nearest
@@ -62,7 +63,7 @@ _NOHIT_LO, _NOHIT_HI = 3.0e38, -3.0e38  # inverted AABB of padding clusters (the
 # JAX layout; the slab test does not retire it, the walks skip count-0 clusters)
 
 # launches of each CUDA entry point in this process (read by chip_smoke.py)
-LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0}
+LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_hit": 0}
 
 
 # --- host-side packing -----------------------------------------------------
@@ -252,13 +253,15 @@ def _resolve(t_seed, lane, t, pos, gid, u, v):
     return t_out, gid_out, u_out, v_out
 
 
-def mesh_hit_walk(o, d, t_seed, tables):
+def mesh_hit_walk(o, d, t_seed, tables, t_min: float = EPS):
     """Nearest mesh hit by the slab-culled cluster walk: a triangle is
     tested only for the lanes whose slab tests reach its supergroup,
     supercluster and cluster (pruned by entry < t_seed). o, d: 3-tuples
-    of (N,) f32; t_seed (N,) f32. Returns (t, gid (int64, -1 where no
-    triangle beat t_seed), u, v). The kernel prunes by its running best
-    instead of t_seed: the same nearest hit except where an exact-t tie
+    of (N,) f32; t_seed (N,) f32; a hit counts only at t >= t_min,
+    applied after the triangle test (EPS, which the test implies, or the
+    cpu semantics' 20*EPS). Returns (t, gid (int64, -1 where no triangle
+    beat t_seed), u, v). The kernels prune by their running best instead
+    of t_seed: the same nearest hit except where an exact-t tie
     straddles two clusters."""
     n = t_seed.numel()
     f = [1.0 / _slab_clamp(dk) for dk in d]
@@ -285,7 +288,8 @@ def mesh_hit_walk(o, d, t_seed, tables):
         t, u, v = triangle_tuv(*ray, (rows[..., 0], rows[..., 1], rows[..., 2]),
                                (rows[..., 3], rows[..., 4], rows[..., 5]),
                                (rows[..., 6], rows[..., 7], rows[..., 8]))
-        t = torch.where(w_idx[None, :] < tables.count[pn, None], t, torch.full_like(t, INF))
+        ok = (w_idx[None, :] < tables.count[pn, None]) & (t >= t_min)
+        t = torch.where(ok, t, torch.full_like(t, INF))
         tmin, arg = t.min(dim=1)  # the first of equal minima: scan order
         hit = tmin < t_seed[pl]
         a = arg[hit, None]
@@ -326,17 +330,6 @@ def mesh_hit_brute(o, d, t_seed, tables):
     return tuple(out)
 
 
-def _vnorm(x, y, z, eps: float = 0.0):
-    """sqrt-then-divide normalize (the JAX package's ops/vec.normalize)."""
-    n2 = x * x + y * y + z * z
-    tiny = float(np.float32(max(eps * eps, 1e-30)))
-    n = torch.sqrt(torch.where(n2 > tiny, n2, torch.full_like(n2, tiny)))
-    if eps:
-        n = torch.clamp(n, min=float(np.float32(eps)))
-    inv = 1.0 / n
-    return x * inv, y * inv, z * inv
-
-
 def mesh_attrs(attr, desc, pool, pool_kind: int, mi, bu, bv):
     """Shading attributes of mesh hits (integrator.mesh_attrs_dense,
     :546-630): shading normal (normal-mapped, the raw [0, 1] texel taken
@@ -358,7 +351,7 @@ def mesh_attrs(attr, desc, pool, pool_kind: int, mi, bu, bv):
                               *interp(base))
 
     _, tn = fetch(3, 25)
-    mapped = _vnorm(*((col(r) * tn[0] + col(r + 1) * tn[1] + col(r + 2) * tn[2]) * col(12)
+    mapped = normalize(*((col(r) * tn[0] + col(r + 1) * tn[1] + col(r + 2) * tn[2]) * col(12)
                       for r in (3, 6, 9)), eps=1e-20)
     has_nm = col(18) > 0.5
     n = [torch.where(has_nm, mapped[k], col(k)) for k in range(3)]
@@ -443,8 +436,8 @@ def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int
         pos_m = [o[k] + d[k] * t_safe + nm[k] * EPS for k in range(3)]
         dn = d[0] * nm[0] + d[1] * nm[1] + d[2] * nm[2]
         k2 = 2.0 * dn
-        spec = _vnorm(*(d[k] - nm[k] * k2 for k in range(3)))
-        xd = _vnorm(*(d[k] - nm[k] * dn for k in range(3)), eps=1e-20)
+        spec = normalize(*(d[k] - nm[k] * k2 for k in range(3)))
+        xd = normalize(*(d[k] - nm[k] * dn for k in range(3)), eps=1e-20)
         yd = (nm[1] * xd[2] - nm[2] * xd[1], nm[2] * xd[0] - nm[0] * xd[2],
               nm[0] * xd[1] - nm[1] * xd[0])
         r_ = torch.sqrt(u1)
@@ -457,8 +450,8 @@ def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int
         a2 = adn * adn
         refl = r0 + (1.0 - r0) * (1.0 - a2 * a2 * adn)
         pbr_diff = u0 < (1.0 - refl)
-        sc = _vnorm(u4, u5, u6, eps=1e-20)
-        nd_m = _vnorm(*(where(pbr_diff, diff[k], spec[k]) + sc[k] * rough for k in range(3)))
+        sc = normalize(u4, u5, u6, eps=1e-20)
+        nd_m = normalize(*(where(pbr_diff, diff[k], spec[k]) + sc[k] * rough for k in range(3)))
         mrgb = (mr, mg, mb)
         ci = [where(mesh, ci[k] * mrgb[k], ci[k]) for k in range(3)]
 
@@ -573,3 +566,64 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
     if xs.device.type == "cpu":
         return mesh_trace_reference(xs, ys, samp, tables, **kw)
     raise ValueError(f"mesh_trace runs on cpu or cuda tensors, not {xs.device}")
+
+
+# --- the nearest hit alone: the integrator's mesh intersection -------------
+
+
+def _launch_hit(o, d, t_seed, tables, t_min):
+    from ..kernels import build
+
+    dev = t_seed.device
+    n = t_seed.numel()
+    rays = [c.contiguous() for c in (*o, *d, t_seed)]
+    for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t_seed"), rays):
+        if t.dtype != torch.float32 or t.device != dev or t.shape != (n,):
+            raise ValueError(f"{name} must be ({n},) float32 on {dev}")
+    for names, dtype in ((("sgbounds", "sbounds", "bounds", "tri"), torch.float32),
+                         (("count", "gid"), torch.int32)):
+        for name in names:
+            t = getattr(tables, name)
+            if t.dtype != dtype or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"tables.{name} must be contiguous {dtype} on {dev}")
+    if tables.tri.shape[2] != TRI_COLS:
+        raise ValueError("tables do not have the packed column layout")
+
+    fn = build.build("mesh_kernel").lib.mesh_hit_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
+    t_out, u_out, v_out = (torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3))
+    gid_out = torch.empty(n, dtype=torch.int32, device=dev)
+    tb = tables
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(r.data_ptr() for r in rays), n, t_min,
+                tb.sgbounds.data_ptr(), tb.sbounds.data_ptr(), tb.bounds.data_ptr(),
+                tb.count.data_ptr(), tb.tri.data_ptr(), tb.gid.data_ptr(),
+                tb.sgbounds.shape[0], tb.tri.shape[1],
+                t_out.data_ptr(), gid_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"mesh_hit kernel launch failed: CUDA error {rc}")
+    LAUNCHES["mesh_hit"] += 1
+    return t_out, gid_out, u_out, v_out
+
+
+def mesh_hit(o, d, t_seed, tables: MeshTables, *, t_min: float):
+    """The nearest mesh hit of each ray (the contract of the JAX
+    `mesh_hit_tiles`, mesh_hit_kernel.py:268-276): o, d 3-tuples of (N,)
+    f32 tensors, t_seed (N,) f32 the best t so far; a hit counts at
+    t_min <= t < the lane's best (t_min EPS in gpu semantics, 20*EPS in
+    cpu semantics). Returns (t, gid int32, u, v): gid -1 and t = t_seed
+    where no triangle beat the seed. A lane seeded with -INF (a dead
+    lane) reaches no cluster.
+
+    CPU tensors run `mesh_hit_walk`; CUDA tensors launch the
+    `mesh_hit` entry of csrc/mesh_kernel.cu or raise."""
+    t_min = float(np.float32(t_min))
+    if t_seed.device.type == "cuda":
+        return _launch_hit(o, d, t_seed, tables, t_min)
+    if t_seed.device.type == "cpu":
+        t, gid, u, v = mesh_hit_walk(o, d, t_seed, tables, t_min=t_min)
+        return t, gid.to(torch.int32), u, v
+    raise ValueError(f"mesh_hit runs on cpu or cuda tensors, not {t_seed.device}")

@@ -1,14 +1,20 @@
 """Camera ray generation: pinhole + optional thin lens, jittered.
 
 Mirrors `raytrace_tpu/ops/raygen.py:35-67` (the reference's
-ray/generate.rs:13-66) in the formulation of the fused kernel's
-`start_sample` (`raytrace_tpu/ops/pallas/trace_kernel.py:457-487`),
-which the CUDA kernel follows too: the pre-jitter direction is
-`d + s_x*right + s_y*up`, and the final normalize is `_norm3`'s
-rsqrt(max(|d|^2, 1e-30)). Draw order: lens u, v (when the camera has a
-lens), then jitter u, v, from the default (`weyl`) generator.
+ray/generate.rs:13-66) in two formulations that differ only in the
+final normalize of the direction `d + s_x*right + s_y*up + jitter`:
 
-The camera is the (18,) row of `ops.trace_kernel.make_cam_vec`.
+- `start` / `generate`: the fused kernels' `start_sample`
+  (`raytrace_tpu/ops/pallas/trace_kernel.py:457-487`), which the CUDA
+  kernels follow too: `_norm3`'s rsqrt(max(|d|^2, 1e-30));
+- `generate_paths`: the XLA integrator's
+  `raygen.generate`, whose last step is `vec.normalize`: a sqrt, then a
+  multiply by 1/n (`normalize` below). The integrator and the wavefront
+  use it.
+
+Draw order: lens u, v (when the camera has a lens), then jitter u, v,
+from the default (`weyl`) generator. The camera is the (18,) row of
+`ops.trace_kernel.make_cam_vec`.
 """
 from __future__ import annotations
 
@@ -29,6 +35,19 @@ def norm3(x, y, z):
     return x * inv, y * inv, z * inv
 
 
+def normalize(x, y, z, eps: float = 0.0):
+    """sqrt-then-divide normalize (the JAX package's ops/vec.normalize,
+    :89-97): n = sqrt(max(|v|^2, max(eps^2, 1e-30))), clamped to eps,
+    then v * (1 / n)."""
+    n2 = x * x + y * y + z * z
+    tiny = float(np.float32(max(eps * eps, 1e-30)))
+    n = torch.sqrt(torch.where(n2 > tiny, n2, torch.full_like(n2, tiny)))
+    if eps:
+        n = torch.clamp(n, min=float(np.float32(eps)))
+    inv = 1.0 / n
+    return x * inv, y * inv, z * inv
+
+
 def base_dir(x_idx, y_idx, cam):
     """Pre-jitter, pre-lens ray direction of each pixel (loop-invariant
     over samples). cam: the 18 camera floats as a Python list."""
@@ -38,9 +57,9 @@ def base_dir(x_idx, y_idx, cam):
     return tuple(cam[3 + k] + s_x * cam[9 + k] + s_y * cam[6 + k] for k in range(3))
 
 
-def start(state, bd, cam, has_lens: bool):
-    """Lens + jitter + normalize from the base direction `bd`. Returns
-    (state, (ox, oy, oz), (dx, dy, dz))."""
+def _lens_jitter(state, bd, cam, has_lens: bool):
+    """Lens + jitter from the base direction `bd`, before the normalize.
+    Returns (state, (ox, oy, oz), (dx, dy, dz))."""
     dx, dy, dz = bd
     ox_c, oy_c, oz_c = cam[0], cam[1], cam[2]
     ux, uy, uz = cam[6], cam[7], cam[8]
@@ -64,7 +83,14 @@ def start(state, bd, cam, has_lens: bool):
     dx = dx + rx * jx + ux * jy
     dy = dy + ry * jx + uy * jy
     dz = dz + rz * jx + uz * jy
-    return state, o, norm3(dx, dy, dz)
+    return state, o, (dx, dy, dz)
+
+
+def start(state, bd, cam, has_lens: bool):
+    """The fused kernels' raygen: lens + jitter + rsqrt normalize from
+    the base direction `bd`. Returns (state, (ox, oy, oz), (dx, dy, dz))."""
+    state, o, d = _lens_jitter(state, bd, cam, has_lens)
+    return state, o, norm3(*d)
 
 
 def generate(state, x_idx, y_idx, cam_vec, has_lens: bool):
@@ -73,3 +99,11 @@ def generate(state, x_idx, y_idx, cam_vec, has_lens: bool):
     Returns (state, ro, rd), each ray a tuple of three (N,) tensors."""
     cam = [float(v) for v in np.asarray(torch.as_tensor(cam_vec).cpu()).reshape(-1)]
     return start(state, base_dir(x_idx, y_idx, cam), cam, has_lens)
+
+
+def generate_paths(state, x_idx, y_idx, cam, has_lens: bool):
+    """The integrator's raygen (`raytrace_tpu/ops/raygen.generate`): as
+    `generate`, with the sqrt-then-divide `normalize`; cam is the 18
+    camera floats as a Python list."""
+    state, o, d = _lens_jitter(state, base_dir(x_idx, y_idx, cam), cam, has_lens)
+    return state, o, normalize(*d)

@@ -1,24 +1,35 @@
-"""Renderer driver: the walled-class and mesh-scene paths on one device.
+"""Renderer driver: one device, the JAX Renderer's choice of driver.
 
-Port of `raytrace_tpu/render/renderer.py` for its two fused-kernel
-paths: meshless scenes through `trace_tiles` (`sample_batch_fused`
-:125-193) and mesh scenes through the mesh path kernel (the JAX
-`fused_mesh.sample_batch_mesh_fused`, :274), routed as the JAX
-`Renderer` routes them (:409-427), with `render` (:740-943). gpu
-semantics, no cube map. One launch covers every pixel for up to
-`samples_per_launch` consecutive sample ids (the kernels regenerate
-samples in place), so any sample count runs through a kernel and the
-JAX driver's plain-integrator tail is not needed. Sample ids continue at
-`target.count`, so an incremental or checkpoint-resumed render is
-bit-exact.
+Port of `raytrace_tpu/render/renderer.py` (:394-427, :606-628, `render`
+:740-943) with four drivers, chosen in the JAX package's order:
 
-Anything outside those paths raises NotImplementedError; nothing is
-routed to a substitute path. The device is explicit: a CUDA device runs
-the CUDA kernels, the CPU runs their plain torch versions.
+1. `sample_batch_fused` (:125-193): meshless gpu-semantics scenes of at
+   most 64 spheres and 64 free triangles, through `trace_tiles`;
+2. `sample_batch_mesh` (the JAX `fused_mesh.sample_batch_mesh_fused`,
+   :274): gpu-semantics mesh scenes under the same limits, through the
+   mesh path kernel;
+3. `wavefront.wavefront_batch`: every other forward render (cpu
+   semantics, direct-light sampling, debug_single_ray, more than 64
+   spheres or free triangles), the XLA integrator over a lane pool, its
+   mesh intersection through the `mesh_hit` kernel;
+4. `sample_batch` (:64-122): the plain integrator over all pixels, one
+   sample at a time; the wavefront's oracle.
+
+A driver flag left None takes that driver when the scene supports it;
+False skips it; True demands it and raises NotImplementedError when the
+scene does not support it (where the JAX package would quietly route
+elsewhere). No cube map yet. The fused drivers cover up to
+`samples_per_launch` consecutive sample ids per launch (the kernels
+regenerate samples in place); the wavefront takes up to that many per
+call (its per-(sample, pixel) slots bound the memory), the plain driver
+one at a time. Both integrator drivers run their lanes in the JAX
+package's 32x32-tile pixel order. Sample ids continue at `target.count`, so an
+incremental or checkpoint-resumed render is bit-exact. The device is
+explicit: a CUDA device runs the CUDA kernels, the CPU their plain torch
+versions; nothing falls back.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
@@ -26,35 +37,57 @@ import torch
 
 from ..models.camera import build_camera
 from ..models.config import Scheme
-from ..models.scene import build_scene
+from ..models.scene import SceneTensors, build_scene
 from ..ops import mesh_kernel as mk
+from ..ops import raygen, rng
 from ..ops import trace_kernel as tk
+from .integrator import IntegratorParams, trace_paths
 from .target import RenderTarget
+from .wavefront import wavefront_batch
+
+DRIVERS = ("fused", "mesh_fused", "wavefront", "plain")
+POOL_CAP = 1 << 17  # the wavefront's lane pool (renderer.py:622)
 
 
-@dataclass(frozen=True)
-class RenderParams:
-    """The integrator settings the fused path reads (the JAX package's
-    IntegratorParams, render/integrator.py:67-81)."""
-
-    max_thres: float = 0.5
-    assured_depth: int = 5
-    max_bounces: int = 24
-    mode: str = "gpu"
-    debug_single_ray: bool = False
-
-
-def params_from_scheme(scheme: Scheme) -> RenderParams:
-    ri = scheme.render_info.rad_info
-    return RenderParams(
+def params_from_scheme(scheme: Scheme, mode: Optional[str] = None) -> IntegratorParams:
+    """The scheme's integrator settings; mode defaults to the scheme's
+    `use_gpu` (gpu or cpu semantics)."""
+    info = scheme.render_info
+    ri = info.rad_info
+    return IntegratorParams(
         max_thres=ri.russ_roull_info.max_thres,
         assured_depth=ri.russ_roull_info.assured_depth,
-        mode="gpu" if scheme.render_info.use_gpu else "cpu",
+        mode=mode or ("gpu" if info.use_gpu else "cpu"),
         debug_single_ray=ri.debug_single_ray,
+        dir_light_samp=ri.dir_light_samp,
     )
 
 
-def sample_batch_fused(tables: tk.SceneTables, params: RenderParams, xs, ys,
+def tile_order(width: int, height: int) -> np.ndarray:
+    """The JAX Renderer's lane order (renderer.py:444-453): flat pixel
+    ids in 32x32 tiles, so that the rays of consecutive lanes (a warp)
+    stay close together for the mesh walk."""
+    ys, xs = np.divmod(np.arange(width * height, dtype=np.int64), width)
+    tile_id = (ys // 32) * (-(-width // 32)) + xs // 32
+    return np.lexsort(((ys % 32) * 32 + xs % 32, tile_id))
+
+
+def sample_batch(scene: SceneTensors, params: IntegratorParams, xs, ys, sample_base: int,
+                 n_samples: int) -> torch.Tensor:
+    """The plain integrator (renderer.py:64-122): per sample id s in
+    sample_base .. sample_base+n_samples-1, seed every lane's stream from
+    (x, y, s), raygen and `trace_paths`. xs, ys: (N,) int32 on the scene's
+    device. Returns the (N, 3) f32 radiance sums, in lane order."""
+    acc = torch.zeros((xs.numel(), 3), dtype=torch.float32, device=xs.device)
+    for s in range(n_samples):
+        state = rng.init_state(xs, ys, torch.full_like(xs, sample_base + s))
+        state, ro, rd = raygen.generate_paths(state, xs, ys, scene.cam, scene.has_lens)
+        L, _ = trace_paths(scene, params, ro, rd, state)
+        acc = acc + torch.stack(L, dim=1)
+    return acc
+
+
+def sample_batch_fused(tables: tk.SceneTables, params: IntegratorParams, xs, ys,
                        sample_base: int, n_samples: int, *,
                        samples_per_launch: int) -> torch.Tensor:
     """Radiance SUM over sample ids sample_base .. sample_base+n_samples-1
@@ -75,7 +108,7 @@ def sample_batch_fused(tables: tk.SceneTables, params: RenderParams, xs, ys,
     return acc
 
 
-def sample_batch_mesh(tables: mk.MeshTables, params: RenderParams, xs, ys,
+def sample_batch_mesh(tables: mk.MeshTables, params: IntegratorParams, xs, ys,
                       sample_base: int, n_samples: int, *,
                       samples_per_launch: int) -> torch.Tensor:
     """sample_batch_fused for mesh scenes: radiance SUM over sample ids
@@ -92,10 +125,27 @@ def sample_batch_mesh(tables: mk.MeshTables, params: RenderParams, xs, ys,
     return acc
 
 
-class Renderer:
-    """Static-scene renderer (the reference's renderer.rs:41-63)."""
+def _pick_driver(flags: dict, supported: dict) -> str:
+    asked = [d for d in DRIVERS if flags.get(d) is True]
+    if len(asked) > 1:
+        raise ValueError(f"more than one driver asked for: {asked}")
+    if asked:
+        if not supported[asked[0]]:
+            raise NotImplementedError(f"the scene is outside the {asked[0]} driver")
+        return asked[0]
+    return next(d for d in DRIVERS if flags.get(d) is None and supported[d])
 
-    def __init__(self, scheme: Scheme, device="cuda", samples_per_launch: int = 256):
+
+class Renderer:
+    """Static-scene renderer (the reference's renderer.rs:41-63). `mode`
+    overrides the scheme's semantics ("gpu" or "cpu"); use_fused,
+    use_mesh_fused and use_wavefront pick the driver (module docstring).
+    `driver` names the one taken; after a wavefront render, `stats`
+    holds its iterations and lane-bounces."""
+
+    def __init__(self, scheme: Scheme, device="cuda", samples_per_launch: int = 256,
+                 mode: Optional[str] = None, use_fused: Optional[bool] = None,
+                 use_mesh_fused: Optional[bool] = None, use_wavefront: Optional[bool] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for but torch.cuda.is_available() is False")
@@ -106,27 +156,50 @@ class Renderer:
         self.scheme = scheme
         info = scheme.render_info
         self.width, self.height = info.width, info.height
-        self.params = params_from_scheme(scheme)
+        self.params = params_from_scheme(scheme, mode)
+        self.mode = self.params.mode
         # build_scene raises NotImplementedError on the cube map
         self.scene = build_scene(scheme)
         self.samples_per_launch = samples_per_launch
         self.camera = build_camera(scheme.cam, self.width, self.height)
         self.target = RenderTarget(self.width, self.height)
+        self.stats = {"iterations": 0, "lane_bounces": 0}
+        self.driver = _pick_driver(
+            {"fused": use_fused, "mesh_fused": use_mesh_fused, "wavefront": use_wavefront},
+            {"fused": tk.supports(self.scene, self.params),
+             "mesh_fused": mk.supports(self.scene, self.params), "wavefront": True,
+             "plain": True})
         max_thres = self.params.max_thres
+        n_pix = self.width * self.height
         # the scene is uploaded once per Renderer, not per render() call
-        if tk.supports(self.scene, self.params):
-            self.tables = tk.SceneTables(self.scene, self.camera, max_thres).to(self.device)
-            self._batch = sample_batch_fused
-        elif mk.supports(self.scene, self.params):
-            self.tables = mk.MeshTables(self.scene, self.camera, max_thres).to(self.device)
-            self._batch = sample_batch_mesh
+        if self.driver in ("fused", "mesh_fused"):
+            tables = tk.SceneTables if self.driver == "fused" else mk.MeshTables
+            self.tables = tables(self.scene, self.camera, max_thres).to(self.device)
+            self._batch = sample_batch_fused if self.driver == "fused" else sample_batch_mesh
+            flat = np.arange(n_pix)
         else:
-            raise NotImplementedError(
-                "outside the ported paths: needs gpu semantics, no debug_single_ray and "
-                f"<= {tk.MAX_PRIMS} spheres and free triangles (ROADMAP queue 1, items 3 and 7)")
-        flat = torch.arange(self.width * self.height, dtype=torch.int32)
-        self._xs = (flat % self.width).to(self.device)
-        self._ys = (flat // self.width).to(self.device)
+            self.tables = SceneTensors(self.scene, self.camera, max_thres).to(self.device)
+            self._batch = self._wavefront if self.driver == "wavefront" else self._plain
+            flat = tile_order(self.width, self.height)
+            self._unscramble = torch.from_numpy(flat).to(self.device)
+            self.pool = min(POOL_CAP, -(-n_pix // 1024) * 1024)
+        self._xs = torch.from_numpy((flat % self.width).astype(np.int32)).to(self.device)
+        self._ys = torch.from_numpy((flat // self.width).astype(np.int32)).to(self.device)
+
+    def _plain(self, tables, params, xs, ys, sample_base, n_samples, *, samples_per_launch):
+        out = sample_batch(tables, params, xs, ys, sample_base, n_samples)
+        return torch.empty_like(out).index_copy_(0, self._unscramble, out)  # lane -> pixel order
+
+    def _wavefront(self, tables, params, xs, ys, sample_base, n_samples, *, samples_per_launch):
+        acc = None
+        for s0 in range(0, n_samples, samples_per_launch):
+            img, st = wavefront_batch(tables, params, xs, ys, sample_base + s0,
+                                      min(samples_per_launch, n_samples - s0), self.width,
+                                      self.pool, return_stats=True)
+            for k in st:
+                self.stats[k] += st[k]
+            acc = img if acc is None else acc + img
+        return acc
 
     def render(self, samples: Optional[int] = None, batch: Optional[int] = None,
                update_hook: Optional[Callable[[RenderTarget], None]] = None) -> np.ndarray:
@@ -139,6 +212,7 @@ class Renderer:
         total = samples if samples is not None else info.samps_per_pix
         b = batch or (info.render_batch if update_hook is not None else None) or total
         b = max(1, min(b, total)) if total > 0 else 1
+        self.stats = {"iterations": 0, "lane_bounces": 0}
         rendered = 0
         while rendered < total:
             n = min(b, total - rendered)

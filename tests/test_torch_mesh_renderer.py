@@ -1,8 +1,9 @@
 """Port parity for the mesh main path: raytrace_tpu_torch's Renderer on a
 `!Model` scheme on the CPU (the plain torch version of the mesh kernel)
 against the JAX package's sample_batch on the same pixels and sample
-ids; exact resume; what the mesh path refuses; the CLI on a `!Model`
-scheme; and that a mesh render runs without jax."""
+ids; mesh scenes outside the mesh path kernel through the wavefront;
+exact resume; what the port refuses; the CLI on a `!Model` scheme; and
+that a mesh render runs without jax."""
 import os
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import jax.numpy as jnp
 import pytest
 from PIL import Image
 
+from raytrace_tpu.models import config as jax_cfg
 from raytrace_tpu.models.camera import build_camera as jax_build_camera
 from raytrace_tpu.models.scene import build_scene as jax_build_scene
 from raytrace_tpu.render.integrator import IntegratorParams
@@ -66,14 +68,65 @@ def test_resume_bitwise_exact(gltf_path, tmp_path):
 
 @pytest.mark.parametrize("change", [
     lambda s: s.scene_members.append(cfg.CubeMapMember(faces={})),
-    lambda s: setattr(s.render_info, "use_gpu", False),
-    lambda s: setattr(s.render_info.rad_info, "debug_single_ray", True),
-], ids=["cubemap", "cpu-mode", "debug-single-ray"])
+], ids=["cubemap"])
 def test_unsupported_mesh_scenes_raise(gltf_path, change):
     _, scheme = octa_schemes(gltf_path, W, H)
     change(scheme)
     with pytest.raises(NotImplementedError):
         Renderer(scheme, device="cpu")
+
+
+def _cpu_mode(s, mod, parse):
+    s.render_info.use_gpu = False
+
+
+def _debug_single_ray(s, mod, parse):
+    """debug_single_ray, and an emissive sphere in front of the
+    octahedra for the first hits to show (the scene's own emitter is out
+    of the frame)."""
+    s.render_info.rad_info.debug_single_ray = True
+    s.scene_members.append(parse(mod.Tagged("Sphere", {
+        "c": [-2.5, 1.2, -6.0], "r": 0.8, "coloring": mod.Tagged("Solid", [0, 0, 0]),
+        "mat": {"divert_ray": "Diff", "emissive": [3.0, 3.0, 3.0]}})))
+
+
+@pytest.mark.parametrize("change", [_cpu_mode, _debug_single_ray],
+                         ids=["cpu-mode", "debug-single-ray"])
+def test_wavefront_mesh_scenes_render(gltf_path, change):
+    """Mesh scenes outside the mesh path kernel route to the wavefront
+    (its mesh hits through `mesh_hit`), and the image agrees with the JAX
+    package's sample_batch (its XLA cluster walk)."""
+    js, ps = octa_schemes(gltf_path, W, H)
+    change(js, jax_cfg, jax_cfg._parse_member)
+    change(ps, cfg, cfg.parse_member)
+    r = Renderer(ps, device="cpu", samples_per_launch=3)
+    assert r.driver == "wavefront" and r.tables.mesh is not None
+    img = r.render(samples=SPP)
+    assert r.target.count == SPP and img.shape == (H, W, 3)
+    flat = np.arange(W * H, dtype=np.int32)
+    params = IntegratorParams(assured_depth=3, max_bounces=24, mode=r.mode,
+                              debug_single_ray=r.params.debug_single_ray)
+    ref = np.asarray(sample_batch(
+        jax_build_scene(js), camera_to_arrays(jax_build_camera(js.cam, W, H)), params, W, H,
+        jnp.asarray(flat % W), jnp.asarray(flat // W), jnp.int32(0), jnp.int32(SPP)))
+    assert_close(r.target.acc, ref, SPP)
+    tile_gate(img, ref.reshape(H, W, 3) / SPP)
+    assert img.mean() > 0.01
+
+
+def test_mesh_resume_bitwise_exact_cpu_semantics(gltf_path, tmp_path):
+    _, scheme = octa_schemes(gltf_path, W, H)
+    full = Renderer(scheme, device="cpu", mode="cpu")
+    full.render(samples=4, batch=2)
+    first = Renderer(scheme, device="cpu", mode="cpu")
+    first.render(samples=2)
+    path = str(tmp_path / "ck.npz")
+    ckpt.save(path, first.target)
+    resumed = Renderer(scheme, device="cpu", mode="cpu")
+    resumed.target = ckpt.load(path)
+    resumed.render(samples=2)
+    assert resumed.target.count == full.target.count == 4
+    np.testing.assert_array_equal(resumed.target.acc, full.target.acc)
 
 
 def _model_yaml(tmp_path, gltf):

@@ -178,6 +178,17 @@ def surface_scene(n_tris=2097, width=64, height=32, n_textures=0, tex_size=16):
     glTF loader's place."""
     mesh = procedural.make_mesh(n_tris, n_textures=n_textures, tex_size=tex_size)
     js = jax_cfg.parse_scheme(a380_raw(jax_cfg, width, height))
+    jscene = jax_build_with_mesh(js, mesh)
+    ps = cfg.parse_scheme(a380_raw(cfg, width, height))
+    ps.scene_members.append(cfg.ModelMember(path="<surface>", loaded=[mesh]))
+    return jscene, build_scene(ps), js, ps
+
+
+def jax_build_with_mesh(js, mesh):
+    """The JAX scene of scheme js with the loaded mesh appended as a
+    Model member at the identity transform, given to the JAX glTF
+    loader's place (as scripts/bench_mesh.py gives it); js gains that
+    member."""
     js.scene_members.append(jax_cfg.ModelMember(
         path="<surface>", uniform_scale=1.0, translation=np.zeros(3, np.float32),
         euler_angles=np.zeros(3, np.float32)))
@@ -185,13 +196,10 @@ def surface_scene(n_tris=2097, width=64, height=32, n_textures=0, tex_size=16):
     jax_scene_mod.gltf_mod.load_model = lambda *a, **k: [mesh]
     jax_scene_mod.resolve_asset_path = lambda p, d: p
     try:
-        jscene = jax_build_scene(js)
+        return jax_build_scene(js)
     finally:
         jax_scene_mod.gltf_mod.load_model = orig_load
         jax_scene_mod.resolve_asset_path = orig_resolve
-    ps = cfg.parse_scheme(a380_raw(cfg, width, height))
-    ps.scene_members.append(cfg.ModelMember(path="<surface>", loaded=[mesh]))
-    return jscene, build_scene(ps), js, ps
 
 
 # --- glTF ------------------------------------------------------------------

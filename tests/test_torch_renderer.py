@@ -1,7 +1,9 @@
 """Port parity for the main path: raytrace_tpu_torch's Renderer on the
 CPU (the plain torch version of the kernel) against the JAX package's
-sample_batch on the same pixels and sample ids; exact resume; what the
-port refuses; the CLI; and that the port runs without jax or flax."""
+sample_batch on the same pixels and sample ids; the Renderer's choice of
+driver (scenes outside the fused kernel go to the wavefront, and their
+images agree with the JAX package); exact sample counts and resume; what
+the port refuses; the CLI; and that the port runs without jax or flax."""
 import os
 import subprocess
 import sys
@@ -79,26 +81,118 @@ def _too_many_spheres(s):
     s.scene_members = s.scene_members * 5  # 65 spheres
 
 
-def _mesh_too_many_spheres(s):
-    """A mesh scene beyond the mesh path: 65 spheres (the walled ones)."""
-    from raytrace_tpu_torch.models.procedural import make_mesh
+def _cpu_mode(s):
+    s.render_info.use_gpu = False
 
-    _too_many_spheres(s)
-    s.scene_members.append(cfg.ModelMember(path="<surface>", loaded=[make_mesh(64, 0)]))
+
+def _debug_single_ray(s):
+    s.render_info.rad_info.debug_single_ray = True
+
+
+# scenes outside both fused drivers: each change applies to the JAX and
+# the port scheme alike; "mesh" adds a 64-triangle surface to 65 spheres
+WAVEFRONT_CASES = {"cpu-mode": _cpu_mode, "debug-single-ray": _debug_single_ray,
+                   "65-spheres": _too_many_spheres, "mesh": _too_many_spheres}
+
+
+@pytest.mark.parametrize("name", list(WAVEFRONT_CASES))
+def test_wavefront_scenes_render(name):
+    """The Renderer routes each scene to the wavefront driver, and its
+    image agrees with the JAX package's sample_batch."""
+    from raytrace_tpu_torch.models.procedural import make_mesh
+    from test_torch_mesh_scene import jax_build_with_mesh
+
+    js, ps = schemes("walled", W, H, 5)
+    for s in (js, ps):
+        WAVEFRONT_CASES[name](s)
+    if name == "mesh":
+        mesh = make_mesh(64, 0)
+        ps.scene_members.append(cfg.ModelMember(path="<surface>", loaded=[mesh]))
+        jscene = jax_build_with_mesh(js, mesh)
+    else:
+        jscene = jax_build_scene(js)
+    r = Renderer(ps, device="cpu", samples_per_launch=3)  # wavefront batches of 3 + 1 samples
+    assert r.driver == "wavefront"
+    assert (r.tables.n_mesh_tris > 0) == (name == "mesh")
+    img = r.render(samples=SPP)
+    assert r.target.count == SPP and r.stats["iterations"] > 0
+    flat = np.arange(W * H, dtype=np.int32)
+    params = IntegratorParams(assured_depth=5, max_bounces=24, mode=r.mode,
+                              debug_single_ray=r.params.debug_single_ray)
+    ref = np.asarray(sample_batch(
+        jscene, camera_to_arrays(jax_build_camera(js.cam, W, H)), params, W, H,
+        jnp.asarray(flat % W), jnp.asarray(flat // W), jnp.int32(0), jnp.int32(SPP)))
+    lane_gate(r.target.acc, ref)
+    tile_gate(img, ref.reshape(H, W, 3) / SPP)
+    assert img.mean() > 0.01
 
 
 @pytest.mark.parametrize("change", [
-    lambda s: setattr(s.render_info, "use_gpu", False),
-    lambda s: setattr(s.render_info.rad_info, "debug_single_ray", True),
-    _too_many_spheres,
     lambda s: s.scene_members.append(cfg.CubeMapMember(faces={})),
-    _mesh_too_many_spheres,
-], ids=["cpu-mode", "debug-single-ray", "65-spheres", "cubemap", "mesh"])
+], ids=["cubemap"])
 def test_unsupported_scenes_raise(change):
     scheme = walled_scheme(W, H)
     change(scheme)
     with pytest.raises(NotImplementedError):
         Renderer(scheme, device="cpu")
+
+
+@pytest.mark.parametrize("kw,driver", [
+    ({}, "fused"), ({"use_fused": False}, "wavefront"),
+    ({"use_fused": False, "use_wavefront": False}, "plain"),
+    ({"mode": "cpu", "use_wavefront": False}, "plain"),
+], ids=["fused", "wavefront", "plain", "plain-cpu"])
+def test_render_exact_sample_count_all_drivers(kw, driver):
+    """render(k) adds exactly k samples on every driver
+    (tests/test_render.py:334), also across launches of
+    samples_per_launch samples."""
+    r = Renderer(walled_scheme(W, H), device="cpu", samples_per_launch=2, **kw)
+    assert r.driver == driver
+    r.render(samples=3)
+    assert r.target.count == 3
+    r.render(samples=2)
+    assert r.target.count == 5
+    assert np.isfinite(r.target.acc).all() and r.target.acc.mean() > 0
+
+
+def test_wavefront_matches_plain_driver():
+    """The two integrator drivers: the lane pool against all pixels at
+    once, both in the 32x32-tile lane order."""
+    scheme = walled_scheme(W, H)
+    a = Renderer(scheme, device="cpu", mode="cpu", use_wavefront=True)
+    b = Renderer(scheme, device="cpu", mode="cpu", use_wavefront=False)
+    a.render(samples=3)
+    b.render(samples=3)
+    np.testing.assert_allclose(a.target.acc, b.target.acc, rtol=1e-4, atol=1e-4)
+    assert a.stats["lane_bounces"] >= W * H * 3
+
+
+def test_resume_bitwise_exact_cpu_semantics(tmp_path):
+    """Checkpoint resume through the wavefront driver in cpu semantics."""
+    scheme = walled_scheme(W, H)
+    full = Renderer(scheme, device="cpu", mode="cpu")
+    assert full.driver == "wavefront"
+    full.render(samples=4, batch=2)
+    first = Renderer(scheme, device="cpu", mode="cpu")
+    first.render(samples=2)
+    path = str(tmp_path / "ck.npz")
+    ckpt.save(path, first.target)
+    resumed = Renderer(scheme, device="cpu", mode="cpu")
+    resumed.target = ckpt.load(path)
+    resumed.render(samples=2)
+    assert resumed.target.count == full.target.count == 4
+    np.testing.assert_array_equal(resumed.target.acc, full.target.acc)
+
+
+@pytest.mark.parametrize("kw", [
+    {"mode": "cpu", "use_fused": True}, {"use_mesh_fused": True},
+    {"use_fused": True, "use_wavefront": True}, {"mode": "metal"},
+], ids=["fused-cpu-mode", "mesh-fused-no-mesh", "two-drivers", "bad-mode"])
+def test_explicit_driver_outside_its_scenes_raises(kw):
+    """An explicit True for a driver the scene is outside raises; nothing
+    routes elsewhere quietly."""
+    with pytest.raises((NotImplementedError, ValueError)):
+        Renderer(walled_scheme(W, H), device="cpu", **kw)
 
 
 def test_cuda_device_raises_without_cuda():
@@ -139,6 +233,28 @@ def test_cli_writes_png_and_resumes(tmp_path):
     assert ckpt.load(str(ck)).count == 3
 
 
+def test_cli_mode_cpu(tmp_path, capsys):
+    from raytrace_tpu_torch import cli
+
+    yml = tmp_path / "walled.yml"
+    yml.write_text(
+        "render_info: {width: 32, height: 16, samps_per_pix: 2,\n"
+        "  rad_info: {russ_roull_info: {assured_depth: 3, max_thres: 0.5}}}\n"
+        "cam: {d: [0, 0, -5], o: [0, -1, 0], up: [0, 1, 0], screen_width: 10, screen_height: 5}\n"
+        "scene_members:\n"
+        "- !Sphere {c: [0, 10, -15], r: 5, coloring: !Solid [0, 0, 0],\n"
+        "   mat: {divert_ray: Diff, emissive: [5, 5, 5]}}\n"
+        "- !Sphere {c: [0, -510, -10], r: 500, coloring: !Solid [0.75, 0.75, 0.75],\n"
+        "   mat: {divert_ray: Diff}}\n")
+    out = tmp_path / "out.png"
+    cli.main([str(yml), "no_ui", "--device", "cpu", "--mode", "cpu", "--out", str(out)])
+    assert "cpu semantics, wavefront driver" in capsys.readouterr().out
+    png = np.asarray(Image.open(out))
+    assert png.shape == (16, 32, 4) and png[..., :3].max() > 0
+    with pytest.raises(SystemExit):
+        cli.main([str(yml), "--device", "cpu", "--mode", "metal", "--out", str(out)])
+
+
 def test_port_runs_without_jax():
     """The port renders with neither jax, flax nor the JAX package
     imported (a subprocess: conftest imports jax in this one)."""
@@ -148,6 +264,29 @@ def test_port_runs_without_jax():
         "from raytrace_tpu_torch.render.renderer import Renderer\n"
         "import raytrace_tpu_torch.cli\n"
         "img = Renderer(walled_scheme(32, 16), device='cpu').render(samples=1)\n"
+        "assert img.shape == (16, 32, 3) and img.mean() > 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'raytrace_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_cpu_semantics_render_runs_without_jax():
+    """A cpu-semantics render with direct-light sampling, through the
+    wavefront, with neither jax, flax nor the JAX package imported."""
+    code = (
+        "import sys\n"
+        "from raytrace_tpu_torch.models.walled import walled_scheme\n"
+        "from raytrace_tpu_torch.render.renderer import Renderer\n"
+        "s = walled_scheme(32, 16)\n"
+        "s.render_info.rad_info.dir_light_samp = True\n"
+        "r = Renderer(s, device='cpu', mode='cpu')\n"
+        "img = r.render(samples=1)\n"
+        "assert r.driver == 'wavefront' and r.params.dir_light_samp, r.driver\n"
         "assert img.shape == (16, 32, 3) and img.mean() > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'raytrace_tpu')]\n"
         "assert not bad, bad\n"
