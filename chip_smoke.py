@@ -39,27 +39,42 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    just after; finite images, paths/s with the card's name and power
    limit, a small frame of the a380-class scene on the card against the
    CPU under the tile gate, and a bitwise exact resume on the card;
-7. the integrator's mesh hit on the card: `mesh_hit` (the CUDA entry)
-   against `mesh_hit_walk` (plain torch) on the primary rays of the whole
-   a380-class 1216x608 frame and the secondary rays of one bounce, a
-   quarter of the lanes dead (seeded -inf), at t_min EPS (gpu semantics)
-   and 20*EPS (cpu semantics): gid must agree on >= 99.9% of lanes and t,
-   u, v pass the lane gate; both versions timed with CUDA events on a
-   pool of 131,072 of those rays (the wavefront's launch), in turns
-   plain, kernel, kernel, plain;
+7. the integrator's mesh hit on the card: `mesh_hit` (the CUDA entry, a
+   thread group per ray) and its per-thread yardstick
+   (`mesh_hit_per_thread`) against `mesh_hit_walk` (plain torch) on the
+   primary rays of the whole a380-class 1216x608 frame and the secondary
+   rays of one bounce, a quarter of the lanes dead (seeded -inf), at
+   t_min EPS (gpu semantics) and 20*EPS (cpu semantics), and on the
+   in-render pool: the 131,072 rays of the 20th mesh_hit launch of the
+   cpu-semantics render(16), captured as the wavefront hands them over.
+   gid must agree on >= 99.9% of lanes and t, u, v pass the lane gate;
+   the lanes that differ in gid, t, u and v are printed. Plain, kernel
+   and yardstick are timed with CUDA events on a 131,072-ray pool cut
+   from the frame and on the in-render pool, in turns plain, kernel,
+   per-thread, per-thread, kernel, plain, beside the bound: the walk any
+   exact traversal needs on those rays (`walk_work`) in FP32 operations,
+   and the bytes of the tables and rays;
 8. the integrator paths at full width, each render with the launch
    counts reset just before and read just after, with paths/s, the
    wavefront's iterations and lane-bounces, and the card's name and
    power limit: Renderer(a380-class 1216x608 in cpu semantics,
    "cuda").render(16), the slice's main path (the wavefront, mesh_hit
    launches > 0, no other kernel); the same with direct-light sampling
-   (its shadow rays add mesh_hit launches); the a380-class frame in gpu
-   semantics through the wavefront (use_mesh_fused=False) against the
-   mesh path kernel's image, and walled 1200x600 through the wavefront
-   (use_fused=False) against trace_tiles' image, at 16 spp, under the
-   tile gate; a cpu-semantics 96x48 a380-class frame on the card against
-   the CPU; a bitwise exact resume on the card in cpu semantics; and a
-   torch.profiler table of one warm cpu-semantics render(16).
+   (its shadow rays add mesh_hit launches); the a380-class frame and
+   the 2,097-triangle surface in gpu semantics through the wavefront
+   (use_mesh_fused=False) against mesh_trace's and mesh_trace_brute's
+   images, and walled 1200x600 through the wavefront (use_fused=False)
+   against trace_tiles' image, at 16 spp, under the tile gate (their
+   lane-bounces per path set the fused kernels' bounds); a
+   cpu-semantics 96x48 a380-class frame on the card against the CPU; a
+   bitwise exact resume on the card in cpu semantics; and torch.profiler
+   tables of one warm cpu-semantics render(16) with mesh_hit and with
+   the per-thread yardstick in its place: mesh_hit's device ms per
+   launch inside the render and its share of device time.
+
+Each kernel's record has its bound (bound_ms, bound_by): the larger of
+its bytes over 3.35 TB/s and its FP32 operations, counted from the
+sources, over 67 TFLOP/s (see FP32_PEAK).
 
 Any failure raises (exit code != 0). The line before the last is the
 kernels' JSON record; the last line is the device JSON object. Without a
@@ -209,7 +224,8 @@ def octa_scheme(width, height):
 
 
 def mesh_phases(dev, card):
-    """Phases 5 and 6; returns the mesh kernels' JSON records."""
+    """Phases 5 and 6; returns the mesh kernels' JSON records and, for each,
+    its scene's sphere, free-triangle and triangle counts and table bytes."""
     import numpy as np
     import torch
 
@@ -287,7 +303,7 @@ def mesh_phases(dev, card):
     # the whole 1216x608 frame of each route at the main path's launch
     # shape (spl MESH_SPP) and at spl 1 and 4; the mixed octahedra on both
     err = {name: 0.0 for name in MESH_KERNELS}
-    ms, plain_ms = {}, {}
+    ms, plain_ms, shape = {}, {}, {}
     fx, fy = lanes(MESH_W, MESH_H, 1)
     for label, scheme, name in (("a380-class", a380, "mesh_trace"),
                                 ("surface-2097", surface, "mesh_trace_brute")):
@@ -318,6 +334,9 @@ def mesh_phases(dev, card):
             print(f"[timing] kernel mesh_trace (walk) {label} {MESH_W}x{MESH_H} spl={MESH_SPP}: "
                   f"{walk:.3f} ms/launch ({MESH_W * MESH_H * MESH_SPP / walk / 1e3:.1f} "
                   f"Mpaths/s) [{card}]", flush=True)
+        # what the bound of the launch is reckoned from (main)
+        shape[name] = dict(n_sph=tables.n_sph, n_ft=tables.n_ft, n_tris=tables.n_tris,
+                           table_bytes=tensor_bytes(tables.buffers()))
         del tables
 
     _, tables = setup("octahedra", octa_scheme(64, 32))
@@ -379,24 +398,68 @@ def mesh_phases(dev, card):
 
     return [{"name": name, "route": "cuda", "source": "raytrace_tpu_torch/csrc/mesh_kernel.cu",
              "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
-             "ms": ms[name], "plain_ms": plain_ms[name]}
-            for name, (_, replaces) in MESH_KERNELS.items()]
+             "ms": ms[name], "plain_ms": plain_ms[name], "library_ms": None,
+             "launches_per_render": launches[name]}
+            for name, (_, replaces) in MESH_KERNELS.items()], shape
 
 
 WALLED_WF_SPP = 16  # the walled frame through the wavefront (trace_tiles takes 64 in phase 4)
 HIT_POOL = 1 << 17  # the wavefront's lane pool: the launch shape of mesh_hit
+CAPTURE_ITER = 20  # the wavefront iteration whose mesh_hit launch is the in-render pool
+
+# The least time of a launch (bound_ms): the larger of its bytes (each input
+# read once, each output written once) over the memory rate and its FP32
+# operations over the FP32 peak (H100 SXM at 700 W, outside the tensor
+# cores). Operations per test or shade are counted from the CUDA sources,
+# each multiply, add, min, max, compare, divide and square root one (the
+# mesh kernel has no FMA); loads, the RNG's integer work and branches are
+# not counted, so each bound is low.
+FP32_PEAK = 67e12  # FP32 FLOP/s
+HBM_RATE = 3.35e12  # bytes/s
+SLAB_OPS = 25  # mesh_kernel.cu slab_span (6 sub, 6 mul, 10 min/max) + 3 compares
+TRI_OPS = 55  # path_common.cuh tri_hit (53) + the t_min and running-best compares
+SPH_OPS = 18  # path_common.cuh closest_sph_ft, one sphere: up to the disc > 0 test
+SHADE_SPH_OPS = 93  # shade_sph_ft, diffuse lobe (88) + 5 draws' float conversion
+SHADE_MESH_OPS = 204  # mesh_kernel.cu shade_mesh without a normal map (196) + 8 draws
 
 
-def mesh_hit_phase(dev, card, a380):
-    """Phase 7: `mesh_hit` (the CUDA entry) against `mesh_hit_walk` (its
-    plain version) on the card; returns (max_abs_err, ms, plain_ms)."""
+def bound(ops, nbytes):
+    """(bound_ms, bound_by) of a launch of `ops` FP32 operations moving
+    `nbytes` bytes."""
+    ops_ms, bytes_ms = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+HIT_TABLES = ("sgbounds", "sbounds", "bounds", "count", "tri", "gid")
+
+
+def hit_work(o, d, t, tables, t_min):
+    """mesh_hit's least work on these rays: (ops, bytes, walk_work's counts);
+    t is the rays' final nearest t."""
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+
+    work = mk.walk_work(o, d, t, tables, t_min=t_min)
+    ops = sum(work["slab"]) * SLAB_OPS + work["tri"] * TRI_OPS
+    moved = tensor_bytes(getattr(tables, k) for k in HIT_TABLES) + t.numel() * (7 * 4 + 4 * 4)
+    return ops, moved, work
+
+
+def frame_rays(dev, a380):
+    """The a380-class scene on the card and the rays of phase 7's frame pool:
+    the primary rays of the whole 1216x608 frame in the wavefront's tile
+    order, then the secondary rays of one cpu-semantics bounce (lanes whose
+    path ended keep their primary ray), every fourth lane dead (seeded
+    -inf), the others seeded INF. Returns (scene, o, d, seed, dead, n)."""
     import torch
 
     from raytrace_tpu_torch.models.camera import build_camera
     from raytrace_tpu_torch.models.scene import SceneTensors, build_scene
-    from raytrace_tpu_torch.ops import mesh_kernel as mk
     from raytrace_tpu_torch.ops import raygen, rng
-    from raytrace_tpu_torch.ops.intersect import EPS, INF
+    from raytrace_tpu_torch.ops.intersect import INF
     from raytrace_tpu_torch.render import integrator as itg
     from raytrace_tpu_torch.render.renderer import tile_order
 
@@ -409,74 +472,173 @@ def mesh_hit_phase(dev, card, a380):
     params = itg.IntegratorParams(mode="cpu", assured_depth=5, max_bounces=24)
     st = itg._bounce_step(scene, params, itg.init_lanes(scene, params, ro, rd, state))
     n = xs.numel()
-    # the primary rays of the whole frame, then the secondary rays of one
-    # bounce (lanes whose path ended keep their primary ray)
     o = tuple(torch.cat([ro[k], st["ro"][k]]).contiguous() for k in range(3))
     d = tuple(torch.cat([rd[k], st["rd"][k]]).contiguous() for k in range(3))
-    lane = torch.arange(2 * n, device=dev)
-    dead = lane % 4 == 3
+    dead = torch.arange(2 * n, device=dev) % 4 == 3
     seed = torch.where(dead, torch.full_like(o[0], itg.DEAD_SEED), torch.full_like(o[0], INF))
-    err = 0.0
     print(f"[hit] a380-class {MESH_W}x{MESH_H}: {n} primary + {n} secondary rays "
           f"({int(st['active'].sum())} lanes survived the bounce), {int(dead.sum())} dead",
           flush=True)
-    for t_min in (EPS, itg.CPU_GUARD):
-        ours = mk.mesh_hit(o, d, seed, scene.mesh, t_min=t_min)
-        ref = mk.mesh_hit_walk(o, d, seed, scene.mesh, t_min=t_min)
-        torch.cuda.synchronize()
-        g, rg = ours[1].long(), ref[1]
-        assert bool((g[dead] == -1).all()) and bool((ours[0][dead] == seed[dead]).all()), \
-            "a dead lane reached the mesh"
-        same = g == rg
-        agree = float(same.float().mean())
-        live = ~dead
-        hits = int((rg >= 0).sum())
-        line = [f"[hit] t_min {t_min:.4g}: {hits} hits, gid agrees on {agree:.6f} of lanes"]
-        for k, name in ((0, "t"), (2, "u"), (3, "v")):
-            a, b = ours[k][live], ref[k][live]
-            bad, _ = lane_gate(a, b)
-            both = same[live] & (rg[live] >= 0)
-            e = float((a[both] - b[both]).abs().max()) if bool(both.any()) else 0.0
-            err = max(err, e)
-            line.append(f"{name}: bad-lane fraction {bad:.6f} max|d| on equal hits {e:.3e}")
-            assert bad < 0.01, f"mesh_hit t_min {t_min}: {name} differs on {bad:.4f} of lanes"
-        print("; ".join(line), flush=True)
-        assert agree >= 0.999, f"mesh_hit t_min {t_min}: gid agrees on only {agree:.5f}"
+    return scene, o, d, seed, dead, n
 
-    # the wavefront's launch shape: a pool of HIT_POOL rays, half primary and
-    # half secondary, a quarter dead; in turns plain, kernel, kernel, plain
+
+def frame_pool(o, d, seed, n):
+    """The wavefront's launch shape cut from the frame's rays: HIT_POOL
+    rays, half primary and half secondary, a quarter dead."""
+    import torch
+
     half = HIT_POOL // 2
-    pick = torch.cat([lane[:half], lane[n:n + half]])
-    po, pd, ps = tuple(c[pick] for c in o), tuple(c[pick] for c in d), seed[pick]
+    pick = torch.cat([torch.arange(half), torch.arange(n, n + half)]).to(seed.device)
+    return tuple(c[pick] for c in o), tuple(c[pick] for c in d), seed[pick]
 
-    def timed(fn, reps):
-        fn(po, pd, ps, scene.mesh, t_min=itg.CPU_GUARD)  # warm-up
+
+def in_render_pool(scheme):
+    """The rays, seeds, t_min and tables of the CAPTURE_ITER-th mesh_hit
+    launch of Renderer(scheme, "cuda").render(MESH_SPP): one mid-render
+    wavefront iteration's lanes, as the render hands them to the kernel
+    (the integrator's mesh_hit is wrapped for this one render)."""
+    from raytrace_tpu_torch.render import integrator as itg
+    from raytrace_tpu_torch.render.renderer import Renderer
+
+    real, calls, pool = itg.mesh_hit, [0], {}
+
+    def capture(o, d, seed, tables, *, t_min):
+        calls[0] += 1
+        if calls[0] == CAPTURE_ITER:
+            pool.update(o=tuple(c.clone() for c in o), d=tuple(c.clone() for c in d),
+                        seed=seed.clone(), t_min=t_min, tables=tables)
+        return real(o, d, seed, tables, t_min=t_min)
+
+    itg.mesh_hit = capture
+    try:
+        Renderer(scheme, device="cuda").render(samples=MESH_SPP)
+    finally:
+        itg.mesh_hit = real
+    assert pool, f"the render made fewer than {CAPTURE_ITER} mesh_hit launches"
+    return pool
+
+
+def hit_parity(label, ours, ref, seed, t_min):
+    """Gates the kernel's (t, gid, u, v) against the plain walk's and prints
+    the lanes that differ; returns max |d| of t, u, v on equal hits."""
+    import torch
+
+    dead = ~(seed > t_min)
+    g, rg = ours[1].long(), ref[1]
+    assert bool((g[dead] == -1).all()) and bool((ours[0][dead] == seed[dead]).all()), \
+        f"{label}: a dead lane reached the mesh"
+    same = g == rg
+    agree = float(same.float().mean())
+    live = ~dead
+    line = [f"[hit] {label} t_min {t_min:.4g}: {int((rg >= 0).sum())} hits of {rg.numel()} rays "
+            f"({int(dead.sum())} dead); lanes that differ: gid {int((~same).sum())}"]
+    for k, name in ((0, "t"), (2, "u"), (3, "v")):
+        line.append(f"{name} {int((ours[k] != ref[k]).sum())}")
+    err = 0.0
+    for k, name in ((0, "t"), (2, "u"), (3, "v")):
+        a, b = ours[k][live], ref[k][live]
+        bad, _ = lane_gate(a, b)
+        both = same[live] & (rg[live] >= 0)
+        e = float((a[both] - b[both]).abs().max()) if bool(both.any()) else 0.0
+        err = max(err, e)
+        line.append(f"{name} bad-lane fraction {bad:.6f} max|d| on equal hits {e:.3e}")
+        assert bad < 0.01, f"{label} t_min {t_min}: {name} differs on {bad:.4f} of lanes"
+    print("; ".join(line), flush=True)
+    assert agree >= 0.999, f"{label} t_min {t_min}: gid agrees on only {agree:.5f}"
+    torch.cuda.synchronize()
+    return err
+
+
+def time_hit_turns(label, pool, card, fns):
+    """Each (kind, fn, reps) of `fns` timed with CUDA events on the pool
+    (o, d, seed, t_min, tables), in the given turns; mean ms per launch of
+    each kind."""
+    import torch
+
+    o, d, seed, t_min, tables = pool
+    t = {}
+    for kind, fn, reps in fns:
+        fn(o, d, seed, tables, t_min=t_min)  # warm-up
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            fn(po, pd, ps, scene.mesh, t_min=itg.CPU_GUARD)
+            fn(o, d, seed, tables, t_min=t_min)
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / reps
+        t.setdefault(kind, []).append(start.elapsed_time(end) / reps)
+        print(f"[timing] {kind} mesh_hit {label} ({seed.numel()} rays): {t[kind][-1]:.4f} "
+              f"ms/launch [{card}]", flush=True)
+    return {k: sum(v) / len(v) for k, v in t.items()}
 
-    t = {"plain": [], "kernel": []}
-    for kind, fn, reps in (("plain", mk.mesh_hit_walk, 2), ("kernel", mk.mesh_hit, 20),
-                           ("kernel", mk.mesh_hit, 20), ("plain", mk.mesh_hit_walk, 2)):
-        t[kind].append(timed(fn, reps))
-        print(f"[timing] {kind} mesh_hit a380-class pool of {HIT_POOL} rays: "
-              f"{t[kind][-1]:.4f} ms/launch [{card}]", flush=True)
-    return err, sum(t["kernel"]) / 2, sum(t["plain"]) / 2
+
+def mesh_hit_phase(dev, card, a380):
+    """Phase 7: `mesh_hit` (the CUDA entry) against `mesh_hit_walk` (its
+    plain version) and the per-thread yardstick on the card. Returns the
+    record's numbers on the in-render pool, the main path's input:
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by, walk_ops_per_ray}."""
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.ops.intersect import EPS
+    from raytrace_tpu_torch.render import integrator as itg
+
+    scene, o, d, seed, dead, n = frame_rays(dev, a380)
+    err = 0.0
+    walk_ops_per_ray = 0.0
+    for t_min in (EPS, itg.CPU_GUARD):
+        ref = mk.mesh_hit_walk(o, d, seed, scene.mesh, t_min=t_min)
+        err = max(err, hit_parity("frame", mk.mesh_hit(o, d, seed, scene.mesh, t_min=t_min),
+                                  ref, seed, t_min))
+        hit_parity("frame, per-thread yardstick",
+                   mk._mesh_hit_per_thread(o, d, seed, scene.mesh, t_min=t_min), ref, seed, t_min)
+        if t_min == EPS:  # gpu semantics: the walk mesh_trace does per lane-bounce
+            ops, _, work = hit_work(o, d, ref[0], scene.mesh, t_min)
+            walk_ops_per_ray = ops / work["rays"]
+
+    inr = in_render_pool(a380)
+    print(f"[hit] in-render pool: mesh_hit launch {CAPTURE_ITER} of a380-class cpu semantics "
+          f"render({MESH_SPP}), {inr['seed'].numel()} rays", flush=True)
+    ref = mk.mesh_hit_walk(inr["o"], inr["d"], inr["seed"], inr["tables"], t_min=inr["t_min"])
+    err = max(err, hit_parity("in-render", mk.mesh_hit(inr["o"], inr["d"], inr["seed"],
+                                                       inr["tables"], t_min=inr["t_min"]),
+                              ref, inr["seed"], inr["t_min"]))
+    inr["t"] = ref[0]
+
+    po, pd, ps = frame_pool(o, d, seed, n)
+    fref = mk.mesh_hit_walk(po, pd, ps, scene.mesh, t_min=itg.CPU_GUARD)
+    pools = {"frame pool": (po, pd, ps, itg.CPU_GUARD, scene.mesh, fref[0]),
+             "in-render pool": (inr["o"], inr["d"], inr["seed"], inr["t_min"], inr["tables"],
+                                inr["t"])}
+    turns = [("plain", mk.mesh_hit_walk, 2), ("kernel", mk.mesh_hit, 20),
+             ("per-thread", mk._mesh_hit_per_thread, 20),
+             ("per-thread", mk._mesh_hit_per_thread, 20), ("kernel", mk.mesh_hit, 20),
+             ("plain", mk.mesh_hit_walk, 2)]
+    for label, (po, pd, ps, t_min, tables, t) in pools.items():
+        ms = time_hit_turns(label, (po, pd, ps, t_min, tables), card, turns)
+        ops, nbytes, work = hit_work(po, pd, t, tables, t_min)
+        b_ms, b_by = bound(ops, nbytes)
+        print(f"[bound] mesh_hit {label}: walk_work {work} (live rays, slab tests per level, "
+              f"triangle tests): {ops:.4g} FP32 ops ({ops / FP32_PEAK * 1e3:.5f} ms at 67 "
+              f"TFLOP/s), {nbytes:.4g} bytes ({nbytes / HBM_RATE * 1e3:.5f} ms at 3.35 TB/s): "
+              f"bound {b_ms:.5f} ms by {b_by}; kernel {ms['kernel']:.4f} ms "
+              f"({b_ms / ms['kernel']:.2%} of the bound reached), per-thread "
+              f"{ms['per-thread']:.4f} ms, plain {ms['plain']:.4f} ms [{card}]", flush=True)
+    return dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=b_ms,
+                bound_by=b_by, walk_ops_per_ray=walk_ops_per_ray)
 
 
 def integrator_phases(dev, card):
-    """Phases 7 and 8; returns the mesh_hit kernel's JSON record."""
+    """Phases 7 and 8; returns the mesh_hit kernel's JSON record and the
+    counts the fused kernels' bounds are reckoned from: lane-bounces per
+    path of the walled, a380-class and 2,097-triangle frames in gpu
+    semantics, and mesh_hit's least walk per ray."""
     import numpy as np
     import torch
 
     from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.models.config import ModelMember
     from raytrace_tpu_torch.models.walled import walled_scheme
     from raytrace_tpu_torch.ops import mesh_kernel as mk
     from raytrace_tpu_torch.ops import trace_kernel as tk
+    from raytrace_tpu_torch.render import integrator as itg
     from raytrace_tpu_torch.render.renderer import Renderer
     from raytrace_tpu_torch.render.target import RenderTarget
     from raytrace_tpu_torch.utils import checkpoint as ckpt
@@ -485,7 +647,7 @@ def integrator_phases(dev, card):
     a380_cpu = variant(a380, use_gpu=False)
 
     # ---- 7. mesh_hit against its plain version on the card ----
-    err, ms, plain_ms = mesh_hit_phase(dev, card, a380_cpu)
+    hit = mesh_hit_phase(dev, card, a380_cpu)
 
     # ---- 8. the integrator paths at full width ----
     def reset():
@@ -522,26 +684,39 @@ def integrator_phases(dev, card):
         assert mean_d < 2e-3 and bad_tiles < 0.02, f"{label}: the images disagree"
 
     # the slice's main path: cpu semantics through the wavefront
+    def only_mesh_hit(counts):
+        others = {k: v for k, v in counts.items() if k != "mesh_hit"}
+        return counts["mesh_hit"] > 0 and not any(others.values())
+
     r, _, counts = render("a380-class", a380_cpu, MESH_SPP)
     launches = counts["mesh_hit"]
-    assert r.driver == "wavefront" and launches > 0, "the main path did not launch mesh_hit"
-    assert counts["mesh_trace"] == counts["mesh_trace_brute"] == counts["trace_tiles"] == 0
+    assert r.driver == "wavefront" and only_mesh_hit(counts), \
+        "the main path did not launch mesh_hit, or launched another CUDA kernel"
     _, _, dls = render("a380-class DLS", variant(a380_cpu, dir_light_samp=True), MESH_SPP)
-    assert dls["mesh_hit"] > launches, "the shadow rays did not go through mesh_hit"
+    assert only_mesh_hit(dls) and dls["mesh_hit"] > launches, \
+        "the shadow rays did not go through mesh_hit"
 
-    # gpu semantics through the wavefront against the mesh path kernel
-    _, wf_img, counts = render("a380-class", a380, MESH_SPP, use_mesh_fused=False)
-    assert counts["mesh_hit"] > 0 and counts["mesh_trace"] == 0
-    _, fused_img, counts = render("a380-class", a380, MESH_SPP)
-    assert counts["mesh_trace"] > 0 and counts["mesh_hit"] == 0
-    gate(f"a380-class {MESH_W}x{MESH_H}x{MESH_SPP} wavefront vs mesh_trace", wf_img, fused_img)
+    # gpu semantics through the wavefront against the fused mesh kernels;
+    # the wavefront's lane-bounces per path set the fused kernels' bounds
+    per_path = {}
 
-    walled = walled_scheme(W, H)
-    _, wf_img, counts = render("walled", walled, WALLED_WF_SPP, use_fused=False)
-    assert counts["trace_tiles"] == 0
-    _, fused_img, counts = render("walled", walled, WALLED_WF_SPP)
-    assert counts["trace_tiles"] > 0
-    gate(f"walled {W}x{H}x{WALLED_WF_SPP} wavefront vs trace_tiles", wf_img, fused_img)
+    def against_fused(label, scheme, spp, name, **kw):
+        r, wf_img, counts = render(label, scheme, spp, **kw)
+        assert counts[name] == 0 and (counts["mesh_hit"] > 0) == (name != "trace_tiles")
+        w, h = scheme.render_info.width, scheme.render_info.height
+        per_path[name] = r.stats["lane_bounces"] / (w * h * spp)
+        _, fused_img, counts = render(label, scheme, spp)
+        assert counts[name] > 0 and counts["mesh_hit"] == 0
+        gate(f"{label} {w}x{h}x{spp} wavefront vs {name}", wf_img, fused_img)
+
+    against_fused("a380-class", a380, MESH_SPP, "mesh_trace", use_mesh_fused=False)
+    surface = procedural.a380_cam_scheme(MESH_W, MESH_H, MESH_SPP)
+    surface.scene_members.append(ModelMember(
+        path="<2,097-triangle surface>", loaded=[procedural.make_mesh(2097, n_textures=0)]))
+    against_fused("surface-2097", surface, MESH_SPP, "mesh_trace_brute", use_mesh_fused=False)
+    against_fused("walled", walled_scheme(W, H), WALLED_WF_SPP, "trace_tiles", use_fused=False)
+    print(f"[bound] lane-bounces per path through the wavefront, gpu semantics: {per_path}",
+          flush=True)
 
     small = variant(a380_cpu, 96, 48)
     t0 = time.perf_counter()
@@ -567,17 +742,34 @@ def integrator_phases(dev, card):
     print(f"[paths] resume at {k} spp: bitwise exact ({2 * k} spp, a380-class {MESH_W}x{MESH_H}, "
           f"cpu semantics, wavefront)", flush=True)
 
-    profile(full, card)
-    return {"name": "mesh_hit", "route": "cuda", "source": "raytrace_tpu_torch/csrc/mesh_kernel.cu",
-            "replaces": "raytrace_tpu/ops/pallas/mesh_hit_kernel.py:269", "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # the main path's render profiled with the kernel, then with the
+    # per-thread yardstick in its place (the integrator's mesh_hit wrapped)
+    new = profile(full, card, "mesh_hit_kernel")
+    real = itg.mesh_hit
+    itg.mesh_hit = mk._mesh_hit_per_thread
+    try:
+        old = profile(full, card, "mesh_hit_per_thread_kernel")
+    finally:
+        itg.mesh_hit = real
+    if new and old:
+        print(f"[profile] mesh_hit in the render: {new['ms']:.4f} ms per launch, "
+              f"{new['share']:.2%} of device time ({new['device_ms']:.3f} ms); the per-thread "
+              f"yardstick in its place: {old['ms']:.4f} ms per launch, {old['share']:.2%} "
+              f"({old['device_ms']:.3f} ms) [{card}]", flush=True)
+    rec = {"name": "mesh_hit", "route": "cuda", "source": "raytrace_tpu_torch/csrc/mesh_kernel.cu",
+           "replaces": "raytrace_tpu/ops/pallas/mesh_hit_kernel.py:269", "launches": launches,
+           "max_abs_err": hit["max_abs_err"], "ms": hit["ms"], "plain_ms": hit["plain_ms"],
+           "bound_ms": hit["bound_ms"], "bound_by": hit["bound_by"], "library_ms": None,
+           "launches_per_render": launches, "in_render_ms": new["ms"] if new else None}
+    return rec, per_path, hit["walk_ops_per_ray"]
 
 
-def profile(renderer, card):
+def profile(renderer, card, kernel):
     """torch.profiler over one warm render(16) of the renderer: device
-    time per kernel, the mesh_hit kernel's share, host syncs per
-    wavefront iteration, and the device's idle share of an unprofiled
-    warm render(16)."""
+    time per kernel, the share of the kernel whose name holds `kernel`,
+    host syncs per wavefront iteration, and the device's idle share of an
+    unprofiled warm render(16). Returns {ms (per launch), share,
+    device_ms} of that kernel, or None without device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -604,18 +796,21 @@ def profile(renderer, card):
           f"{total / 1e3:.3f} ms [{card}]", flush=True)
     if total <= 0:
         print("[profile] the profiler recorded no device time", flush=True)
-        return
+        return None
     print(f"[profile] the same render unprofiled: {wall_ms:.3f} ms wall, so the device is idle "
           f"{1 - total / 1e3 / wall_ms:.1%} of it [{card}]", flush=True)
     for e in sorted(kernels, key=dev_us, reverse=True)[:14]:
         print(f"[profile] {dev_us(e) / total:7.2%} {dev_us(e) / 1e3:10.3f} ms {e.count:7d}x "
               f"{e.key[:90]}", flush=True)
-    hit = sum(dev_us(e) for e in kernels if "mesh_hit_kernel" in e.key)
-    print(f"[profile] mesh_hit kernel {hit / total:.2%} of device time; the elementwise "
-          f"integrator and the rest {1 - hit / total:.2%}", flush=True)
+    mine = [e for e in kernels if kernel in e.key]
+    hit = sum(dev_us(e) for e in mine)
+    count = sum(e.count for e in mine)
+    print(f"[profile] {kernel} {hit / total:.2%} of device time, {count} launches; the "
+          f"elementwise integrator and the rest {1 - hit / total:.2%}", flush=True)
     for name in ("cudaStreamSynchronize", "aten::_local_scalar_dense", "cudaLaunchKernel"):
         c = sum(e.count for e in rows if e.key == name)
         print(f"[profile] {name}: {c} calls, {c / max(iters, 1):.1f} per iteration", flush=True)
+    return {"ms": hit / 1e3 / max(count, 1), "share": hit / total, "device_ms": total / 1e3}
 
 
 def main() -> int:
@@ -773,9 +968,41 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "library_ms": None,
+        "launches_per_render": launches,
     }]
-    kernels += mesh_phases(dev, card)
-    kernels.append(integrator_phases(dev, card))
+    shape = {"trace_tiles": dict(
+        n_sph=tables.n_sph, n_ft=tables.n_ft, n_tris=0,
+        table_bytes=tensor_bytes(tables.buffers()))}
+    mesh_records, mesh_shape = mesh_phases(dev, card)
+    kernels += mesh_records
+    shape.update(mesh_shape)
+    hit_record, per_path, walk_ops = integrator_phases(dev, card)
+
+    # ---- the fused kernels' bounds: their timed launches' lane-bounces
+    # (the wavefront's lane-bounces per path of the same frame, phase 8)
+    # times the FP32 operations of a bounce, counted from the sources ----
+    paths = {"trace_tiles": (W * H, TIMING_SPL), "mesh_trace": (MESH_W * MESH_H, MESH_SPP),
+             "mesh_trace_brute": (MESH_W * MESH_H, MESH_SPP)}
+    for rec in kernels:
+        name, s = rec["name"], shape[rec["name"]]
+        lanes, spl = paths[name]
+        per_bounce = s["n_sph"] * SPH_OPS + s["n_ft"] * (TRI_OPS - 2)
+        if name == "trace_tiles":
+            per_bounce += SHADE_SPH_OPS
+            out_floats = 9
+        else:
+            per_bounce += SHADE_MESH_OPS + (walk_ops if name == "mesh_trace"
+                                            else s["n_tris"] * TRI_OPS)
+            out_floats = 3
+        lane_bounces = per_path[name] * lanes * spl
+        nbytes = s["table_bytes"] + lanes * (3 * 4 + out_floats * 4)
+        rec["bound_ms"], rec["bound_by"] = bound(lane_bounces * per_bounce, nbytes)
+        print(f"[bound] {name}: {lane_bounces:.4g} lane-bounces ({per_path[name]:.4f} per path x "
+              f"{lanes * spl} paths) x {per_bounce:.1f} FP32 ops, {nbytes:.4g} bytes: bound "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}; kernel {rec['ms']:.4f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.2%} of the bound reached) [{card}]", flush=True)
+    kernels.append(hit_record)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -56,22 +56,17 @@
 // The third entry point, mesh_hit, replaces
 // raytrace_tpu/ops/pallas/mesh_hit_kernel.py::mesh_hit_tiles (body
 // `_kernel`): the nearest mesh hit (t, global triangle id, u, v) of each
-// ray of the XLA integrator and the wavefront driver
+// ray of the integrator and the wavefront driver
 // (render/integrator.closest_hit, at every bounce and for every shadow ray
 // of direct-light sampling), seeded with the sphere / free-triangle best
-// t. One thread per ray runs the same walk as mesh_trace, with a lower
-// bound t_min applied after the triangle test (EPS in gpu semantics; the
-// cpu semantics' 20*EPS self-hit guard, which the TPU kernel left out);
-// a lane seeded with -INF (a dead lane) reaches no cluster. Where the TPU
-// kernel streamed reached superclusters into VMEM by DMA, the tables stay
-// in global memory and L2 behind __ldg. What bounds it is the walk's:
-// dependent global loads along the walk and warp divergence. This first
-// version relies on the wavefront's 32x32-tile lane order to keep the
-// rays of a warp together; wider BVH nodes, ray sorting and persistent
-// threads are later work.
+// t; a hit counts at t_min <= t < seed (EPS in gpu semantics; the cpu
+// semantics' 20*EPS self-hit guard, which the TPU kernel left out). See
+// the note at mesh_hit_kernel below for its design.
 //
 // Built by raytrace_tpu_torch/kernels/build.py (nvcc -arch sm_90a, no
 // --use_fast_math); called through ctypes from ops/mesh_kernel.py.
+
+#include <math_constants.h>
 
 #include "path_common.cuh"
 
@@ -108,16 +103,23 @@ __device__ __forceinline__ float slab_dir(float d) {
   return fabsf(d) < kEps ? (d < 0.f ? -kEps : kEps) : d;
 }
 
-// slab test of one [lo xyz, hi xyz, 0, 0] box (mesh_bounce_kernel.py:380-396)
-__device__ __forceinline__ bool reach(const float* box, const Ray& r, float fx, float fy,
-                                      float fz, float tt) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(box));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(box) + 1);
+// the slab span [entry, exit] of one [lo xyz, hi xyz, 0, 0] box, loaded
+// as two float4 a, b (mesh_bounce_kernel.py:380-396)
+__device__ __forceinline__ void slab_span(float4 a, float4 b, const Ray& r, float fx, float fy,
+                                          float fz, float& entry, float& exit_) {
   const float t0x = (a.x - r.ox) * fx, t1x = (a.w - r.ox) * fx;
   const float t0y = (a.y - r.oy) * fy, t1y = (b.x - r.oy) * fy;
   const float t0z = (a.z - r.oz) * fz, t1z = (b.y - r.oz) * fz;
-  const float entry = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-  const float exit_ = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  entry = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  exit_ = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+}
+
+// slab test of the box at `box`, pruned by entry < tt
+__device__ __forceinline__ bool reach(const float* box, const Ray& r, float fx, float fy,
+                                      float fz, float tt) {
+  float entry, exit_;
+  slab_span(__ldg(reinterpret_cast<const float4*>(box)),
+            __ldg(reinterpret_cast<const float4*>(box) + 1), r, fx, fy, fz, entry, exit_);
   return entry <= exit_ && exit_ >= 0.f && entry < tt;
 }
 
@@ -451,7 +453,116 @@ int launch(const int32_t* xs, const int32_t* ys, const int32_t* samp, int n, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// the integrator's nearest mesh hit: one thread per ray, SoA in and out
+// ---- mesh_hit: the integrator's nearest mesh hit, one thread group per ray ----
+//
+// Replaces raytrace_tpu/ops/pallas/mesh_hit_kernel.py::mesh_hit_tiles.
+// What bounds it on an H100 is neither bytes nor operations: a launch of
+// the wavefront's 131,072 a380-class rays moves about 12.7 MB (the
+// tables once, 28 B in and 16 B out per ray: about 4 us at 3.35 TB/s),
+// and the walk any exact traversal needs on such rays (counted by
+// ops/mesh_kernel.walk_work) is tens of microseconds at the FP32 peak.
+// The time goes to the latency of the walk's dependent loads and to
+// divergence. The design:
+//  - divergence: a group of kRayGroup threads of one warp follows one ray,
+//    so the threads of a group agree on every branch of the walk. The
+//    wavefront's pool holds rays of unrelated pixels and bounce depths;
+//    with a thread per ray a warp ran the union of 32 rays' walks;
+//  - latency and occupancy: the children of a node are contiguous 32 B
+//    rows, tested by the group's threads at once (one box a thread), and
+//    a cluster's rows are tested in rounds of kRayGroup 48 B rows; the
+//    launch has kRayGroup threads a ray, enough loads in flight to cover
+//    L2 latency on all SMs;
+//  - order: at each level the group visits the reached children nearest
+//    slab entry first (a group argmin) and re-tests each against the
+//    running best t before it descends; the best is shared by a shuffle
+//    reduction after every cluster. The walk so follows the ray's own
+//    order, not the camera's order of pack_mesh_tables, and the nearest
+//    hit, found early, prunes the rest with the same slab test as `walk`;
+//  - exactness: each thread keeps its best (t, scan position cluster * W
+//    + row) under the same tri_hit arithmetic, and a final reduction takes
+//    the least (t, position). The winner does not depend on the visiting
+//    order and equals mesh_hit_walk's except where an exact-t tie (or an
+//    ulp-level slab / triangle disagreement) straddles a box whose entry
+//    equals the running best;
+//  - dead lanes (no seed above t_min, as a -INF seed) write their result
+//    before any table load.
+// The top levels (4.6 KB on the a380-class scene) are read through __ldg
+// and stay in L1; they are not staged in shared memory.
+
+constexpr int kRayGroup = 16;  // threads per ray: 16 boxes or rows a round
+constexpr int kSgChunk = 16;   // supergroups ordered together at the top level
+constexpr unsigned kGroupBits = kRayGroup == 32 ? 0xFFFFFFFFu : (1u << kRayGroup) - 1u;
+static_assert(32 % kRayGroup == 0, "a group lies within one warp");
+
+struct Group {
+  unsigned mask;  // this group's lanes of its warp
+  int rank;       // 0 .. kRayGroup - 1
+};
+
+// per-thread slots of a level of F children: child k * kRayGroup + rank in slot k
+template <int F>
+struct Slots {
+  static constexpr int K = (F + kRayGroup - 1) / kRayGroup;
+  float e[K];  // slab entry of a reached child; +inf otherwise, or once visited
+};
+
+__device__ __forceinline__ float group_min(const Group& g, float v) {
+#pragma unroll
+  for (int s = kRayGroup / 2; s > 0; s >>= 1)
+    v = fminf(v, __shfl_xor_sync(g.mask, v, s, kRayGroup));
+  return v;
+}
+
+// Slab test of boxes first .. first + n - 1 (n <= F) into the slots, pruned
+// by entry < best; with `counts`, empty (padding) clusters stay +inf untested.
+template <int F>
+__device__ __forceinline__ void test_level(Slots<F>& s, const Group& g, const float* boxes,
+                                           const int* counts, int first, int n, const Ray& r,
+                                           float fx, float fy, float fz, float best) {
+#pragma unroll
+  for (int k = 0; k < Slots<F>::K; ++k) {
+    const int j = k * kRayGroup + g.rank;
+    float e = CUDART_INF_F;
+    if (j < n && (counts == nullptr || __ldg(counts + first + j) > 0)) {
+      const float4* b = reinterpret_cast<const float4*>(boxes) + 2 * (first + j);
+      float entry, exit_;
+      slab_span(__ldg(b), __ldg(b + 1), r, fx, fy, fz, entry, exit_);
+      if (entry <= exit_ && exit_ >= 0.f && entry < best) e = entry;
+    }
+    s.e[k] = e;
+  }
+}
+
+// The reached child of least entry (ties to the least index) that still
+// has entry < best, taken out of the slots; -1 when none is left. The
+// same on every thread of the group.
+template <int F>
+__device__ __forceinline__ int pop_nearest(Slots<F>& s, const Group& g, float best) {
+  float e = s.e[0];
+  int j = g.rank;
+#pragma unroll
+  for (int k = 1; k < Slots<F>::K; ++k) {
+    if (s.e[k] < e) {
+      e = s.e[k];
+      j = k * kRayGroup + g.rank;
+    }
+  }
+#pragma unroll
+  for (int sh = kRayGroup / 2; sh > 0; sh >>= 1) {
+    const float oe = __shfl_xor_sync(g.mask, e, sh, kRayGroup);
+    const int oj = __shfl_xor_sync(g.mask, j, sh, kRayGroup);
+    if (oe < e || (oe == e && oj < j)) {
+      e = oe;
+      j = oj;
+    }
+  }
+  if (!(e < best)) return -1;
+#pragma unroll
+  for (int k = 0; k < Slots<F>::K; ++k)
+    if (k * kRayGroup + g.rank == j) s.e[k] = CUDART_INF_F;
+  return j;
+}
+
 __global__ void __launch_bounds__(kThreads)
 mesh_hit_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                 const float* __restrict__ oz, const float* __restrict__ dx,
@@ -459,6 +570,94 @@ mesh_hit_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                 const float* __restrict__ seed, int n, float t_min, const Mesh m,
                 float* __restrict__ t_out, int* __restrict__ gid_out, float* __restrict__ u_out,
                 float* __restrict__ v_out) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / kRayGroup;  // this group's ray
+  if (i >= n) return;  // whole groups
+  const Group g{kGroupBits << ((threadIdx.x & 31) & ~(kRayGroup - 1)),
+                static_cast<int>(threadIdx.x & (kRayGroup - 1))};
+  const float t_seed = seed[i];
+  if (!(t_seed > t_min)) {  // dead: no t has t_min <= t < seed
+    if (g.rank == 0) {
+      t_out[i] = t_seed;
+      gid_out[i] = -1;
+      u_out[i] = 0.f;
+      v_out[i] = 0.f;
+    }
+    return;
+  }
+  const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
+  const float fx = 1.f / slab_dir(r.dx);
+  const float fy = 1.f / slab_dir(r.dy);
+  const float fz = 1.f / slab_dir(r.dz);
+  float best = t_seed;                    // the group's running best t
+  float ct = t_seed, cu = 0.f, cv = 0.f;  // this thread's best hit
+  int cpos = -1;                          // its scan position; -1: none, the seed
+
+  for (int base = 0; base < m.n_sg; base += kSgChunk) {
+    Slots<kSgChunk> s1;
+    test_level(s1, g, m.sgbounds, nullptr, base, min(kSgChunk, m.n_sg - base), r, fx, fy, fz,
+               best);
+    for (int j1; (j1 = pop_nearest(s1, g, best)) >= 0;) {
+      const int sg = base + j1;
+      Slots<kSGroup> s2;
+      test_level(s2, g, m.sbounds, nullptr, sg * kSGroup, kSGroup, r, fx, fy, fz, best);
+      for (int j2; (j2 = pop_nearest(s2, g, best)) >= 0;) {
+        const int sc = sg * kSGroup + j2;
+        Slots<kGroup> s3;
+        test_level(s3, g, m.bounds, m.count, sc * kGroup, kGroup, r, fx, fy, fz, best);
+        for (int j3; (j3 = pop_nearest(s3, g, best)) >= 0;) {
+          const int c = sc * kGroup + j3;
+          const int cnt = __ldg(m.count + c);
+          for (int w = g.rank; w < cnt; w += kRayGroup) {
+            const int pos = c * m.width + w;
+            const float4* row = m.tri + 3 * static_cast<size_t>(pos);
+            const float4 a = __ldg(row), b = __ldg(row + 1), cc = __ldg(row + 2);
+            float t, u, v;
+            if (tri_hit(r, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, cc.x, t, u, v) &&
+                t >= t_min && (t < ct || (t == ct && pos < cpos))) {
+              ct = t;
+              cpos = pos;
+              cu = u;
+              cv = v;
+            }
+          }
+          best = group_min(g, ct);
+        }
+      }
+    }
+  }
+
+  // the least (t, scan position) of the group; hits all lie below the seed
+#pragma unroll
+  for (int sh = kRayGroup / 2; sh > 0; sh >>= 1) {
+    const float ot = __shfl_xor_sync(g.mask, ct, sh, kRayGroup);
+    const int op = __shfl_xor_sync(g.mask, cpos, sh, kRayGroup);
+    const float ou = __shfl_xor_sync(g.mask, cu, sh, kRayGroup);
+    const float ov = __shfl_xor_sync(g.mask, cv, sh, kRayGroup);
+    if (ot < ct || (ot == ct && op < cpos)) {
+      ct = ot;
+      cpos = op;
+      cu = ou;
+      cv = ov;
+    }
+  }
+  if (g.rank == 0) {
+    t_out[i] = ct;
+    gid_out[i] = cpos >= 0 ? __ldg(m.gid + cpos) : -1;
+    u_out[i] = cu;
+    v_out[i] = cv;
+  }
+}
+
+// The yardstick mesh_hit_kernel is timed against: one thread per ray runs
+// mesh_trace's per-thread `walk` in the camera's scan order (the first
+// design of this entry). Nothing on a render path launches it.
+__global__ void __launch_bounds__(kThreads)
+mesh_hit_per_thread_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+                           const float* __restrict__ oz, const float* __restrict__ dx,
+                           const float* __restrict__ dy, const float* __restrict__ dz,
+                           const float* __restrict__ seed, int n, float t_min, const Mesh m,
+                           float* __restrict__ t_out, int* __restrict__ gid_out,
+                           float* __restrict__ u_out, float* __restrict__ v_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
@@ -471,22 +670,41 @@ mesh_hit_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   v_out[i] = bv;
 }
 
-}  // namespace
-
-extern "C" int mesh_hit_launch(const float* ox, const float* oy, const float* oz,
-                               const float* dx, const float* dy, const float* dz,
-                               const float* seed, int n, float t_min, const float* sgbounds,
-                               const float* sbounds, const float* bounds, const int* count,
-                               const float* tri, const int* gid, int n_sg, int width,
-                               float* t_out, int* gid_out, float* u_out, float* v_out,
-                               void* stream) {
+template <typename HitKernel>
+int launch_hit(HitKernel kernel, int threads_per_ray, const float* ox, const float* oy,
+               const float* oz, const float* dx, const float* dy, const float* dz,
+               const float* seed, int n, float t_min, const float* sgbounds,
+               const float* sbounds, const float* bounds, const int* count, const float* tri,
+               const int* gid, int n_sg, int width, float* t_out, int* gid_out, float* u_out,
+               float* v_out, void* stream) {
   if (n <= 0) return 0;
   const Mesh m{sgbounds, sbounds, bounds, count, reinterpret_cast<const float4*>(tri), gid,
                n_sg, width, nullptr, nullptr, 0, nullptr, nullptr, nullptr, 0, 0};
-  const int blocks = (n + kThreads - 1) / kThreads;
-  mesh_hit_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long threads = static_cast<long long>(n) * threads_per_ray;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       ox, oy, oz, dx, dy, dz, seed, n, t_min, m, t_out, gid_out, u_out, v_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#define MESH_HIT_ARGS                                                                        \
+  const float *ox, const float *oy, const float *oz, const float *dx, const float *dy,       \
+      const float *dz, const float *seed, int n, float t_min, const float *sgbounds,         \
+      const float *sbounds, const float *bounds, const int *count, const float *tri,         \
+      const int *gid, int n_sg, int width, float *t_out, int *gid_out, float *u_out,         \
+      float *v_out, void *stream
+#define MESH_HIT_PASS                                                                        \
+  ox, oy, oz, dx, dy, dz, seed, n, t_min, sgbounds, sbounds, bounds, count, tri, gid, n_sg,  \
+      width, t_out, gid_out, u_out, v_out, stream
+
+extern "C" int mesh_hit_launch(MESH_HIT_ARGS) {
+  return launch_hit(mesh_hit_kernel, kRayGroup, MESH_HIT_PASS);
+}
+
+extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
+  return launch_hit(mesh_hit_per_thread_kernel, 1, MESH_HIT_PASS);
 }
 
 #define MESH_TRACE_ARGS                                                                      \

@@ -41,6 +41,7 @@ sqrt then divide with an eps of 1e-20 where the JAX code has one
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -63,7 +64,7 @@ _NOHIT_LO, _NOHIT_HI = 3.0e38, -3.0e38  # inverted AABB of padding clusters (the
 # JAX layout; the slab test does not retire it, the walks skip count-0 clusters)
 
 # launches of each CUDA entry point in this process (read by chip_smoke.py)
-LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_hit": 0}
+LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_hit": 0, "mesh_hit_per_thread": 0}
 
 
 # --- host-side packing -----------------------------------------------------
@@ -260,9 +261,14 @@ def mesh_hit_walk(o, d, t_seed, tables, t_min: float = EPS):
     of (N,) f32; t_seed (N,) f32; a hit counts only at t >= t_min,
     applied after the triangle test (EPS, which the test implies, or the
     cpu semantics' 20*EPS). Returns (t, gid (int64, -1 where no triangle
-    beat t_seed), u, v). The kernels prune by their running best instead
-    of t_seed: the same nearest hit except where an exact-t tie
-    straddles two clusters."""
+    beat t_seed), u, v), exact-t ties to the least scan position. The
+    kernels prune by a running best instead of t_seed: `mesh_trace`'s
+    thread walks in the camera's scan order, `mesh_hit`'s thread group
+    visits each level's reached boxes nearest slab entry first, in the
+    ray's own order. Any box that can hold the nearest hit has its entry
+    at or below it (see `walk_work`), so both find the same nearest hit
+    except where an exact-t tie straddles a box whose entry equals the
+    running best."""
     n = t_seed.numel()
     f = [1.0 / _slab_clamp(dk) for dk in d]
     dev = t_seed.device
@@ -302,6 +308,38 @@ def mesh_hit_walk(o, d, t_seed, tables, t_min: float = EPS):
                                   (torch.int64, torch.float32, torch.int64, torch.int64,
                                    torch.float32, torch.float32)))
     return _resolve(t_seed, *(torch.cat(c) for c in cand))
+
+
+def walk_work(o, d, t_best, tables, t_min: float = EPS):
+    """The tests an exact walk of these rays must make: the walk of
+    `mesh_hit_walk` with every box pruned by the ray's final nearest t
+    t_best (the t that `mesh_hit` returns), a box reached when entry <=
+    t_best. A box of larger entry holds no triangle that beats the
+    nearest hit, and the box of the nearest hit has its entry at or below
+    it, so every walk that returns the exact nearest hit makes at least
+    these tests. A live ray tests every supergroup box; a reached
+    supergroup its SGROUP supercluster boxes; a reached supercluster the
+    boxes of its non-empty clusters; a reached non-empty cluster its
+    `count` rows. Rays with t_best < t_min (dead lanes, seeded -INF) make
+    none.
+
+    Returns a dict of ints: rays (the live ones), slab (the slab tests
+    at the supergroup, supercluster and cluster levels), tri (the
+    triangle tests)."""
+    live = (t_best >= t_min).nonzero()[:, 0]
+    bound = torch.nextafter(t_best, torch.full_like(t_best, math.inf))  # entry < bound: <= t_best
+    f = [1.0 / _slab_clamp(dk) for dk in d]
+    n_sg = tables.sgbounds.shape[0]
+    lane = live.repeat_interleave(n_sg)
+    node = torch.arange(n_sg, device=t_best.device).repeat(live.numel())
+    keep = _reach(o, f, bound, lane, tables.sgbounds[node])
+    lane, node = lane[keep], node[keep]
+    slab = [live.numel() * n_sg, SGROUP * lane.numel()]
+    lane, node = _descend(o, f, bound, lane, node, SGROUP, tables.sbounds)
+    slab.append(int((tables.count > 0).view(-1, GROUP).sum(dim=1)[node].sum()))
+    lane, node = _descend(o, f, bound, lane, node, GROUP, tables.bounds)
+    # a padding cluster's inverted box passes the slab test; its count is 0
+    return dict(rays=live.numel(), slab=slab, tri=int(tables.count[node].sum()))
 
 
 def mesh_hit_brute(o, d, t_seed, tables):
@@ -571,7 +609,7 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
 # --- the nearest hit alone: the integrator's mesh intersection -------------
 
 
-def _launch_hit(o, d, t_seed, tables, t_min):
+def _launch_hit(o, d, t_seed, tables, t_min, entry="mesh_hit"):
     from ..kernels import build
 
     dev = t_seed.device
@@ -589,7 +627,7 @@ def _launch_hit(o, d, t_seed, tables, t_min):
     if tables.tri.shape[2] != TRI_COLS:
         raise ValueError("tables do not have the packed column layout")
 
-    fn = build.build("mesh_kernel").lib.mesh_hit_launch
+    fn = getattr(build.build("mesh_kernel").lib, f"{entry}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float]
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
@@ -604,8 +642,8 @@ def _launch_hit(o, d, t_seed, tables, t_min):
                 tb.sgbounds.shape[0], tb.tri.shape[1],
                 t_out.data_ptr(), gid_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"mesh_hit kernel launch failed: CUDA error {rc}")
-    LAUNCHES["mesh_hit"] += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[entry] += 1
     return t_out, gid_out, u_out, v_out
 
 
@@ -613,13 +651,15 @@ def mesh_hit(o, d, t_seed, tables: MeshTables, *, t_min: float):
     """The nearest mesh hit of each ray (the contract of the JAX
     `mesh_hit_tiles`, mesh_hit_kernel.py:268-276): o, d 3-tuples of (N,)
     f32 tensors, t_seed (N,) f32 the best t so far; a hit counts at
-    t_min <= t < the lane's best (t_min EPS in gpu semantics, 20*EPS in
-    cpu semantics). Returns (t, gid int32, u, v): gid -1 and t = t_seed
-    where no triangle beat the seed. A lane seeded with -INF (a dead
-    lane) reaches no cluster.
+    t_min <= t < t_seed (t_min EPS in gpu semantics, 20*EPS in cpu
+    semantics), exact-t ties to the least scan position of
+    `pack_mesh_tables`' layout. Returns (t, gid int32, u, v): gid -1, t =
+    t_seed and u = v = 0 where no triangle beat the seed. A lane seeded
+    at or below t_min (a dead lane, seeded -INF) reaches no cluster.
 
-    CPU tensors run `mesh_hit_walk`; CUDA tensors launch the
-    `mesh_hit` entry of csrc/mesh_kernel.cu or raise."""
+    CPU tensors run `mesh_hit_walk`; CUDA tensors launch the `mesh_hit`
+    entry of csrc/mesh_kernel.cu (a thread group per ray, nearest slab
+    entry first, pruned by the group's running best) or raise."""
     t_min = float(np.float32(t_min))
     if t_seed.device.type == "cuda":
         return _launch_hit(o, d, t_seed, tables, t_min)
@@ -627,3 +667,12 @@ def mesh_hit(o, d, t_seed, tables: MeshTables, *, t_min: float):
         t, gid, u, v = mesh_hit_walk(o, d, t_seed, tables, t_min=t_min)
         return t, gid.to(torch.int32), u, v
     raise ValueError(f"mesh_hit runs on cpu or cuda tensors, not {t_seed.device}")
+
+
+def _mesh_hit_per_thread(o, d, t_seed, tables: MeshTables, *, t_min: float):
+    """`mesh_hit` by the entry `mesh_hit_per_thread` of csrc/mesh_kernel.cu
+    (one thread per ray, the camera's scan order): the yardstick that
+    chip_smoke.py times the kernel against. CUDA tensors only."""
+    if t_seed.device.type != "cuda":
+        raise ValueError(f"the per-thread mesh_hit runs on cuda tensors, not {t_seed.device}")
+    return _launch_hit(o, d, t_seed, tables, float(np.float32(t_min)), "mesh_hit_per_thread")

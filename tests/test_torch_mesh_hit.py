@@ -13,7 +13,12 @@ instanced scenes (the octahedra) and are not used.
 Gate (tests/test_torch_mesh_ops.py): gids equal on >= 99.5% of lanes;
 where they are, t within 1e-5 relative on >= 98% of them and within 2e-4
 on all, barycentrics within 1e-3. The slack is XLA contracting
-multiply-adds into FMAs on the CPU, which torch does not."""
+multiply-adds into FMAs on the CPU, which torch does not.
+
+The same cases hold `walk_work` (the tests an exact walk must make,
+which set the kernel's bound) against a brute numpy count, and the
+invariant the kernel's visiting order rests on: pruning every box by the
+final nearest t keeps the nearest hit, bitwise."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -98,9 +103,13 @@ def case(request, tmp_path_factory):
     return jscene, tables, cam, o, d, seed
 
 
+def _cols(a):
+    """(N, 3) numpy -> a 3-tuple of (N,) tensors."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in a.T)
+
+
 def _port(tables, o, d, seed, t_min):
-    t = lambda a: tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in a.T)
-    t_, g, u, v = mk.mesh_hit(t(o), t(d), torch.from_numpy(seed), tables, t_min=t_min)
+    t_, g, u, v = mk.mesh_hit(_cols(o), _cols(d), torch.from_numpy(seed), tables, t_min=t_min)
     assert g.dtype == torch.int32
     return tuple(a.numpy() for a in (t_, g, u, v))
 
@@ -161,6 +170,74 @@ def test_mesh_hit_guard_excludes_near_hits(case):
     assert near.mean() > 0.9
     assert ((g_cpu == -1) | (t_cpu >= np.float32(20 * EPS))).all()
     assert (g_cpu != g_gpu).mean() > 0.5
+
+
+@pytest.mark.parametrize("t_min", [EPS, 20 * EPS])
+def test_final_t_pruning_keeps_the_nearest_hit(case, t_min):
+    """The invariant that lets the kernel visit boxes in any order under
+    its running best: the walk pruned by each ray's final nearest t (a
+    box reached at entry <= t) returns the same (t, gid, u, v), bitwise,
+    as the walk pruned by the seed."""
+    _, tables, _, o, d, seed = case
+    ref = _port(tables, o, d, seed, t_min)
+    t, g = ref[0], ref[1]
+    assert (g >= 0).sum() > N_LANES // 10
+    bound = np.where(g >= 0, np.nextafter(t, np.float32(np.inf)), seed).astype(np.float32)
+    for ours, want in zip(_port(tables, o, d, bound, t_min), ref):
+        np.testing.assert_array_equal(ours, want)
+
+
+def _slab_numpy(o, d, boxes, bound):
+    """(N, B) bool: every ray's slab test against every (B, 8) box in
+    float32, reached at entry < bound."""
+    dd = np.where(np.abs(d) < np.float32(EPS), np.where(d < 0, -np.float32(EPS), np.float32(EPS)),
+                  d).astype(np.float32)
+    f = np.float32(1.0) / dd
+    with np.errstate(over="ignore"):  # padding boxes (+-3e38) overflow to +-inf, as on the card
+        t0 = (boxes[None, :, 0:3] - o[:, None, :]) * f[:, None, :]
+        t1 = (boxes[None, :, 3:6] - o[:, None, :]) * f[:, None, :]
+    entry = np.minimum(t0, t1).max(axis=2)
+    exit_ = np.maximum(t0, t1).min(axis=2)
+    return (entry <= exit_) & (exit_ >= 0) & (entry < bound[:, None])
+
+
+def _numpy_work(tables, o, d, t_best, t_min):
+    """walk_work's counts by brute force: every live ray against every box
+    of every level, a box counted where its parent is reached."""
+    live = t_best >= np.float32(t_min)
+    o, d = o[live], d[live]
+    bound = np.nextafter(t_best[live], np.float32(np.inf))
+    count = tables.count.numpy()
+    sg = _slab_numpy(o, d, tables.sgbounds.numpy(), bound)
+    sc_tested = np.repeat(sg, mk.SGROUP, axis=1)
+    sc = _slab_numpy(o, d, tables.sbounds.numpy(), bound) & sc_tested
+    cl_tested = np.repeat(sc, mk.GROUP, axis=1) & (count > 0)[None, :]
+    cl = _slab_numpy(o, d, tables.bounds.numpy(), bound) & cl_tested
+    return dict(rays=int(live.sum()), slab=[int(sg.size), int(sc_tested.sum()), int(cl_tested.sum())],
+                tri=int((cl * count[None, :]).sum()))
+
+
+def test_walk_work_matches_a_brute_count(case):
+    """walk_work's slab and triangle tests, pruned by the final nearest t,
+    equal a numpy count over every box; the seed's pruning needs more."""
+    _, tables, _, o, d, seed = case
+    t = _port(tables, o, d, seed, EPS)[0]
+    work = mk.walk_work(_cols(o), _cols(d), torch.from_numpy(t), tables, t_min=EPS)
+    assert work == _numpy_work(tables, o, d, t, EPS)
+    assert work["rays"] == N_LANES - N_LANES // 4 and work["tri"] > 0
+    by_seed = mk.walk_work(_cols(o), _cols(d), torch.from_numpy(seed), tables, t_min=EPS)
+    assert by_seed["tri"] >= work["tri"] and by_seed["slab"][1] >= work["slab"][1]
+
+
+def test_walk_work_dead_lanes_do_nothing(case):
+    """Dead lanes (seeded -INF, so their final t is -INF) add no test."""
+    _, tables, _, o, d, seed = case
+    t = _port(tables, o, d, seed, EPS)[0]
+    dead = seed == np.float32(-INF)
+    work = lambda m: mk.walk_work(_cols(o[m]), _cols(d[m]), torch.from_numpy(t[m]), tables,
+                                  t_min=EPS)
+    assert work(dead) == dict(rays=0, slab=[0, 0, 0], tri=0)
+    assert work(np.ones_like(dead)) == work(~dead)
 
 
 def test_mesh_hit_refuses_other_devices(case):
