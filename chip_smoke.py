@@ -7,8 +7,9 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
 
 1. environment: the card's name and power limit, CUDA and nvcc versions;
 2. build: compiles csrc/trace_kernel.cu and csrc/mesh_kernel.cu with nvcc
-   for sm_90a, both at once (timed), and prints ptxas's registers /
-   shared memory / spills;
+   for sm_90a, with copies of mesh_kernel.cu at 8, 16 and 32 threads per
+   ray for the group sweep of phase 5, all at once (timed), and prints
+   ptxas's registers / shared memory / spills;
 3. kernel vs plain, both on the card: `trace_tiles` (the CUDA kernel)
    against `trace_tiles_reference` (plain torch) on the walled scene at
    1200x600 (samples per lane 1: all 9 outputs; 4: radiance) and on a
@@ -22,23 +23,34 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    small frame (scripts/hw_parity.py's tile gate), and a checkpoint
    resume must be bitwise exact on the card. Prints paths/s with the
    card's name and power limit;
-5. mesh kernel vs plain, both on the card, same gate: `mesh_trace` (the
-   walk) against `mesh_trace_reference` on the whole 1216x608 frame of
-   the a380-class textured surface (127,749 triangles, 20 u8 1024x1024
-   textures) at samples per lane 1, 4 and 16 (the main path's launch);
-   `mesh_trace_brute` on the whole frame of the 2,097-triangle surface
-   at the same camera, likewise; both routes on a 64x32 scene of
-   textured, normal-mapped octahedra with an emissive sphere, a
-   dielectric sphere and a DiffSpec triangle. Each kernel is timed at
-   the main path's launch beside its plain version, both versions on a
-   strided subset of 33,606 pixels in turns, and the host set-up
-   (build_scene, MeshTables) on the host clock;
+5. mesh kernel vs plain, both on the card: `mesh_trace` (the walk)
+   against `mesh_trace_reference` on the whole 1216x608 frame of the
+   a380-class textured surface (127,749 triangles, 20 u8 1024x1024
+   textures) at samples per lane 1, 4 and 16 (the main path's launch),
+   and `mesh_trace_brute` on the whole frame of the 2,097-triangle
+   surface at the same camera, likewise: the lanes that differ are
+   printed and must be none; both routes on a 64x32 scene of textured,
+   normal-mapped octahedra with an emissive sphere, a dielectric sphere
+   and a DiffSpec triangle, under the lane gate. Each kernel is timed at
+   the main path's launch against its yardstick (the entry's first
+   design: `mesh_trace_per_thread`, `mesh_trace_brute_lockstep`) in turns
+   new, old, old, new, beside its plain version's launch; both versions
+   on a strided subset of 33,606 pixels in turns; the host set-up
+   (build_scene, MeshTables) on the host clock. Then the gate sweep: both
+   routes on the whole frame at 16 samples per lane over cuts of the
+   surface (256, 512, 1,024, 2,097 and 2,560 triangles) in turns walk,
+   brute, brute, walk, and the largest cut at which the brute route is
+   faster beside MAX_BRUTE_TRIS; and the group sweep
+   (scripts/torch_mesh_trace_groups.py): both entries at 8, 16 and 32
+   threads per ray, bitwise against the committed kernel, in turns;
 6. mesh main paths: Renderer(a380-class 1216x608, "cuda").render(16) (the
-   walk) and Renderer(2,097-triangle surface, "cuda").render(16) (the
-   brute route), each with the launch counts reset just before and read
-   just after; finite images, paths/s with the card's name and power
-   limit, a small frame of the a380-class scene on the card against the
-   CPU under the tile gate, and a bitwise exact resume on the card;
+   walk) and Renderer(2,097-triangle surface, "cuda").render(16) on the
+   brute route (set on its tables whatever the gate says), each with the
+   launch counts reset just before and read just after; finite images,
+   paths/s with the card's name and power limit, a small frame of the
+   a380-class scene on the card against the CPU under the tile gate, a
+   bitwise exact resume on the card, and a torch.profiler table of one
+   warm a380-class render(16);
 7. the integrator's mesh hit on the card: `mesh_hit` (the CUDA entry, a
    thread group per ray) and its per-thread yardstick
    (`mesh_hit_per_thread`) against `mesh_hit_walk` (plain torch) on the
@@ -63,7 +75,8 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    (its shadow rays add mesh_hit launches); the a380-class frame and
    the 2,097-triangle surface in gpu semantics through the wavefront
    (use_mesh_fused=False) against mesh_trace's and mesh_trace_brute's
-   images, and walled 1200x600 through the wavefront (use_fused=False)
+   images (the surface on the brute route whatever the gate says), and
+   walled 1200x600 through the wavefront (use_fused=False)
    against trace_tiles' image, at 16 spp, under the tile gate (their
    lane-bounces per path set the fused kernels' bounds); a
    cpu-semantics 96x48 a380-class frame on the card against the CPU; a
@@ -74,7 +87,8 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
 
 Each kernel's record has its bound (bound_ms, bound_by): the larger of
 its bytes over 3.35 TB/s and its FP32 operations, counted from the
-sources, over 67 TFLOP/s (see FP32_PEAK).
+sources, over the FP32 ceiling of its build (see FP32_PEAK and
+FP32_SINGLE).
 
 Any failure raises (exit code != 0). The line before the last is the
 kernels' JSON record; the last line is the device JSON object. Without a
@@ -149,6 +163,7 @@ def mixed_scheme(width, height):
 
 MESH_W, MESH_H, MESH_SPP = 1216, 608, 16  # the a380-class cell (scripts/bench_mesh.py)
 SUBSET_STRIDE = 22  # 739,328 / 22 -> 33,606 pixels for the timing in turns
+GATE_SWEEP = (256, 512, 1024, 2097, 2560)  # triangles of the surface's cuts in the gate sweep
 MESH_KERNELS = {  # entry point -> (route, the TPU kernel it replaces)
     "mesh_trace": ("walk", "raytrace_tpu/ops/pallas/mesh_bounce_kernel.py:698"),
     "mesh_trace_brute": ("brute", "raytrace_tpu/ops/pallas/woop.py:268"),
@@ -223,9 +238,10 @@ def octa_scheme(width, height):
     return s
 
 
-def mesh_phases(dev, card):
-    """Phases 5 and 6; returns the mesh kernels' JSON records and, for each,
-    its scene's sphere, free-triangle and triangle counts and table bytes."""
+def mesh_phases(dev, card, variants):
+    """Phases 5 and 6 (variants: the group sweep's builds, {G: Built});
+    returns the mesh kernels' JSON records and, for each, its scene's
+    sphere, free-triangle and triangle counts and table bytes."""
     import numpy as np
     import torch
 
@@ -272,8 +288,9 @@ def mesh_phases(dev, card):
         end.synchronize()
         return out, start.elapsed_time(end)
 
-    def parity(label, name, tables, xs, ys, spl, route, assured):
-        """Kernel vs plain on the same lanes; returns the plain version's ms."""
+    def parity(label, name, tables, xs, ys, spl, route, assured, exact):
+        """Kernel vs plain on the same lanes; returns the plain version's ms.
+        exact: no lane may differ; else the lane gate."""
         ours, k_ms = timed_run(mk.mesh_trace, tables, xs, ys, 7, spl, route, assured)
         ref, p_ms = timed_run(mk.mesh_trace_reference, tables, xs, ys, 7, spl, route, assured)
         for k in range(3):
@@ -282,9 +299,12 @@ def mesh_phases(dev, card):
             print(f"[parity] {label} {name} {xs.numel()} lanes spl={spl} channel {k}: "
                   f"bad-lane fraction {bad:.6f} max|d| {e:.3e}", flush=True)
             assert bad < 0.01, f"{label} {name} spl={spl}: {bad:.4f} of lanes differ"
-        print(f"[parity] {label} {name} {xs.numel()} lanes spl={spl}: radiance mean "
+        differ = int((torch.stack(ours) != torch.stack(ref)).any(0).sum())
+        print(f"[parity] {label} {name} {xs.numel()} lanes spl={spl}: {differ} lanes differ "
+              f"from the plain version; radiance mean "
               f"{[round(float(o.mean()) / spl, 6) for o in ours]}; kernel {k_ms:.3f} ms, "
               f"plain {p_ms:.3f} ms (one launch each) [{card}]", flush=True)
+        assert not (exact and differ), f"{label} {name} spl={spl}: {differ} lanes differ"
         return p_ms
 
     def timed(fn, tables, xs, ys, spl, route, reps):
@@ -299,59 +319,109 @@ def mesh_phases(dev, card):
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    def turns(label, tables, xs, ys, spl, order, reps):
+        """(kind, fn, route) of `order` timed in turns; mean ms per launch of
+        each kind."""
+        t = {}
+        for kind, fn, route in order:
+            t.setdefault(kind, []).append(timed(fn, tables, xs, ys, spl, route, reps))
+            print(f"[timing] {kind} {label} {xs.numel()} lanes spl={spl}: {t[kind][-1]:.3f} "
+                  f"ms/launch [{card}]", flush=True)
+        return {k: sum(v) / len(v) for k, v in t.items()}
+
     # ---- 5. kernel vs plain on the card ----
     # the whole 1216x608 frame of each route at the main path's launch
-    # shape (spl MESH_SPP) and at spl 1 and 4; the mixed octahedra on both
+    # shape (spl MESH_SPP) and at spl 1 and 4, no lane may differ; the
+    # mixed octahedra on both routes under the lane gate
     err = {name: 0.0 for name in MESH_KERNELS}
-    ms, plain_ms, shape = {}, {}, {}
+    ms, plain_ms, yard_ms, shape, kept = {}, {}, {}, {}, {}
     fx, fy = lanes(MESH_W, MESH_H, 1)
     for label, scheme, name in (("a380-class", a380, "mesh_trace"),
                                 ("surface-2097", surface, "mesh_trace_brute")):
         scene, tables = setup(label, scheme)
         route = MESH_KERNELS[name][0]
-        assert tables.route == route, f"{label} takes the {tables.route} route, not {route}"
+        tables.route = route  # whatever the gate says
         print(f"[parity] {label}: {scene.n_mesh_tris} triangles, {scene.n_clusters} clusters, "
               f"pool {scene.tex_pool.dtype} x {scene.tex_pool.size}, route {route}", flush=True)
         for spl in (1, 4, MESH_SPP):
-            plain_ms[name] = parity(label, name, tables, fx, fy, spl, route, 5)
-        # the main path's launch: the kernel timed over warm repetitions
-        # beside the plain version's launch above
-        ms[name] = timed(mk.mesh_trace, tables, fx, fy, MESH_SPP, route, 3)
+            plain_ms[name] = parity(label, name, tables, fx, fy, spl, route, 5, exact=True)
+        # the yardstick (the entry's first design) on the same launch
+        zero = torch.zeros_like(fx)
+        new = torch.stack(mk.mesh_trace(fx, fy, zero, tables, route=route, assured=5,
+                                        max_bounces=24, samples_per_lane=MESH_SPP))
+        old = torch.stack(mk._mesh_trace_yardstick(fx, fy, zero, tables, route=route, assured=5,
+                                                   max_bounces=24, samples_per_lane=MESH_SPP))
+        print(f"[parity] {label} {name} yardstick {mk.YARDSTICKS[route]} spl={MESH_SPP}: "
+              f"{int((new != old).any(0).sum())} lanes differ from the kernel", flush=True)
+        # the main path's launch: the kernel against its yardstick in turns
+        t = turns(f"{name} vs {mk.YARDSTICKS[route]} {label} {MESH_W}x{MESH_H}", tables, fx, fy,
+                  MESH_SPP, [("new", mk.mesh_trace, route),
+                             ("old", mk._mesh_trace_yardstick, route),
+                             ("old", mk._mesh_trace_yardstick, route),
+                             ("new", mk.mesh_trace, route)], 2)
+        ms[name], yard_ms[name] = t["new"], t["old"]
         print(f"[timing] {name} {label} {MESH_W}x{MESH_H} spl={MESH_SPP}: kernel {ms[name]:.3f} "
-              f"ms/launch ({MESH_W * MESH_H * MESH_SPP / ms[name] / 1e3:.1f} Mpaths/s), plain "
-              f"{plain_ms[name]:.3f} ms/launch [{card}]", flush=True)
+              f"ms/launch ({MESH_W * MESH_H * MESH_SPP / ms[name] / 1e3:.1f} Mpaths/s), yardstick "
+              f"{mk.YARDSTICKS[route]} {yard_ms[name]:.3f} ms ({yard_ms[name] / ms[name]:.2f}x), "
+              f"plain {plain_ms[name]:.3f} ms/launch [{card}]", flush=True)
         # both versions on a strided subset, in turns plain, kernel, kernel, plain
         xs, ys = lanes(MESH_W, MESH_H, SUBSET_STRIDE)
-        t = {"plain": [], "kernel": []}
         for kind, fn, reps in (("plain", mk.mesh_trace_reference, 1), ("kernel", mk.mesh_trace, 5),
                                ("kernel", mk.mesh_trace, 5),
                                ("plain", mk.mesh_trace_reference, 1)):
-            t[kind].append(timed(fn, tables, xs, ys, 1, route, reps))
             print(f"[timing] {kind} {name} {label} subset of {xs.numel()} lanes spl=1: "
-                  f"{t[kind][-1]:.3f} ms/launch [{card}]", flush=True)
-        if route == "brute":  # the brute scene's frame on the walk: what the gate costs
-            walk = timed(mk.mesh_trace, tables, fx, fy, MESH_SPP, "walk", 2)
-            print(f"[timing] kernel mesh_trace (walk) {label} {MESH_W}x{MESH_H} spl={MESH_SPP}: "
-                  f"{walk:.3f} ms/launch ({MESH_W * MESH_H * MESH_SPP / walk / 1e3:.1f} "
-                  f"Mpaths/s) [{card}]", flush=True)
+                  f"{timed(fn, tables, xs, ys, 1, route, reps):.3f} ms/launch [{card}]",
+                  flush=True)
         # what the bound of the launch is reckoned from (main)
         shape[name] = dict(n_sph=tables.n_sph, n_ft=tables.n_ft, n_tris=tables.n_tris,
                            table_bytes=tensor_bytes(tables.buffers()))
-        del tables
+        kept[label] = (tables, fx, fy, route)
 
     _, tables = setup("octahedra", octa_scheme(64, 32))
     xs, ys = lanes(64, 32, 1)
     for route, name in (("walk", "mesh_trace"), ("brute", "mesh_trace_brute")):
         for spl in (1, 4):
-            parity("octahedra", name, tables, xs, ys, spl, route, 3)
-    del tables
+            parity("octahedra", name, tables, xs, ys, spl, route, 3, exact=False)
+
+    # the gate sweep: both routes on cuts of the surface, the whole frame
+    sweep = {}
+    for n in GATE_SWEEP:
+        cut = procedural.a380_cam_scheme(MESH_W, MESH_H, MESH_SPP)
+        cut.scene_members.append(ModelMember(path=f"<{n}-triangle surface>",
+                                             loaded=[procedural.make_mesh(n, n_textures=0)]))
+        _, tables = setup(f"surface-{n}", cut)
+        zero = torch.zeros_like(fx)
+        out = {r: mk.mesh_trace(fx, fy, zero, tables, route=r, assured=5, max_bounces=24,
+                                samples_per_lane=MESH_SPP) for r in ("walk", "brute")}
+        bad = max(lane_gate(out["brute"][k], out["walk"][k])[0] for k in range(3))
+        differ = int((torch.stack(out["brute"]) != torch.stack(out["walk"])).any(0).sum())
+        print(f"[gate] surface-{n}: brute vs walk, {differ} lanes differ, bad-lane fraction "
+              f"{bad:.6f}", flush=True)
+        assert bad < 0.01, f"surface-{n}: the two routes disagree on {bad:.4f} of lanes"
+        sweep[n] = turns(f"surface-{n} {MESH_W}x{MESH_H}", tables, fx, fy, MESH_SPP,
+                         [(r, mk.mesh_trace, r) for r in ("walk", "brute", "brute", "walk")], 2)
+        print(f"[gate] surface-{n}: walk {sweep[n]['walk']:.3f} ms, brute "
+              f"{sweep[n]['brute']:.3f} ms per launch ({sweep[n]['brute'] / sweep[n]['walk']:.2f}x)"
+              f" [{card}]", flush=True)
+    crossover = max((n for n, t in sweep.items() if t["brute"] < t["walk"]), default=0)
+    print(f"[gate] the largest cut at which the brute route is faster: {crossover} triangles "
+          f"(0: none); MAX_BRUTE_TRIS = {mk.MAX_BRUTE_TRIS}, "
+          f"{'the same' if crossover == mk.MAX_BRUTE_TRIS else 'NOT the same'} [{card}]",
+          flush=True)
+
+    # the group sweep: 8, 16 and 32 threads per ray of both entries
+    from torch_mesh_trace_groups import sweep as group_sweep
+
+    group_sweep(card, kept, variants)
+    del tables, kept
 
     # ---- 6. the mesh main paths ----
-    launches = {}
+    launches, profiled = {}, None
     for label, scheme, name in (("a380-class", a380, "mesh_trace"),
                                 ("surface-2097", surface, "mesh_trace_brute")):
         t0 = time.perf_counter()
         renderer = Renderer(scheme, device="cuda")
+        renderer.tables.route = MESH_KERNELS[name][0]  # whatever the gate says
         torch.cuda.synchronize()
         print(f"[mesh] Renderer({label}, cuda) constructed in {time.perf_counter() - t0:.3f} s "
               f"(host set-up)", flush=True)
@@ -369,6 +439,9 @@ def mesh_phases(dev, card):
         assert img.shape == (MESH_H, MESH_W, 3) and np.isfinite(img).all(), "bad image"
         print(f"[mesh] {label} image mean per channel {img.mean(axis=(0, 1)).tolist()}",
               flush=True)
+        if name == "mesh_trace":  # the warm render, profiled
+            profiled = profile(renderer, card, "mesh_trace_kernel",
+                               f"a380-class gpu semantics {MESH_W}x{MESH_H}")
 
     small = variant(a380, 96, 48)
     t0 = time.perf_counter()
@@ -396,11 +469,14 @@ def mesh_phases(dev, card):
     print(f"[mesh] resume at {k} spp: bitwise exact ({2 * k} spp, a380-class "
           f"{MESH_W}x{MESH_H})", flush=True)
 
-    return [{"name": name, "route": "cuda", "source": "raytrace_tpu_torch/csrc/mesh_kernel.cu",
-             "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
-             "ms": ms[name], "plain_ms": plain_ms[name], "library_ms": None,
-             "launches_per_render": launches[name]}
-            for name, (_, replaces) in MESH_KERNELS.items()], shape
+    records = [{"name": name, "route": "cuda", "source": "raytrace_tpu_torch/csrc/mesh_kernel.cu",
+                "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
+                "ms": ms[name], "plain_ms": plain_ms[name], "library_ms": None,
+                "launches_per_render": launches[name], "yardstick_ms": yard_ms[name]}
+               for name, (_, replaces) in MESH_KERNELS.items()]
+    if profiled:
+        records[0]["in_render_ms"] = profiled["ms"]
+    return records, shape
 
 
 WALLED_WF_SPP = 16  # the walled frame through the wavefront (trace_tiles takes 64 in phase 4)
@@ -409,12 +485,20 @@ CAPTURE_ITER = 20  # the wavefront iteration whose mesh_hit launch is the in-ren
 
 # The least time of a launch (bound_ms): the larger of its bytes (each input
 # read once, each output written once) over the memory rate and its FP32
-# operations over the FP32 peak (H100 SXM at 700 W, outside the tensor
-# cores). Operations per test or shade are counted from the CUDA sources,
-# each multiply, add, min, max, compare, divide and square root one (the
-# mesh kernel has no FMA); loads, the RNG's integer work and branches are
-# not counted, so each bound is low.
-FP32_PEAK = 67e12  # FP32 FLOP/s
+# operations over the FP32 ceiling of its build (H100 SXM at 700 W, outside
+# the tensor cores). Operations per test or shade are counted from the CUDA
+# sources, each multiply, add, min, max, compare, divide and square root
+# one; loads, the RNG's integer work and branches are not counted, so each
+# bound is low. The 67 TFLOP/s peak counts an FMA as two operations (132
+# SMs x 128 FP32 lanes x 2 x 1.98 GHz). mesh_kernel.cu is built with
+# -fmad=false (kernels/build.py), so none of its multiplies and adds fuse:
+# each counted operation is one instruction, and its ceiling is 33.5 T
+# instructions/s. trace_kernel.cu keeps contraction and is held to 67
+# TFLOP/s, which assumes every operation fused: its bound is optimistic.
+FP32_PEAK = 67e12  # FP32 FLOP/s, an FMA two (trace_kernel.cu)
+FP32_SINGLE = 33.5e12  # FP32 instructions/s, none fused (mesh_kernel.cu, -fmad=false)
+FP32_CEILING = {"trace_tiles": FP32_PEAK, "mesh_trace": FP32_SINGLE,
+                "mesh_trace_brute": FP32_SINGLE, "mesh_hit": FP32_SINGLE}
 HBM_RATE = 3.35e12  # bytes/s
 SLAB_OPS = 25  # mesh_kernel.cu slab_span (6 sub, 6 mul, 10 min/max) + 3 compares
 TRI_OPS = 55  # path_common.cuh tri_hit (53) + the t_min and running-best compares
@@ -423,10 +507,10 @@ SHADE_SPH_OPS = 93  # shade_sph_ft, diffuse lobe (88) + 5 draws' float conversio
 SHADE_MESH_OPS = 204  # mesh_kernel.cu shade_mesh without a normal map (196) + 8 draws
 
 
-def bound(ops, nbytes):
-    """(bound_ms, bound_by) of a launch of `ops` FP32 operations moving
-    `nbytes` bytes."""
-    ops_ms, bytes_ms = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+def bound(ops, nbytes, name):
+    """(bound_ms, bound_by) of a launch of kernel `name` doing `ops` FP32
+    operations and moving `nbytes` bytes."""
+    ops_ms, bytes_ms = ops / FP32_CEILING[name] * 1e3, nbytes / HBM_RATE * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -614,10 +698,11 @@ def mesh_hit_phase(dev, card, a380):
     for label, (po, pd, ps, t_min, tables, t) in pools.items():
         ms = time_hit_turns(label, (po, pd, ps, t_min, tables), card, turns)
         ops, nbytes, work = hit_work(po, pd, t, tables, t_min)
-        b_ms, b_by = bound(ops, nbytes)
+        b_ms, b_by = bound(ops, nbytes, "mesh_hit")
         print(f"[bound] mesh_hit {label}: walk_work {work} (live rays, slab tests per level, "
-              f"triangle tests): {ops:.4g} FP32 ops ({ops / FP32_PEAK * 1e3:.5f} ms at 67 "
-              f"TFLOP/s), {nbytes:.4g} bytes ({nbytes / HBM_RATE * 1e3:.5f} ms at 3.35 TB/s): "
+              f"triangle tests): {ops:.4g} FP32 ops ({ops / FP32_SINGLE * 1e3:.5f} ms at 33.5 T "
+              f"single instructions/s; {ops / FP32_PEAK * 1e3:.5f} at 67 TFLOP/s), {nbytes:.4g} "
+              f"bytes ({nbytes / HBM_RATE * 1e3:.5f} ms at 3.35 TB/s): "
               f"bound {b_ms:.5f} ms by {b_by}; kernel {ms['kernel']:.4f} ms "
               f"({b_ms / ms['kernel']:.2%} of the bound reached), per-thread "
               f"{ms['per-thread']:.4f} ms, plain {ms['plain']:.4f} ms [{card}]", flush=True)
@@ -655,11 +740,14 @@ def integrator_phases(dev, card):
         for k in mk.LAUNCHES:
             mk.LAUNCHES[k] = 0
 
-    def render(label, scheme, spp, **kw):
+    def render(label, scheme, spp, route=None, **kw):
         """One warm render (a 1-spp render first, then a fresh target)
-        with the counts reset just before and read just after."""
+        with the counts reset just before and read just after; `route`
+        sets the mesh tables' route whatever the gate says."""
         w, h = scheme.render_info.width, scheme.render_info.height
         r = Renderer(scheme, device="cuda", **kw)
+        if route is not None:
+            r.tables.route = route
         r.render(samples=1)  # loads the torch kernels it uses, grows the allocator
         r.target = RenderTarget(w, h)
         torch.cuda.synchronize()
@@ -705,7 +793,8 @@ def integrator_phases(dev, card):
         assert counts[name] == 0 and (counts["mesh_hit"] > 0) == (name != "trace_tiles")
         w, h = scheme.render_info.width, scheme.render_info.height
         per_path[name] = r.stats["lane_bounces"] / (w * h * spp)
-        _, fused_img, counts = render(label, scheme, spp)
+        route = MESH_KERNELS[name][0] if name in MESH_KERNELS else None
+        _, fused_img, counts = render(label, scheme, spp, route=route)
         assert counts[name] > 0 and counts["mesh_hit"] == 0
         gate(f"{label} {w}x{h}x{spp} wavefront vs {name}", wf_img, fused_img)
 
@@ -744,11 +833,12 @@ def integrator_phases(dev, card):
 
     # the main path's render profiled with the kernel, then with the
     # per-thread yardstick in its place (the integrator's mesh_hit wrapped)
-    new = profile(full, card, "mesh_hit_kernel")
+    label = f"a380-class cpu semantics {MESH_W}x{MESH_H}"
+    new = profile(full, card, "mesh_hit_kernel", label)
     real = itg.mesh_hit
     itg.mesh_hit = mk._mesh_hit_per_thread
     try:
-        old = profile(full, card, "mesh_hit_per_thread_kernel")
+        old = profile(full, card, "mesh_hit_per_thread_kernel", label)
     finally:
         itg.mesh_hit = real
     if new and old:
@@ -764,7 +854,7 @@ def integrator_phases(dev, card):
     return rec, per_path, hit["walk_ops_per_ray"]
 
 
-def profile(renderer, card, kernel):
+def profile(renderer, card, kernel, label):
     """torch.profiler over one warm render(16) of the renderer: device
     time per kernel, the share of the kernel whose name holds `kernel`,
     host syncs per wavefront iteration, and the device's idle share of an
@@ -791,8 +881,8 @@ def profile(renderer, card, kernel):
 
     total = sum(dev_us(e) for e in kernels)
     iters = renderer.stats["iterations"]
-    print(f"[profile] a380-class cpu semantics render({MESH_SPP}), warm: {iters} wavefront "
-          f"iterations, {renderer.stats['lane_bounces']} lane-bounces, device time "
+    print(f"[profile] {label} render({MESH_SPP}), warm, driver {renderer.driver}: {iters} "
+          f"wavefront iterations, {renderer.stats['lane_bounces']} lane-bounces, device time "
           f"{total / 1e3:.3f} ms [{card}]", flush=True)
     if total <= 0:
         print("[profile] the profiler recorded no device time", flush=True)
@@ -847,18 +937,25 @@ def main() -> int:
           f"cuda {torch.version.cuda} nvcc '{nvcc_v}' device '{torch.cuda.get_device_name(0)}' "
           f"count {torch.cuda.device_count()}", flush=True)
 
-    # ---- 2. build: one nvcc per source, started together ----
+    # ---- 2. build: one nvcc per source and per group-sweep copy, started together ----
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_mesh_trace_groups as groups
+
     t0 = time.perf_counter()
     names = ("trace_kernel", "mesh_kernel")
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + len(groups.GROUPS)) as pool:
+        copies = pool.map(groups.build_variant, groups.GROUPS)
         builds = list(pool.map(build.build, names))
-    print(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+        variants = dict(zip(groups.GROUPS, copies))
+    print(f"[build] {len(names)} kernels and {len(variants)} group-sweep copies in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for built in builds:
         print(f"[build] {built.path.name}: nvcc {built.seconds:.2f} s", flush=True)
         for line in built.log.splitlines():
             if "ptxas" in line and any(k in line for k in ("registers", "spill", "smem",
                                                             "Compiling")):
                 print(f"[build] {line.strip()}", flush=True)
+    groups.print_ptxas(variants)
 
     # ---- 3. kernel vs plain on the card ----
     def setup(scheme, width, height):
@@ -974,7 +1071,7 @@ def main() -> int:
     shape = {"trace_tiles": dict(
         n_sph=tables.n_sph, n_ft=tables.n_ft, n_tris=0,
         table_bytes=tensor_bytes(tables.buffers()))}
-    mesh_records, mesh_shape = mesh_phases(dev, card)
+    mesh_records, mesh_shape = mesh_phases(dev, card, variants)
     kernels += mesh_records
     shape.update(mesh_shape)
     hit_record, per_path, walk_ops = integrator_phases(dev, card)
@@ -997,11 +1094,15 @@ def main() -> int:
             out_floats = 3
         lane_bounces = per_path[name] * lanes * spl
         nbytes = s["table_bytes"] + lanes * (3 * 4 + out_floats * 4)
-        rec["bound_ms"], rec["bound_by"] = bound(lane_bounces * per_bounce, nbytes)
+        ops = lane_bounces * per_bounce
+        rec["bound_ms"], rec["bound_by"] = bound(ops, nbytes, name)
         print(f"[bound] {name}: {lane_bounces:.4g} lane-bounces ({per_path[name]:.4f} per path x "
-              f"{lanes * spl} paths) x {per_bounce:.1f} FP32 ops, {nbytes:.4g} bytes: bound "
-              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}; kernel {rec['ms']:.4f} ms "
-              f"({rec['bound_ms'] / rec['ms']:.2%} of the bound reached) [{card}]", flush=True)
+              f"{lanes * spl} paths) x {per_bounce:.1f} FP32 ops at "
+              f"{FP32_CEILING[name] / 1e12:g} T/s (at 67 TFLOP/s: {ops / FP32_PEAK * 1e3:.4f} ms), "
+              f"{nbytes:.4g} bytes: bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}; kernel "
+              f"{rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.2%} of the bound reached)"
+              + (f", yardstick {rec['yardstick_ms']:.4f} ms" if "yardstick_ms" in rec else "")
+              + f" [{card}]", flush=True)
     kernels.append(hit_record)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 // Mesh kernels (Hopper, sm_90a): the path-tracing kernel of mesh scenes
-// (two entry points) and the integrator's nearest mesh hit (a third).
+// (two entry points and their two yardsticks) and the integrator's
+// nearest mesh hit (a third entry point and its yardstick).
 //
 // Replaces raytrace_tpu/ops/pallas/mesh_bounce_kernel.py::bounce_tiles
 // (the body `_kernel`, its cluster walk `mesh_walk`) and the in-kernel MXU
@@ -19,32 +20,82 @@
 // three nearest texels from the pool in its dtype (packed u32, u16 or
 // f32), then the PBR bounce.
 //
-// The two mesh nearest-hit routes:
-//   mesh_trace        per-thread 3-level slab walk (supergroup of 8
-//                     superclusters of 16 clusters of W triangles) over the
-//                     camera-ordered tables of ops/mesh_kernel.
-//                     pack_mesh_tables, each level pruned by its slab test
-//                     `entry <= exit && exit >= 0 && entry < t_best`, the
-//                     triangles of a reached cluster tested in row order
-//                     with strict-< updates. Tables stay in global memory,
-//                     read through the read-only path (__ldg); a triangle
-//                     is three float4 loads and its id an int32.
-//   mesh_trace_brute  meshes of <= 2,560 triangles (the JAX gate,
-//                     woop.MAX_TRIS): the block stages 64-triangle chunks
-//                     of the brute table in shared memory and every active
-//                     thread runs f32 Moller-Trumbore against each chunk,
-//                     the function the MXU pass computes, not its bf16
-//                     split. The block's threads keep one bounce loop in
-//                     step (__syncthreads_or) so all take part in staging.
+// A path stays with its thread; the nearest mesh hit of a warp's live
+// rays is found cooperatively. At every bounce the warp ballots its live
+// lanes and takes their rays 32 / G at a time: group k of G threads takes
+// the k-th live lane's ray and seed by shuffle, finds its least (t,
+// position), and hands (t, position, u, v) back to the owner by shuffle.
+// Draws, shading and regeneration stay per thread. The two routes:
+//   mesh_trace        replaces bounce_tiles' walk (`mesh_walk`). G =
+//                     kTraceGroup = 8 threads a ray run the group walk of
+//                     mesh_hit below (`group_walk`): the 3-level slab walk
+//                     over the camera-ordered tables of ops/mesh_kernel.
+//                     pack_mesh_tables, each level's reached boxes visited
+//                     nearest entry first under the group's running best,
+//                     a cluster's rows tested G at a time.
+//                     Bound on an H100: not bytes (the tables and texels
+//                     once, tens of us) nor operations (the exact walk and
+//                     the shade, about 8,100 FP32 instructions a
+//                     lane-bounce on the a380-class frame; under -fmad=false
+//                     each is one instruction, and 132 SMs x 128 lanes x
+//                     1.98 GHz = 33.5 T/s make 6.4 ms a 1216x608 launch of
+//                     16 samples a lane) but the latency of the walk's
+//                     dependent L2 loads and divergence: a thread-per-ray
+//                     walk ran, per warp, the union of 32 unrelated walks
+//                     once the lanes' paths had left the camera's order.
+//                     A group follows one ray, so its threads agree on
+//                     every branch, and G loads are in flight a step. The
+//                     rays in flight are the resident threads over G, so
+//                     the kernel is held to 64 registers (kTraceBlocks = 4
+//                     blocks of 256 a SM) and G is 8, not mesh_hit's 16.
+//                     The blocks are persistent, as in mesh_trace_brute:
+//                     a warp that has finished its lanes takes the next
+//                     32-lane tile instead of idling until the slowest
+//                     warp of its block is done.
+//   mesh_trace_brute  replaces woop.mxu_mesh_hit: every row of the brute
+//                     table in f32 Moller-Trumbore (the function the MXU
+//                     pass computes, not its bf16 split), G = kBruteGroup
+//                     = 32 threads a ray, so a warp spends all its lanes
+//                     on its live rays however few are left. Bound: FP32
+//                     instructions, 55 counted a triangle test (85 ms a
+//                     launch of the 2,097-triangle surface at 1216x608 and
+//                     16 samples a lane at 33.5 T/s), plus what the count
+//                     leaves out: the IEEE reciprocal's sequence, the row's
+//                     three shared loads and the loop. The table is
+//                     resident: persistent blocks of 1,024 threads, one a
+//                     SM, load it once into dynamic shared memory (up to
+//                     123 KB at 2,560 rows), and their warps take 32-lane
+//                     tiles from a counter in turn. No barrier in the
+//                     bounce loop: a warp leaves when its ballot is empty.
+//                     A group's threads test one ray against rows rank,
+//                     rank + G, ... (16-byte loads, conflict-free), so a
+//                     warp scans the table only for its live rays. On the
+//                     H100 the walk is faster than this route on every
+//                     mesh measured, so MeshTables gives it no scene
+//                     (ops/mesh_kernel.MAX_BRUTE_TRIS = 0); a caller asks
+//                     for it by route.
+// Exactness: each thread keeps its least (t, position) under strict-<
+// updates in its own ascending order, and the group takes the
+// lexicographic least by a butterfly: among the least t, the least
+// position, as the plain versions' `min` (first index) and the scan-order
+// resolve keep it. Both entries equal mesh_trace_reference bitwise.
+// The yardsticks, which nothing on a render path launches, are the first
+// designs: mesh_trace_per_thread (each thread walks its own ray in the
+// camera's scan order, `walk`) and mesh_trace_brute_lockstep (the block
+// stages 64-row chunks in shared memory with two barriers a chunk and
+// keeps one bounce loop in step, `brute`).
 //
-// What bounds it on an H100: the walk is latency-bound on dependent,
-// data-dependent global loads (the slab tests of reached nodes, then 48 B
-// per tested triangle) and on warp divergence, as lanes of a warp reach
-// different clusters; the brute route is FP32-ALU bound (every lane tests
-// every triangle from broadcast shared-memory reads). This first version
-// keeps each lane's own walk and ordering for exactness with the plain
-// torch version; ray sorting, wide BVH nodes and tensor-core tests are
-// later work.
+// ptxas (sm_90a, -fmad=false; chip_smoke.py's build phase prints it):
+//   mesh_trace_kernel<false>     64 registers, 120 B stack, 9,808 B smem:
+//   (mesh_trace)                 4 blocks, 32 resident warps a SM
+//   mesh_trace_kernel<true>      64 registers, 64 B stack, 9,808 B smem +
+//   (mesh_trace_brute)           the table (48 B a row, 101,376 B at
+//                                2,097 triangles): 1 block, 32 warps a SM
+//   mesh_hit_kernel              48 registers, 24 B stack: 5 blocks, 40
+//                                warps a SM
+//   mesh_trace_yardstick_kernel  64 (walk, 48 B stack; 32 warps a SM) and
+//                                76 registers (lockstep, 13,136 B smem;
+//                                24 warps a SM)
 //
 // The draws, the two normalizes (raygen rsqrt, mesh shade sqrt-then-
 // divide with eps 1e-20) and every reference quirk (the raw [0, 1]
@@ -61,10 +112,12 @@
 // of direct-light sampling), seeded with the sphere / free-triangle best
 // t; a hit counts at t_min <= t < seed (EPS in gpu semantics; the cpu
 // semantics' 20*EPS self-hit guard, which the TPU kernel left out). See
-// the note at mesh_hit_kernel below for its design.
+// the note at group_walk below for its design.
 //
 // Built by raytrace_tpu_torch/kernels/build.py (nvcc -arch sm_90a, no
-// --use_fast_math); called through ctypes from ops/mesh_kernel.py.
+// --use_fast_math); called through ctypes from ops/mesh_kernel.py. A
+// launch the card refuses (too much shared memory, too many threads)
+// returns its CUDA error, and the wrapper raises.
 
 #include <math_constants.h>
 
@@ -80,6 +133,13 @@ constexpr int kSGroup = 8;   // superclusters per supergroup
 constexpr int kBruteChunk = 64;
 constexpr int kAttrCols = 48;
 constexpr int kPoolU16 = 1, kPoolU32 = 2;  // else f32 (ops/texture.py)
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+constexpr int kRayGroup = 16;    // mesh_hit: threads per ray
+constexpr int kTraceGroup = 8;   // mesh_trace: threads per ray of the group walk
+constexpr int kTraceBlocks = 4;  // mesh_trace: resident blocks an SM asked of ptxas
+constexpr int kBruteGroup = 32;  // mesh_trace_brute: threads per ray of the scan
+constexpr int kBruteThreads = 1024;  // mesh_trace_brute: one persistent block per SM
 
 struct Mesh {
   const float* sgbounds;  // (n_sg, 8)  [lo xyz, hi xyz, 0, 0]
@@ -134,8 +194,9 @@ __device__ __forceinline__ void test_tri(const Ray& r, float4 a, float4 b, float
   }
 }
 
-// the 3-level cluster walk of one lane; tt in: the sphere / free-triangle
-// best; a hit counts at t_min <= t < tt (tri_hit already implies t >= EPS)
+// the 3-level cluster walk of one lane (the yardsticks'); tt in: the
+// sphere / free-triangle best; a hit counts at t_min <= t < tt (tri_hit
+// already implies t >= EPS)
 __device__ void walk(const Mesh& m, const Ray& r, float t_min, float& tt, int& gid, float& bu,
                      float& bv) {
   const float fx = 1.f / slab_dir(r.dx);
@@ -167,8 +228,9 @@ __device__ void walk(const Mesh& m, const Ray& r, float t_min, float& tt, int& g
   }
 }
 
-// every triangle of the brute table, staged chunk by chunk; ALL threads
-// of the block call it (inactive ones only help staging)
+// every triangle of the brute table, staged chunk by chunk (the lockstep
+// yardstick's); ALL threads of the block call it (inactive ones only help
+// staging)
 __device__ void brute(const Mesh& m, const Ray& r, bool active, float4* s_tri, int* s_gid,
                       float& tt, int& gid, float& bu, float& bv) {
   for (int base = 0; base < m.n_brute; base += kBruteChunk) {
@@ -330,148 +392,27 @@ __device__ bool shade_mesh(Path& p, const Mesh& m, int gid, float t, float bu, f
   return true;
 }
 
-template <bool kBrute>
-__global__ void __launch_bounds__(kThreads)
-mesh_trace_kernel(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
-                  const int32_t* __restrict__ samp, int n,
-                  const float* __restrict__ sph_g, const float* __restrict__ ft_g,
-                  const float* __restrict__ cam_g, int n_sph, int n_ft, int has_lens,
-                  int assured, int max_bounces, int spl, const Mesh m,
-                  float* __restrict__ out) {
-  __shared__ float sph[kMaxPrims * kSphCols];
-  __shared__ float ft[kMaxPrims * kFtCols];
-  __shared__ float cam[kCamLen];
-  __shared__ float4 s_tri[kBrute ? kBruteChunk * 3 : 1];
-  __shared__ int s_gid[kBrute ? kBruteChunk : 1];
-  for (int k = threadIdx.x; k < n_sph * kSphCols; k += blockDim.x) sph[k] = sph_g[k];
-  for (int k = threadIdx.x; k < n_ft * kFtCols; k += blockDim.x) ft[k] = ft_g[k];
-  for (int k = threadIdx.x; k < kCamLen; k += blockDim.x) cam[k] = cam_g[k];
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  // threads past n stay in the block's loop (the brute route stages with
-  // every thread) but never trace
-  bool active = i < n;
-  const int xi = active ? xs[i] : 0, yi = active ? ys[i] : 0;
-  const uint32_t hpix = jenkins(static_cast<uint32_t>(xi) ^ (static_cast<uint32_t>(yi) << 16));
-  const float s_x = cam[12] * (static_cast<float>(xi) - cam[14]);
-  const float s_y = cam[13] * (static_cast<float>(yi) - cam[15]);
-  const float bdx = cam[3] + s_x * cam[9] + s_y * cam[6];
-  const float bdy = cam[4] + s_x * cam[10] + s_y * cam[7];
-  const float bdz = cam[5] + s_x * cam[11] + s_y * cam[8];
-  const float max_thres = cam[17];
-  const float inv_thres = 1.0f / max_thres;
-
-  const uint32_t samp0 = active ? static_cast<uint32_t>(samp[i]) : 0u;
-  uint32_t state;
-  Path p;
-  p.ray = start_sample(hpix, samp0, state, bdx, bdy, bdz, cam, has_lens);
-  p.lr = p.lg = p.lb = 0.f;
-  p.cir = p.cig = p.cib = p.inten = 1.f;
-  p.depth = 0;
-  int sk = 0;
-
-  const int n_iter = max_bounces * spl;  // never cuts a lane short (trace_kernel.cu)
-  for (int it = 0; it < n_iter; ++it) {
-    if (kBrute) {
-      if (!__syncthreads_or(active)) break;
-    } else if (!active) {
-      break;
-    }
-    float t_best = kInf;
-    int kind = 0, best = 0;
-    if (active) closest_sph_ft(p.ray, sph, n_sph, ft, n_ft, t_best, kind, best);
-    float tm = t_best, bu = 0.f, bv = 0.f;
-    int mgid = -1;
-    if (kBrute) {
-      brute(m, p.ray, active, s_tri, s_gid, tm, mgid, bu, bv);
-    } else {
-      walk(m, p.ray, kEps, tm, mgid, bu, bv);
-    }
-    if (!active) continue;
-
-    // ---- the 8 draws of every bounce of a mesh scene ----
-    const float u0 = next_f32(state);
-    const float u1 = next_f32(state);
-    const float u2 = next_f32(state);
-    const float u3 = next_f32(state);  // drawn, used by sphere / free-triangle hits only
-    const float u4 = next_f32(state);
-    const float u5 = next_f32(state);
-    const float u6 = next_f32(state);
-    const float u7 = next_f32(state);
-
-    bool survive = false;
-    if (mgid >= 0) {
-      survive = shade_mesh(p, m, mgid, tm, bu, bv, u0, u1, u2, u4, u5, u6, u7, assured,
-                           max_thres, inv_thres);
-    } else if (kind != 0) {
-      survive = shade_sph_ft(p, sph, ft, kind, best, t_best, u0, u1, u2, u3, u7, assured,
-                             max_thres, inv_thres);
-    }
-
-    if (spl > 1) {
-      const bool alive = survive && p.depth < max_bounces;
-      const bool regen = !alive && sk + 1 < spl;
-      if (regen) {
-        ++sk;
-        p.ray = start_sample(hpix, samp0 + static_cast<uint32_t>(sk), state, bdx, bdy, bdz, cam,
-                             has_lens);
-        p.cir = p.cig = p.cib = p.inten = 1.f;
-        p.depth = 0;
-      }
-      active = alive || regen;
-    } else {
-      active = survive;
-    }
-  }
-
-  if (i < n) {
-    out[0 * n + i] = p.lr;
-    out[1 * n + i] = p.lg;
-    out[2 * n + i] = p.lb;
-  }
-}
-
-template <bool kBrute>
-int launch(const int32_t* xs, const int32_t* ys, const int32_t* samp, int n, const float* sph,
-           const float* ft, const float* cam, int n_sph, int n_ft, int has_lens, int assured,
-           int max_bounces, int spl, const float* sgbounds, const float* sbounds,
-           const float* bounds, const int* count, const float* tri, const int* gid, int n_sg,
-           int width, const float* btri, const int* bgid, int n_brute, const float* attr,
-           const int* desc, const void* pool, int pool_kind, long long pool_len, float* out,
-           void* stream) {
-  if (n <= 0) return 0;
-  if (n_sph > kMaxPrims || n_ft > kMaxPrims || n_brute % kBruteChunk) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Mesh m{sgbounds, sbounds, bounds, count, reinterpret_cast<const float4*>(tri), gid,
-               n_sg, width, reinterpret_cast<const float4*>(btri), bgid, n_brute, attr, desc,
-               pool, pool_kind, pool_len};
-  const int blocks = (n + kThreads - 1) / kThreads;
-  mesh_trace_kernel<kBrute><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xs, ys, samp, n, sph, ft, cam, n_sph, n_ft, has_lens, assured, max_bounces, spl, m, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- mesh_hit: the integrator's nearest mesh hit, one thread group per ray ----
+// ---- the group walk: one ray, G threads of one warp ----
 //
-// Replaces raytrace_tpu/ops/pallas/mesh_hit_kernel.py::mesh_hit_tiles.
-// What bounds it on an H100 is neither bytes nor operations: a launch of
-// the wavefront's 131,072 a380-class rays moves about 12.7 MB (the
-// tables once, 28 B in and 16 B out per ray: about 4 us at 3.35 TB/s),
-// and the walk any exact traversal needs on such rays (counted by
-// ops/mesh_kernel.walk_work) is tens of microseconds at the FP32 peak.
-// The time goes to the latency of the walk's dependent loads and to
-// divergence. The design:
-//  - divergence: a group of kRayGroup threads of one warp follows one ray,
-//    so the threads of a group agree on every branch of the walk. The
+// mesh_hit (below) replaces raytrace_tpu/ops/pallas/mesh_hit_kernel.py::
+// mesh_hit_tiles and is this walk alone, a group of kRayGroup threads per
+// ray; mesh_trace runs it for the rays of its warp. What bounds it on an
+// H100 is neither bytes nor operations: a mesh_hit launch of the
+// wavefront's 131,072 a380-class rays moves about 12.7 MB (the tables
+// once, 28 B in and 16 B out per ray: about 4 us at 3.35 TB/s), and the
+// walk any exact traversal needs on such rays (counted by
+// ops/mesh_kernel.walk_work) is tens of microseconds at the FP32 peak of
+// single instructions (33.5 T/s under -fmad=false). The time goes to the
+// latency of the walk's dependent loads and to divergence. The design:
+//  - divergence: a group of G threads of one warp follows one ray, so the
+//    threads of a group agree on every branch of the walk. The
 //    wavefront's pool holds rays of unrelated pixels and bounce depths;
 //    with a thread per ray a warp ran the union of 32 rays' walks;
 //  - latency and occupancy: the children of a node are contiguous 32 B
 //    rows, tested by the group's threads at once (one box a thread), and
-//    a cluster's rows are tested in rounds of kRayGroup 48 B rows; the
-//    launch has kRayGroup threads a ray, enough loads in flight to cover
-//    L2 latency on all SMs;
+//    a cluster's rows are tested in rounds of G 48 B rows; the launch has
+//    G threads a ray, enough loads in flight to cover L2 latency on all
+//    SMs;
 //  - order: at each level the group visits the reached children nearest
 //    slab entry first (a group argmin) and re-tests each against the
 //    running best t before it descends; the best is shared by a shuffle
@@ -489,39 +430,66 @@ int launch(const int32_t* xs, const int32_t* ys, const int32_t* samp, int n, con
 // The top levels (4.6 KB on the a380-class scene) are read through __ldg
 // and stay in L1; they are not staged in shared memory.
 
-constexpr int kRayGroup = 16;  // threads per ray: 16 boxes or rows a round
-constexpr int kSgChunk = 16;   // supergroups ordered together at the top level
-constexpr unsigned kGroupBits = kRayGroup == 32 ? 0xFFFFFFFFu : (1u << kRayGroup) - 1u;
-static_assert(32 % kRayGroup == 0, "a group lies within one warp");
+constexpr int kSgChunk = 16;  // supergroups ordered together at the top level
 
+template <int G>
 struct Group {
+  static_assert(32 % G == 0, "a group lies within one warp");
   unsigned mask;  // this group's lanes of its warp
-  int rank;       // 0 .. kRayGroup - 1
+  int rank;       // 0 .. G - 1
 };
 
-// per-thread slots of a level of F children: child k * kRayGroup + rank in slot k
-template <int F>
+// the group of G threads this thread belongs to (lanes G k .. G k + G - 1)
+template <int G>
+__device__ __forceinline__ Group<G> lane_group() {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const unsigned bits = G == 32 ? kFull : (1u << G) - 1u;
+  return Group<G>{bits << (lane & ~(G - 1)), lane & (G - 1)};
+}
+
+// per-thread slots of a level of F children: child k * G + rank in slot k
+template <int G, int F>
 struct Slots {
-  static constexpr int K = (F + kRayGroup - 1) / kRayGroup;
+  static constexpr int K = (F + G - 1) / G;
   float e[K];  // slab entry of a reached child; +inf otherwise, or once visited
 };
 
-__device__ __forceinline__ float group_min(const Group& g, float v) {
+template <int G>
+__device__ __forceinline__ float group_min(const Group<G>& g, float v) {
 #pragma unroll
-  for (int s = kRayGroup / 2; s > 0; s >>= 1)
-    v = fminf(v, __shfl_xor_sync(g.mask, v, s, kRayGroup));
+  for (int s = G / 2; s > 0; s >>= 1) v = fminf(v, __shfl_xor_sync(g.mask, v, s, G));
   return v;
+}
+
+// The group's least (t, position) with its (u, v), on every thread of the
+// group: a butterfly over the threads' own bests.
+template <int G>
+__device__ __forceinline__ void group_least(const Group<G>& g, float& ct, int& cpos, float& cu,
+                                            float& cv) {
+#pragma unroll
+  for (int sh = G / 2; sh > 0; sh >>= 1) {
+    const float ot = __shfl_xor_sync(g.mask, ct, sh, G);
+    const int op = __shfl_xor_sync(g.mask, cpos, sh, G);
+    const float ou = __shfl_xor_sync(g.mask, cu, sh, G);
+    const float ov = __shfl_xor_sync(g.mask, cv, sh, G);
+    if (ot < ct || (ot == ct && op < cpos)) {
+      ct = ot;
+      cpos = op;
+      cu = ou;
+      cv = ov;
+    }
+  }
 }
 
 // Slab test of boxes first .. first + n - 1 (n <= F) into the slots, pruned
 // by entry < best; with `counts`, empty (padding) clusters stay +inf untested.
-template <int F>
-__device__ __forceinline__ void test_level(Slots<F>& s, const Group& g, const float* boxes,
+template <int G, int F>
+__device__ __forceinline__ void test_level(Slots<G, F>& s, const Group<G>& g, const float* boxes,
                                            const int* counts, int first, int n, const Ray& r,
                                            float fx, float fy, float fz, float best) {
 #pragma unroll
-  for (int k = 0; k < Slots<F>::K; ++k) {
-    const int j = k * kRayGroup + g.rank;
+  for (int k = 0; k < Slots<G, F>::K; ++k) {
+    const int j = k * G + g.rank;
     float e = CUDART_INF_F;
     if (j < n && (counts == nullptr || __ldg(counts + first + j) > 0)) {
       const float4* b = reinterpret_cast<const float4*>(boxes) + 2 * (first + j);
@@ -536,21 +504,21 @@ __device__ __forceinline__ void test_level(Slots<F>& s, const Group& g, const fl
 // The reached child of least entry (ties to the least index) that still
 // has entry < best, taken out of the slots; -1 when none is left. The
 // same on every thread of the group.
-template <int F>
-__device__ __forceinline__ int pop_nearest(Slots<F>& s, const Group& g, float best) {
+template <int G, int F>
+__device__ __forceinline__ int pop_nearest(Slots<G, F>& s, const Group<G>& g, float best) {
   float e = s.e[0];
   int j = g.rank;
 #pragma unroll
-  for (int k = 1; k < Slots<F>::K; ++k) {
+  for (int k = 1; k < Slots<G, F>::K; ++k) {
     if (s.e[k] < e) {
       e = s.e[k];
-      j = k * kRayGroup + g.rank;
+      j = k * G + g.rank;
     }
   }
 #pragma unroll
-  for (int sh = kRayGroup / 2; sh > 0; sh >>= 1) {
-    const float oe = __shfl_xor_sync(g.mask, e, sh, kRayGroup);
-    const int oj = __shfl_xor_sync(g.mask, j, sh, kRayGroup);
+  for (int sh = G / 2; sh > 0; sh >>= 1) {
+    const float oe = __shfl_xor_sync(g.mask, e, sh, G);
+    const int oj = __shfl_xor_sync(g.mask, j, sh, G);
     if (oe < e || (oe == e && oj < j)) {
       e = oe;
       j = oj;
@@ -558,56 +526,42 @@ __device__ __forceinline__ int pop_nearest(Slots<F>& s, const Group& g, float be
   }
   if (!(e < best)) return -1;
 #pragma unroll
-  for (int k = 0; k < Slots<F>::K; ++k)
-    if (k * kRayGroup + g.rank == j) s.e[k] = CUDART_INF_F;
+  for (int k = 0; k < Slots<G, F>::K; ++k)
+    if (k * G + g.rank == j) s.e[k] = CUDART_INF_F;
   return j;
 }
 
-__global__ void __launch_bounds__(kThreads)
-mesh_hit_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
-                const float* __restrict__ oz, const float* __restrict__ dx,
-                const float* __restrict__ dy, const float* __restrict__ dz,
-                const float* __restrict__ seed, int n, float t_min, const Mesh m,
-                float* __restrict__ t_out, int* __restrict__ gid_out, float* __restrict__ u_out,
-                float* __restrict__ v_out) {
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / kRayGroup;  // this group's ray
-  if (i >= n) return;  // whole groups
-  const Group g{kGroupBits << ((threadIdx.x & 31) & ~(kRayGroup - 1)),
-                static_cast<int>(threadIdx.x & (kRayGroup - 1))};
-  const float t_seed = seed[i];
-  if (!(t_seed > t_min)) {  // dead: no t has t_min <= t < seed
-    if (g.rank == 0) {
-      t_out[i] = t_seed;
-      gid_out[i] = -1;
-      u_out[i] = 0.f;
-      v_out[i] = 0.f;
-    }
-    return;
-  }
-  const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
+// The nearest hit of ray r (the same on every thread of the group) with
+// t_min <= t < t_seed: (t, scan position, u, v) on every thread of the
+// group; position -1 and t = t_seed, u = v = 0 without one.
+template <int G>
+__device__ __forceinline__ void group_walk(const Mesh& m, const Group<G>& g, const Ray& r,
+                                           float t_seed, float t_min, float& ct, int& cpos,
+                                           float& cu, float& cv) {
   const float fx = 1.f / slab_dir(r.dx);
   const float fy = 1.f / slab_dir(r.dy);
   const float fz = 1.f / slab_dir(r.dz);
-  float best = t_seed;                    // the group's running best t
-  float ct = t_seed, cu = 0.f, cv = 0.f;  // this thread's best hit
-  int cpos = -1;                          // its scan position; -1: none, the seed
+  float best = t_seed;  // the group's running best t
+  ct = t_seed;          // this thread's best hit, its scan position (-1:
+  cpos = -1;            // none, the seed) and barycentrics
+  cu = cv = 0.f;
 
   for (int base = 0; base < m.n_sg; base += kSgChunk) {
-    Slots<kSgChunk> s1;
+    Slots<G, kSgChunk> s1;
     test_level(s1, g, m.sgbounds, nullptr, base, min(kSgChunk, m.n_sg - base), r, fx, fy, fz,
                best);
     for (int j1; (j1 = pop_nearest(s1, g, best)) >= 0;) {
       const int sg = base + j1;
-      Slots<kSGroup> s2;
+      Slots<G, kSGroup> s2;
       test_level(s2, g, m.sbounds, nullptr, sg * kSGroup, kSGroup, r, fx, fy, fz, best);
       for (int j2; (j2 = pop_nearest(s2, g, best)) >= 0;) {
         const int sc = sg * kSGroup + j2;
-        Slots<kGroup> s3;
+        Slots<G, kGroup> s3;
         test_level(s3, g, m.bounds, m.count, sc * kGroup, kGroup, r, fx, fy, fz, best);
         for (int j3; (j3 = pop_nearest(s3, g, best)) >= 0;) {
           const int c = sc * kGroup + j3;
           const int cnt = __ldg(m.count + c);
-          for (int w = g.rank; w < cnt; w += kRayGroup) {
+          for (int w = g.rank; w < cnt; w += G) {
             const int pos = c * m.width + w;
             const float4* row = m.tri + 3 * static_cast<size_t>(pos);
             const float4 a = __ldg(row), b = __ldg(row + 1), cc = __ldg(row + 2);
@@ -625,21 +579,402 @@ mesh_hit_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
       }
     }
   }
-
   // the least (t, scan position) of the group; hits all lie below the seed
-#pragma unroll
-  for (int sh = kRayGroup / 2; sh > 0; sh >>= 1) {
-    const float ot = __shfl_xor_sync(g.mask, ct, sh, kRayGroup);
-    const int op = __shfl_xor_sync(g.mask, cpos, sh, kRayGroup);
-    const float ou = __shfl_xor_sync(g.mask, cu, sh, kRayGroup);
-    const float ov = __shfl_xor_sync(g.mask, cv, sh, kRayGroup);
-    if (ot < ct || (ot == ct && op < cpos)) {
-      ct = ot;
-      cpos = op;
-      cu = ou;
-      cv = ov;
+  group_least(g, ct, cpos, cu, cv);
+}
+
+// One ray against every row of the resident brute table: the group's
+// threads test rows rank, rank + G, ... in ascending order (strict <, so
+// each keeps its least row among equal t), then the group takes the least
+// (t, row). Rows past the mesh are zero triangles (det 0), never a hit.
+template <int G>
+__device__ __forceinline__ void group_brute(const Group<G>& g, const float4* rows, int n_rows,
+                                            const Ray& r, float& ct, int& cpos, float& cu,
+                                            float& cv) {
+  for (int w = g.rank; w < n_rows; w += G) {
+    const float4 a = rows[3 * w], b = rows[3 * w + 1], c = rows[3 * w + 2];
+    float t, u, v;
+    if (tri_hit(r, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, t, u, v) && t < ct) {
+      ct = t;
+      cpos = w;
+      cu = u;
+      cv = v;
     }
   }
+  group_least(g, ct, cpos, cu, cv);
+}
+
+// The nearest mesh hits of the warp's live rays (bit k of `live`: lane
+// k's ray r, seeded with tm), G threads a ray and 32 / G rays a round:
+// group k of the warp takes the k-th lowest live lane left, its ray and
+// seed by shuffle, and rank 0 of the group hands (t, position, u, v)
+// back to the owner by shuffle. Every lane of the warp calls it; on
+// return each live lane holds its own in (tm, pos, bu, bv), position -1
+// without a hit. kBrute: the resident table `rows` (n_rows); else the
+// walk of m, t_min EPS.
+template <int G, bool kBrute>
+__device__ __forceinline__ void warp_nearest(unsigned live, const Ray& r, const Mesh& m,
+                                             const float4* rows, int n_rows, float& tm, int& pos,
+                                             float& bu, float& bv) {
+  const Group<G> g = lane_group<G>();
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int slot = lane / G;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned todo = live;
+  while (todo) {  // the same on every lane of the warp
+    unsigned taken = 0u;
+    int owner = -1;
+#pragma unroll
+    for (int k = 0; k < 32 / G; ++k) {
+      const unsigned low = todo & (0u - todo);  // lowest live lane left, 0 when none
+      if (k == slot && low) owner = __ffs(low) - 1;
+      taken |= low;
+      todo ^= low;
+    }
+    const int src = owner < 0 ? lane : owner;
+    const Ray q{__shfl_sync(kFull, r.ox, src), __shfl_sync(kFull, r.oy, src),
+                __shfl_sync(kFull, r.oz, src), __shfl_sync(kFull, r.dx, src),
+                __shfl_sync(kFull, r.dy, src), __shfl_sync(kFull, r.dz, src)};
+    const float seed = __shfl_sync(kFull, tm, src);
+    float ct = seed, cu = 0.f, cv = 0.f;
+    int cpos = -1;
+    if (owner >= 0 && seed > kEps) {  // a seed at or below EPS leaves no t to find
+      if constexpr (kBrute) {
+        group_brute(g, rows, n_rows, q, ct, cpos, cu, cv);
+      } else {
+        group_walk(m, g, q, seed, kEps, ct, cpos, cu, cv);
+      }
+    }
+    __syncwarp();
+    const bool mine = (taken >> lane) & 1u;
+    const int from = mine ? __popc(taken & below) * G : lane;  // rank 0 of my ray's group
+    ct = __shfl_sync(kFull, ct, from);
+    cpos = __shfl_sync(kFull, cpos, from);
+    cu = __shfl_sync(kFull, cu, from);
+    cv = __shfl_sync(kFull, cv, from);
+    if (mine) {
+      tm = ct;
+      pos = cpos;
+      bu = cu;
+      bv = cv;
+    }
+  }
+}
+
+// The sphere / free-triangle tables and the camera, staged by the block.
+__device__ __forceinline__ void stage_scene(float* sph, const float* sph_g, int n_sph, float* ft,
+                                            const float* ft_g, int n_ft, float* cam,
+                                            const float* cam_g) {
+  for (int k = threadIdx.x; k < n_sph * kSphCols; k += blockDim.x) sph[k] = sph_g[k];
+  for (int k = threadIdx.x; k < n_ft * kFtCols; k += blockDim.x) ft[k] = ft_g[k];
+  for (int k = threadIdx.x; k < kCamLen; k += blockDim.x) cam[k] = cam_g[k];
+}
+
+struct Lanes {
+  const int32_t* xs;
+  const int32_t* ys;
+  const int32_t* samp;
+  int n, n_sph, n_ft, has_lens, assured, max_bounces, spl;
+  float* out;
+};
+
+// The whole path of lane i (inactive when i >= n), its nearest mesh hits
+// found with the rest of its warp (warp_nearest); every lane of the warp
+// calls it.
+template <bool kBrute>
+__device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* sph,
+                                           const float* ft, const float* cam, const Mesh& m,
+                                           const float4* rows) {
+  bool active = i < L.n;
+  const int xi = active ? L.xs[i] : 0, yi = active ? L.ys[i] : 0;
+  const uint32_t hpix = jenkins(static_cast<uint32_t>(xi) ^ (static_cast<uint32_t>(yi) << 16));
+  const float s_x = cam[12] * (static_cast<float>(xi) - cam[14]);
+  const float s_y = cam[13] * (static_cast<float>(yi) - cam[15]);
+  const float bdx = cam[3] + s_x * cam[9] + s_y * cam[6];
+  const float bdy = cam[4] + s_x * cam[10] + s_y * cam[7];
+  const float bdz = cam[5] + s_x * cam[11] + s_y * cam[8];
+  const float max_thres = cam[17];
+  const float inv_thres = 1.0f / max_thres;
+
+  const uint32_t samp0 = active ? static_cast<uint32_t>(L.samp[i]) : 0u;
+  uint32_t state;
+  Path p;
+  p.ray = start_sample(hpix, samp0, state, bdx, bdy, bdz, cam, L.has_lens);
+  p.lr = p.lg = p.lb = 0.f;
+  p.cir = p.cig = p.cib = p.inten = 1.f;
+  p.depth = 0;
+  int sk = 0;
+
+  const int n_iter = L.max_bounces * L.spl;  // never cuts a lane short (trace_kernel.cu)
+  for (int it = 0; it < n_iter; ++it) {
+    const unsigned live = __ballot_sync(kFull, active);
+    if (!live) break;  // the warp leaves together; it never waits on another warp
+    float t_best = kInf;
+    int kind = 0, best = 0;
+    if (active) closest_sph_ft(p.ray, sph, L.n_sph, ft, L.n_ft, t_best, kind, best);
+    float tm = t_best, bu = 0.f, bv = 0.f;
+    int pos = -1;
+    warp_nearest<kBrute ? kBruteGroup : kTraceGroup, kBrute>(live, p.ray, m, rows, m.n_brute, tm,
+                                                              pos, bu, bv);
+    if (!active) continue;
+    const int mgid = pos < 0 ? -1 : __ldg((kBrute ? m.bgid : m.gid) + pos);
+
+    // ---- the 8 draws of every bounce of a mesh scene ----
+    const float u0 = next_f32(state);
+    const float u1 = next_f32(state);
+    const float u2 = next_f32(state);
+    const float u3 = next_f32(state);  // drawn, used by sphere / free-triangle hits only
+    const float u4 = next_f32(state);
+    const float u5 = next_f32(state);
+    const float u6 = next_f32(state);
+    const float u7 = next_f32(state);
+
+    bool survive = false;
+    if (mgid >= 0) {
+      survive = shade_mesh(p, m, mgid, tm, bu, bv, u0, u1, u2, u4, u5, u6, u7, L.assured,
+                           max_thres, inv_thres);
+    } else if (kind != 0) {
+      survive = shade_sph_ft(p, sph, ft, kind, best, t_best, u0, u1, u2, u3, u7, L.assured,
+                             max_thres, inv_thres);
+    }
+
+    if (L.spl > 1) {
+      const bool alive = survive && p.depth < L.max_bounces;
+      const bool regen = !alive && sk + 1 < L.spl;
+      if (regen) {
+        ++sk;
+        p.ray = start_sample(hpix, samp0 + static_cast<uint32_t>(sk), state, bdx, bdy, bdz, cam,
+                             L.has_lens);
+        p.cir = p.cig = p.cib = p.inten = 1.f;
+        p.depth = 0;
+      }
+      active = alive || regen;
+    } else {
+      active = survive;
+    }
+  }
+
+  if (i < L.n) {
+    L.out[0 * L.n + i] = p.lr;
+    L.out[1 * L.n + i] = p.lg;
+    L.out[2 * L.n + i] = p.lb;
+  }
+}
+
+// mesh_trace (kBrute false) and mesh_trace_brute (true): persistent
+// blocks, as many as the SMs hold, whose warps take 32-lane tiles from the
+// counter `work` (0 at launch) until the lanes run out, so no warp waits
+// for the others of its block. The brute route's table is resident in
+// dynamic shared memory (3 float4 a row), loaded once a block.
+template <bool kBrute>
+__global__ void __launch_bounds__(kBrute ? kBruteThreads : kThreads, kBrute ? 1 : kTraceBlocks)
+mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* __restrict__ ft_g,
+                  const float* __restrict__ cam_g, const Mesh m, int* __restrict__ work) {
+  extern __shared__ float4 rows[];
+  __shared__ float sph[kMaxPrims * kSphCols];
+  __shared__ float ft[kMaxPrims * kFtCols];
+  __shared__ float cam[kCamLen];
+  stage_scene(sph, sph_g, L.n_sph, ft, ft_g, L.n_ft, cam, cam_g);
+  if (kBrute) {
+    for (int k = threadIdx.x; k < m.n_brute * 3; k += blockDim.x) rows[k] = __ldg(m.btri + k);
+  }
+  __syncthreads();  // the only barrier
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  for (;;) {
+    int tile = 0;
+    if (lane == 0) tile = atomicAdd(work, 1);
+    tile = __shfl_sync(kFull, tile, 0);
+    if (tile >= (L.n + 31) / 32) break;
+    trace_lane<kBrute>(tile * 32 + lane, L, sph, ft, cam, m, rows);
+  }
+}
+
+// The yardsticks mesh_trace_kernel<false> and <true> are timed
+// against: the first designs of the two entries (a thread per lane, its
+// own walk in the camera's scan order, or the block in lockstep over
+// staged 64-row chunks). Nothing on a render path launches them.
+template <bool kBrute>
+__global__ void __launch_bounds__(kThreads)
+mesh_trace_yardstick_kernel(const Lanes L, const float* __restrict__ sph_g,
+                            const float* __restrict__ ft_g, const float* __restrict__ cam_g,
+                            const Mesh m) {
+  __shared__ float sph[kMaxPrims * kSphCols];
+  __shared__ float ft[kMaxPrims * kFtCols];
+  __shared__ float cam[kCamLen];
+  __shared__ float4 s_tri[kBrute ? kBruteChunk * 3 : 1];
+  __shared__ int s_gid[kBrute ? kBruteChunk : 1];
+  stage_scene(sph, sph_g, L.n_sph, ft, ft_g, L.n_ft, cam, cam_g);
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // threads past n stay in the block's loop (the brute route stages with
+  // every thread) but never trace
+  bool active = i < L.n;
+  const int xi = active ? L.xs[i] : 0, yi = active ? L.ys[i] : 0;
+  const uint32_t hpix = jenkins(static_cast<uint32_t>(xi) ^ (static_cast<uint32_t>(yi) << 16));
+  const float s_x = cam[12] * (static_cast<float>(xi) - cam[14]);
+  const float s_y = cam[13] * (static_cast<float>(yi) - cam[15]);
+  const float bdx = cam[3] + s_x * cam[9] + s_y * cam[6];
+  const float bdy = cam[4] + s_x * cam[10] + s_y * cam[7];
+  const float bdz = cam[5] + s_x * cam[11] + s_y * cam[8];
+  const float max_thres = cam[17];
+  const float inv_thres = 1.0f / max_thres;
+
+  const uint32_t samp0 = active ? static_cast<uint32_t>(L.samp[i]) : 0u;
+  uint32_t state;
+  Path p;
+  p.ray = start_sample(hpix, samp0, state, bdx, bdy, bdz, cam, L.has_lens);
+  p.lr = p.lg = p.lb = 0.f;
+  p.cir = p.cig = p.cib = p.inten = 1.f;
+  p.depth = 0;
+  int sk = 0;
+
+  const int n_iter = L.max_bounces * L.spl;
+  for (int it = 0; it < n_iter; ++it) {
+    if (kBrute) {
+      if (!__syncthreads_or(active)) break;
+    } else if (!active) {
+      break;
+    }
+    float t_best = kInf;
+    int kind = 0, best = 0;
+    if (active) closest_sph_ft(p.ray, sph, L.n_sph, ft, L.n_ft, t_best, kind, best);
+    float tm = t_best, bu = 0.f, bv = 0.f;
+    int mgid = -1;
+    if (kBrute) {
+      brute(m, p.ray, active, s_tri, s_gid, tm, mgid, bu, bv);
+    } else {
+      walk(m, p.ray, kEps, tm, mgid, bu, bv);
+    }
+    if (!active) continue;
+
+    const float u0 = next_f32(state);
+    const float u1 = next_f32(state);
+    const float u2 = next_f32(state);
+    const float u3 = next_f32(state);
+    const float u4 = next_f32(state);
+    const float u5 = next_f32(state);
+    const float u6 = next_f32(state);
+    const float u7 = next_f32(state);
+
+    bool survive = false;
+    if (mgid >= 0) {
+      survive = shade_mesh(p, m, mgid, tm, bu, bv, u0, u1, u2, u4, u5, u6, u7, L.assured,
+                           max_thres, inv_thres);
+    } else if (kind != 0) {
+      survive = shade_sph_ft(p, sph, ft, kind, best, t_best, u0, u1, u2, u3, u7, L.assured,
+                             max_thres, inv_thres);
+    }
+
+    if (L.spl > 1) {
+      const bool alive = survive && p.depth < L.max_bounces;
+      const bool regen = !alive && sk + 1 < L.spl;
+      if (regen) {
+        ++sk;
+        p.ray = start_sample(hpix, samp0 + static_cast<uint32_t>(sk), state, bdx, bdy, bdz, cam,
+                             L.has_lens);
+        p.cir = p.cig = p.cib = p.inten = 1.f;
+        p.depth = 0;
+      }
+      active = alive || regen;
+    } else {
+      active = survive;
+    }
+  }
+
+  if (i < L.n) {
+    L.out[0 * L.n + i] = p.lr;
+    L.out[1 * L.n + i] = p.lg;
+    L.out[2 * L.n + i] = p.lb;
+  }
+}
+
+enum TraceEntry { kEntryWalk, kEntryBrute, kEntryPerThread, kEntryLockstep };
+
+// A CUDA error as the C interface's return code; the sticky "last error"
+// is cleared so that it is not reported again by a later launch.
+int fail(cudaError_t e) {
+  cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+// One persistent launch of mesh_trace_kernel<kBrute>: as many blocks as
+// the SMs hold with `smem` bytes of dynamic shared memory, at most one a
+// 32-lane tile.
+template <bool kBrute>
+int launch_persistent(const Lanes& L, const float* sph, const float* ft, const float* cam,
+                      const Mesh& m, int* work, size_t smem, cudaStream_t s) {
+  constexpr int threads = kBrute ? kBruteThreads : kThreads;
+  cudaError_t e = cudaFuncSetAttribute(mesh_trace_kernel<kBrute>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return fail(e);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return fail(e);
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return fail(e);
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mesh_trace_kernel<kBrute>, threads,
+                                                    smem);
+  if (e != cudaSuccess) return fail(e);
+  const int tiles = (L.n + 31) / 32, warps = threads / 32;
+  const int resident = (per_sm > 1 ? per_sm : 1) * sms, needed = (tiles + warps - 1) / warps;
+  mesh_trace_kernel<kBrute><<<resident < needed ? resident : needed, threads, smem, s>>>(
+      L, sph, ft, cam, m, work);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float* ft,
+                 const float* cam, const Mesh& m, int* work, void* stream) {
+  if (L.n <= 0) return 0;
+  if (L.n_sph > kMaxPrims || L.n_ft > kMaxPrims || m.n_brute % kBruteChunk ||
+      (work == nullptr && (entry == kEntryWalk || entry == kEntryBrute))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (L.n + kThreads - 1) / kThreads;
+  switch (entry) {
+    case kEntryWalk:
+      return launch_persistent<false>(L, sph, ft, cam, m, work, 0, s);
+    case kEntryBrute:
+      return launch_persistent<true>(L, sph, ft, cam, m, work,
+                                     static_cast<size_t>(m.n_brute) * 3 * sizeof(float4), s);
+    case kEntryPerThread:
+      mesh_trace_yardstick_kernel<false><<<blocks, kThreads, 0, s>>>(L, sph, ft, cam, m);
+      break;
+    case kEntryLockstep:
+      mesh_trace_yardstick_kernel<true><<<blocks, kThreads, 0, s>>>(L, sph, ft, cam, m);
+      break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- mesh_hit: the integrator's nearest mesh hit, a group walk per ray ----
+
+__global__ void __launch_bounds__(kThreads)
+mesh_hit_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+                const float* __restrict__ oz, const float* __restrict__ dx,
+                const float* __restrict__ dy, const float* __restrict__ dz,
+                const float* __restrict__ seed, int n, float t_min, const Mesh m,
+                float* __restrict__ t_out, int* __restrict__ gid_out, float* __restrict__ u_out,
+                float* __restrict__ v_out) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / kRayGroup;  // this group's ray
+  if (i >= n) return;  // whole groups
+  const Group<kRayGroup> g = lane_group<kRayGroup>();
+  const float t_seed = seed[i];
+  if (!(t_seed > t_min)) {  // dead: no t has t_min <= t < seed
+    if (g.rank == 0) {
+      t_out[i] = t_seed;
+      gid_out[i] = -1;
+      u_out[i] = 0.f;
+      v_out[i] = 0.f;
+    }
+    return;
+  }
+  const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
+  float ct, cu, cv;
+  int cpos;
+  group_walk(m, g, r, t_seed, t_min, ct, cpos, cu, cv);
   if (g.rank == 0) {
     t_out[i] = ct;
     gid_out[i] = cpos >= 0 ? __ldg(m.gid + cpos) : -1;
@@ -649,8 +984,8 @@ mesh_hit_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
 }
 
 // The yardstick mesh_hit_kernel is timed against: one thread per ray runs
-// mesh_trace's per-thread `walk` in the camera's scan order (the first
-// design of this entry). Nothing on a render path launches it.
+// the per-thread `walk` in the camera's scan order (the first design of
+// this entry). Nothing on a render path launches it.
 __global__ void __launch_bounds__(kThreads)
 mesh_hit_per_thread_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                            const float* __restrict__ oz, const float* __restrict__ dx,
@@ -707,6 +1042,9 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
   return launch_hit(mesh_hit_per_thread_kernel, 1, MESH_HIT_PASS);
 }
 
+// The four mesh_trace entries share one C signature; `work` is a zeroed
+// int32 the warps of mesh_trace and mesh_trace_brute take their tiles
+// from (unused by the yardsticks).
 #define MESH_TRACE_ARGS                                                                      \
   const int32_t *xs, const int32_t *ys, const int32_t *samp, int n, const float *sph,        \
       const float *ft, const float *cam, int n_sph, int n_ft, int has_lens, int assured,     \
@@ -714,12 +1052,24 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
       const float *bounds, const int *count, const float *tri, const int *gid, int n_sg,     \
       int width, const float *btri, const int *bgid, int n_brute, const float *attr,         \
       const int *desc, const void *pool, int pool_kind, long long pool_len, float *out,      \
-      void *stream
-#define MESH_TRACE_PASS                                                                      \
-  xs, ys, samp, n, sph, ft, cam, n_sph, n_ft, has_lens, assured, max_bounces, spl, sgbounds, \
-      sbounds, bounds, count, tri, gid, n_sg, width, btri, bgid, n_brute, attr, desc, pool,  \
-      pool_kind, pool_len, out, stream
+      int *work, void *stream
+#define MESH_TRACE_PASS(entry)                                                               \
+  launch_trace(entry, Lanes{xs, ys, samp, n, n_sph, n_ft, has_lens, assured, max_bounces,    \
+                            spl, out},                                                       \
+               sph, ft, cam,                                                                 \
+               Mesh{sgbounds, sbounds, bounds, count, reinterpret_cast<const float4*>(tri),  \
+                    gid, n_sg, width, reinterpret_cast<const float4*>(btri), bgid, n_brute,  \
+                    attr, desc, pool, pool_kind, pool_len},                                  \
+               work, stream)
 
-extern "C" int mesh_trace_launch(MESH_TRACE_ARGS) { return launch<false>(MESH_TRACE_PASS); }
+extern "C" int mesh_trace_launch(MESH_TRACE_ARGS) { return MESH_TRACE_PASS(kEntryWalk); }
 
-extern "C" int mesh_trace_brute_launch(MESH_TRACE_ARGS) { return launch<true>(MESH_TRACE_PASS); }
+extern "C" int mesh_trace_brute_launch(MESH_TRACE_ARGS) { return MESH_TRACE_PASS(kEntryBrute); }
+
+extern "C" int mesh_trace_per_thread_launch(MESH_TRACE_ARGS) {
+  return MESH_TRACE_PASS(kEntryPerThread);
+}
+
+extern "C" int mesh_trace_brute_lockstep_launch(MESH_TRACE_ARGS) {
+  return MESH_TRACE_PASS(kEntryLockstep);
+}

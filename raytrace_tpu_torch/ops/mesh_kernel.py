@@ -14,14 +14,28 @@ radiance sum. The pend protocol, the lane queue, fast2 and the
 `RTPU_*` knobs are not ported (ROADMAP, "Not to port").
 
 The mesh nearest hit has two routes, each its own CUDA entry point in
-`csrc/mesh_kernel.cu`:
+`csrc/mesh_kernel.cu`; in both a path stays with its thread and the
+nearest hits of a warp's live rays are found by groups of its threads:
 - "walk" (`mesh_trace`, replacing the cluster walk `mesh_walk`,
   :375-479): a 3-level slab walk (supergroup, supercluster, cluster)
   over the tables of `pack_mesh_tables`, pruned by `entry < t_best`,
-  strict-< updates in scan order;
+  exact-t ties to the least scan position;
 - "brute" (`mesh_trace_brute`, replacing `woop.mxu_mesh_hit`,
-  woop.py:268): every triangle, in f32 Moller-Trumbore, for meshes of
-  at most MAX_BRUTE_TRIS triangles (the JAX scene gate, woop.MAX_TRIS).
+  woop.py:268): every triangle of the brute table, in f32
+  Moller-Trumbore, ties to the least row, the table resident in shared
+  memory. MeshTables takes it for meshes of at most MAX_BRUTE_TRIS
+  triangles.
+
+The gate, MAX_BRUTE_TRIS, is measured on the card, not copied from the
+JAX package's 2,560 (woop.MAX_TRIS, where the MXU made the brute pass
+cheap): `chip_smoke.py` times both routes on the whole 1216x608 frame at
+16 samples per lane over cuts of the procedural surface (256, 512, 1,024,
+2,097 and 2,560 triangles, a380 camera). On an NVIDIA H100 80GB HBM3 at
+700 W the walk was faster at every cut, 9.6 ms against 11.1 at 256
+triangles and 30.7 against 164.1 at 2,097 (PERF.md): an FP32 brute
+pass tests all 2,112 rows of that table at every lane-bounce, and even
+its bound (85 ms at 2,097 triangles) is above the walk's time. So the gate is 0 and every mesh takes the walk; the brute route
+stays an entry point that a caller can ask for by `route="brute"`.
 
 Draws: 8 uniforms per bounce for EVERY lane of a mesh scene, u0..u7
 (integrator.py:862-869). Mesh hits use u0 (lobe), u1 u2 (diffuse),
@@ -54,17 +68,22 @@ from .intersect import EPS, INF, closest_sph_ft, triangle_tuv
 from .texture import pool_tensor, sample_nearest
 from .trace_kernel import CAM_LEN, FT_COLS, MAX_PRIMS, SPH_COLS, make_cam_vec, pack_scene_tables
 
-MAX_BRUTE_TRIS = 2560  # brute route up to this many triangles (JAX woop.MAX_TRIS)
+MAX_BRUTE_TRIS = 0  # brute route up to this many triangles: none (see the docstring)
 GROUP = 16  # clusters per supercluster
 SGROUP = 8  # superclusters per supergroup
 TRI_COLS = 12  # v0 xyz | e1 xyz | e2 xyz | 3 zero: three float4 loads a triangle
-BRUTE_CHUNK = 64  # triangles per shared-memory chunk of the brute route
+BRUTE_CHUNK = 64  # the brute table's rows are padded to a multiple of this
 ROUTES = {"walk": "mesh_trace", "brute": "mesh_trace_brute"}
+# the first design of each route's entry, kept as the yardstick chip_smoke.py
+# times it against (a thread walks its own ray in the camera's scan order;
+# the block stages 64-row chunks in lockstep); no render launches them
+YARDSTICKS = {"walk": "mesh_trace_per_thread", "brute": "mesh_trace_brute_lockstep"}
 _NOHIT_LO, _NOHIT_HI = 3.0e38, -3.0e38  # inverted AABB of padding clusters (the
 # JAX layout; the slab test does not retire it, the walks skip count-0 clusters)
 
 # launches of each CUDA entry point in this process (read by chip_smoke.py)
-LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_hit": 0, "mesh_hit_per_thread": 0}
+LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_hit": 0, "mesh_hit_per_thread": 0,
+            "mesh_trace_per_thread": 0, "mesh_trace_brute_lockstep": 0}
 
 
 # --- host-side packing -----------------------------------------------------
@@ -529,7 +548,8 @@ _F32_BUFFERS = ("sph", "ft", "cam_vec", "sgbounds", "sbounds", "bounds", "tri", 
 _I32_BUFFERS = ("count", "gid", "bgid", "desc")
 
 
-def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_lane):
+def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_lane,
+            entry=None):
     from ..kernels import build
 
     dev = xs.device
@@ -549,7 +569,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
     if samples_per_lane < 1 or max_bounces < 1:
         raise ValueError("samples_per_lane and max_bounces must be >= 1")
 
-    entry = ROUTES[route]
+    entry = entry or ROUTES[route]
     lib = build.build("mesh_kernel").lib
     fn = getattr(lib, f"{entry}_launch")
     fn.restype = ctypes.c_int
@@ -558,10 +578,12 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_void_p] * 3)
     xs_c, ys_c, samp_c = xs.contiguous(), ys.contiguous(), samp.contiguous()
     n = xs_c.numel()
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    # the route entries' warps take their 32-lane tiles from this counter
+    work = torch.zeros(1, dtype=torch.int32, device=dev) if entry in ROUTES.values() else None
     tb = tables
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -574,7 +596,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
                 tb.btri.data_ptr(), tb.bgid.data_ptr(), tb.btri.shape[0],
                 tb.attr.data_ptr(), tb.desc.data_ptr(), tb.pool.data_ptr(),
                 tb.pool_kind, tb.pool.numel(),
-                out.data_ptr(), stream)
+                out.data_ptr(), None if work is None else work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     LAUNCHES[entry] += 1
@@ -585,13 +607,14 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
                samples_per_lane: int = 1, route: str | None = None):
     """xs, ys, samp: int32 lane tensors of any shape; tables: a
     MeshTables on the same device; route "walk" or "brute", by default
-    tables.route (the 2,560-triangle gate; the tests and chip_smoke.py
+    tables.route (the MAX_BRUTE_TRIS gate; the tests and chip_smoke.py
     pass both routes on one scene). Lane i covers sample ids samp[i] ..
     samp[i] + samples_per_lane - 1. Returns the radiance sum (r, g, b):
     3 f32 tensors shaped like xs.
 
     CPU tensors run `mesh_trace_reference`; CUDA tensors launch the CUDA
-    kernel's entry point of the route or raise."""
+    kernel's entry point of the route or raise (the brute entry, for
+    one, when its table does not fit in a block's shared memory)."""
     route = tables.route if route is None else route
     if route not in ROUTES:
         raise ValueError(f"route must be one of {tuple(ROUTES)}, not {route!r}")
@@ -604,6 +627,18 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
     if xs.device.type == "cpu":
         return mesh_trace_reference(xs, ys, samp, tables, **kw)
     raise ValueError(f"mesh_trace runs on cpu or cuda tensors, not {xs.device}")
+
+
+def _mesh_trace_yardstick(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: int,
+                          samples_per_lane: int = 1, route: str | None = None):
+    """`mesh_trace` by the route's yardstick entry (YARDSTICKS): the first
+    design, which chip_smoke.py times the kernel against. CUDA tensors
+    only."""
+    if xs.device.type != "cuda":
+        raise ValueError(f"the mesh_trace yardsticks run on cuda tensors, not {xs.device}")
+    route = tables.route if route is None else route
+    return _launch(xs, ys, samp, tables, route=route, assured=assured, max_bounces=max_bounces,
+                   samples_per_lane=samples_per_lane, entry=YARDSTICKS[route])
 
 
 # --- the nearest hit alone: the integrator's mesh intersection -------------

@@ -24,26 +24,29 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (8, 16, 32)
-GROUP_LINE = re.compile(r"constexpr int kRayGroup = \d+;")
 
 
-def build_variant(g):
-    """mesh_kernel.cu with kRayGroup = g, built like kernels/build.py."""
+def build_variant(values, tag):
+    """mesh_kernel.cu with each `constexpr int` of `values` ({name: value})
+    set, built like kernels/build.py into _build/groups/mesh_kernel_<tag>.so."""
     from raytrace_tpu_torch.kernels import build
 
     src = (build.CSRC / "mesh_kernel.cu").read_text()
-    if len(GROUP_LINE.findall(src)) != 1:
-        raise RuntimeError("mesh_kernel.cu does not define kRayGroup once")
+    for name, value in values.items():
+        line = re.compile(rf"constexpr int {name} = \d+;")
+        if len(line.findall(src)) != 1:
+            raise RuntimeError(f"mesh_kernel.cu does not define {name} once")
+        src = line.sub(f"constexpr int {name} = {value};", src)
     out = build.BUILD_DIR / "groups"
     out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"mesh_kernel_g{g}.cu", out / f"mesh_kernel_g{g}.so"
-    cu.write_text(GROUP_LINE.sub(f"constexpr int kRayGroup = {g};", src))
+    cu, so = out / f"mesh_kernel_{tag}.cu", out / f"mesh_kernel_{tag}.so"
+    cu.write_text(src)
     cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *build.EXTRA_FLAGS["mesh_kernel"],
            "-I", str(build.CSRC), "-o", str(so), str(cu)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building G={g}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed building {tag}:\n{proc.stdout}{proc.stderr}")
     return build.Built(path=so, log=proc.stdout + proc.stderr, seconds=time.perf_counter() - t0,
                        lib=ctypes.CDLL(str(so)))
 
@@ -67,7 +70,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     with ThreadPoolExecutor(len(GROUPS) + 1) as pool:
         committed = pool.submit(build.build, "mesh_kernel")
-        variants = dict(zip(GROUPS, pool.map(build_variant, GROUPS)))
+        variants = dict(zip(GROUPS, pool.map(
+            lambda g: build_variant({"kRayGroup": g}, f"hit_g{g}"), GROUPS)))
         committed.result()
     for g, built in variants.items():
         for line in built.log.splitlines():

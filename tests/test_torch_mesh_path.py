@@ -16,6 +16,7 @@ import torch
 
 from raytrace_tpu.models.camera import build_camera as jax_build_camera
 from raytrace_tpu.models.scene import build_scene as jax_build_scene
+from raytrace_tpu.ops.pallas.woop import MAX_TRIS as JAX_MAX_TRIS
 from raytrace_tpu.render.integrator import IntegratorParams
 from raytrace_tpu.render.renderer import camera_to_arrays, sample_batch
 from raytrace_tpu_torch.models.camera import build_camera
@@ -80,9 +81,12 @@ def test_octahedra_path_matches_jax(octahedra, route, spl, n, base):
 
 @pytest.mark.parametrize("route", ["brute", "walk"])
 def test_surface_path_matches_jax(route):
-    """The 2,097-triangle surface (the brute route's scene class), both routes."""
-    jscene, _, js, ps = surface_scene(2097, W, H)
-    assert jscene.n_mesh_tris <= mk.MAX_BRUTE_TRIS
+    """The 2,097-triangle surface, both routes: the JAX package's brute
+    route (under its gate, woop.MAX_TRIS), the port's walk (above its
+    gate, MAX_BRUTE_TRIS, measured on the H100)."""
+    jscene, scene, js, ps = surface_scene(2097, W, H)
+    assert mk.MAX_BRUTE_TRIS < jscene.n_mesh_tris <= JAX_MAX_TRIS
+    assert mk.MeshTables(scene, build_camera(ps.cam, W, H), 0.5).route == "walk"
     ref = _jax_ref(jscene, js, 5, 3, 4)
     out = _port(jscene, ps, route, 5, 3, 4, 4)
     assert_close(out, ref, 4)

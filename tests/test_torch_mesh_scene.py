@@ -173,7 +173,7 @@ def a380_raw(mod, width, height):
 def surface_scene(n_tris=2097, width=64, height=32, n_textures=0, tex_size=16):
     """(JAX SceneArrays, port SceneArrays, JAX scheme, port scheme) of the
     procedural surface cut to n_tris triangles (2,097, spaceship_r1's
-    size, takes the brute route) under the a380 camera and sun. The JAX
+    size, under the JAX brute route's gate) under the a380 camera and sun. The JAX
     build gets the mesh as scripts/bench_mesh.py gives it, through its
     glTF loader's place."""
     mesh = procedural.make_mesh(n_tris, n_textures=n_textures, tex_size=tex_size)
