@@ -9,20 +9,30 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
 2. build: compiles csrc/trace_kernel.cu and csrc/mesh_kernel.cu with nvcc
    for sm_90a, with copies of mesh_kernel.cu at 8, 16 and 32 threads per
    ray for the group sweep of phase 5, all at once (timed), and prints
-   ptxas's registers / shared memory / spills;
-3. kernel vs plain, both on the card: `trace_tiles` (the CUDA kernel)
-   against `trace_tiles_reference` (plain torch) on the walled scene at
-   1200x600 (samples per lane 1: all 9 outputs; 4: radiance) and on a
-   mixed sphere / free-triangle / dielectric / emissive scene at 64x32
-   (1 and 4), under the lane-fraction gate: under 1% of lanes may have
-   |a - b| / (|b| + 1e-3) > 1e-3; then both timed with CUDA events at
-   the main path's launch shape, in turns plain, kernel, kernel, plain;
+   ptxas's registers / shared memory / stack / spills of every kernel
+   (both trace_tiles entries among them) and trace_kernel.cu's SASS
+   instruction counts (cuobjdump, into raytrace_tpu_torch/_build/sass/);
+3. kernel vs plain, both on the card: `trace_tiles` (the CUDA kernel) and
+   its first design `trace_tiles_per_thread` (the yardstick) against
+   `trace_tiles_reference` (plain torch) on the walled scene at 1200x600
+   (samples per lane 1: all 9 outputs; 4: radiance) and on a mixed
+   sphere / free-triangle / dielectric / emissive scene at 64x32 (1 and
+   4), under the lane-fraction gate: under 1% of lanes may have
+   |a - b| / (|b| + 1e-3) > 1e-3 (the worst fraction printed); the plain
+   version's per-lane loop counts and branches on the main path's launch
+   (walled 1200x600, 64 samples per lane: warp and 256-lane block
+   efficiency, the branch mix); then the three timed with CUDA events at
+   that launch, in turns plain, new, old, old, new, plain;
 4. walled main path: Renderer(walled 1200x600, device="cuda").render(64
    spp) with the kernel's launch count reset just before and read just
    after; the image must be finite and agree with the CPU render of a
    small frame (scripts/hw_parity.py's tile gate), and a checkpoint
    resume must be bitwise exact on the card. Prints paths/s with the
-   card's name and power limit;
+   card's name and power limit, the render timed in turns against the
+   same render with the yardstick in trace_tiles' place (each turn the
+   median of RENDER_REPS renders), and (after phase 8, in a child process of
+   its own) a torch.profiler table of one warm render(64): trace_tiles'
+   share of device time and the device-to-host copy's;
 5. mesh kernel vs plain, both on the card: `mesh_trace` (the walk)
    against `mesh_trace_reference` on the whole 1216x608 frame of the
    a380-class textured surface (127,749 triangles, 20 u8 1024x1024
@@ -86,9 +96,10 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    launch inside the render and its share of device time.
 
 Each kernel's record has its bound (bound_ms, bound_by): the larger of
-its bytes over 3.35 TB/s and its FP32 operations, counted from the
-sources, over the FP32 ceiling of its build (see FP32_PEAK and
-FP32_SINGLE).
+its bytes over 3.35 TB/s and its FP32 work, counted from the sources,
+over 33.5 T FP32 instructions/s (see FP32_CEILING); trace_tiles' work is
+counted in instructions under contraction on the plain version's counts
+of the launch's lane-bounces by branch and of its near roots.
 
 Any failure raises (exit code != 0). The line before the last is the
 kernels' JSON record; the last line is the device JSON object. Without a
@@ -108,6 +119,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H = 1200, 600  # the walled benchmark's size
 MAIN_SPP = 64
 TIMING_SPL = 64  # samples per lane of the main path's launch (MAIN_SPP <= samples_per_launch)
+RENDER_REPS = 5  # warm walled renders a turn when the render is timed against the yardstick's
+SMS = 132  # the H100 SXM's streaming multiprocessors
 
 
 def lane_gate(ours, ref):
@@ -493,11 +506,26 @@ CAPTURE_ITER = 20  # the wavefront iteration whose mesh_hit launch is the in-ren
 # SMs x 128 FP32 lanes x 2 x 1.98 GHz). mesh_kernel.cu is built with
 # -fmad=false (kernels/build.py), so none of its multiplies and adds fuse:
 # each counted operation is one instruction, and its ceiling is 33.5 T
-# instructions/s. trace_kernel.cu keeps contraction and is held to 67
-# TFLOP/s, which assumes every operation fused: its bound is optimistic.
-FP32_PEAK = 67e12  # FP32 FLOP/s, an FMA two (trace_kernel.cu)
-FP32_SINGLE = 33.5e12  # FP32 instructions/s, none fused (mesh_kernel.cu, -fmad=false)
-FP32_CEILING = {"trace_tiles": FP32_PEAK, "mesh_trace": FP32_SINGLE,
+# instructions/s. trace_kernel.cu keeps contraction, so its work is counted
+# in FP32 instructions under contraction (a multiply that feeds an add is
+# one FFMA), from trace_kernel.cu's closest_hit, shade and start_sample: a
+# compare or min / max one, a draw's scale to [0, 1] one, a square root,
+# reciprocal square root, sine or cosine one (their multi-instruction
+# sequences are not counted), selects, integer work, loads and branches
+# none. What depends on the data is counted from this run's data: the
+# plain version counts the launch's lane-iterations by branch and the
+# sphere tests that take the near root (trace_tiles_reference's
+# return_iters), and each branch is counted along its shortest way through
+# the source (below). Not counted, so the bound stays low: an emissive
+# hit's radiance add (9), the Russian roulette's test on a hit that
+# survives it (2), a DiffSpec's choice of lobe (3), a dielectric's
+# refraction beyond its total internal reflection (17). Its ceiling is the same
+# 33.5 T instructions/s. (The earlier bound held it to 67 TFLOP/s with every
+# operation counted apart, which assumed every operation fused; printed
+# beside.)
+FP32_PEAK = 67e12  # FP32 FLOP/s, an FMA two
+FP32_SINGLE = 33.5e12  # FP32 instructions/s (132 SMs x 128 lanes x 1.98 GHz)
+FP32_CEILING = {"trace_tiles": FP32_SINGLE, "mesh_trace": FP32_SINGLE,
                 "mesh_trace_brute": FP32_SINGLE, "mesh_hit": FP32_SINGLE}
 HBM_RATE = 3.35e12  # bytes/s
 SLAB_OPS = 25  # mesh_kernel.cu slab_span (6 sub, 6 mul, 10 min/max) + 3 compares
@@ -505,6 +533,28 @@ TRI_OPS = 55  # path_common.cuh tri_hit (53) + the t_min and running-best compar
 SPH_OPS = 18  # path_common.cuh closest_sph_ft, one sphere: up to the disc > 0 test
 SHADE_SPH_OPS = 93  # shade_sph_ft, diffuse lobe (88) + 5 draws' float conversion
 SHADE_MESH_OPS = 204  # mesh_kernel.cu shade_mesh without a normal map (196) + 8 draws
+# trace_kernel.cu in FP32 instructions under contraction (see FP32_CEILING):
+SPH_INSTR = 13  # closest_hit, one sphere: oc 3 FADD, dirv FMUL + 2 FFMA, consts FMUL +
+# 2 FFMA + FADD (the staged r^2), disc FFMA, disc > 0 and dirv < 0
+ROOT_INSTR = 4  # a sphere test that takes the near root: the square root, -dirv - root,
+# t_near > 0 and t_near < t_best
+TRI_INSTR = 39  # tri_hit: pv 6, det 3, |det| 1, 1/det 1, h 3, u 4, q 6, w 4, t 4,
+# the five range compares and u + w 6, t < t_best 1
+RAYGEN_INSTR = 20  # start_sample without a lens, once a path: 2 draws, the jitter 4,
+# the direction 6 FFMA, its normalize 8
+# shade by branch (return_iters' BRANCHES). A hit: the point 3 FFMA, a sphere's normal 11
+# (3 FADD, the normalize 8: the walled scene has no free triangles), has_em 1, the
+# colour 3 FMUL: 18. A hit that survives the roulette: d.n 3, inten *= weight 1, the
+# next origin 3 FFMA: 7 more, and its lobe: diffuse 41 (the kind's 2 compares, xd 3,
+# its normalize 8, yd 6, 2 draws 2, sqrt u1 with its zero test 2, the angle 1, sine
+# and cosine 2, ca sa 2, zz 4, the direction 9); mirror 7 (3 compares, the reflection
+# 4); dielectric 10 along its total internal reflection (compare 1, into 1, c22 3 and
+# its test 1, the reflection 4; a refraction takes 17 more: its root with the
+# argument's test 2, k_t 1, t 6, ct 4, ct2 1, re 4, the draw and its compare 2, less the
+# reflection's 4, plus the weight 1). The roulette: its draw and test 2, the radiance
+# add 6 (cir * inv_thres once, an FFMA a channel). A miss: its weight record 3 FMUL.
+SHADE_INSTR = {"miss": 3, "diffuse": 18 + 7 + 41, "mirror": 18 + 7 + 7,
+               "dielectric": 18 + 7 + 10, "roulette": 18 + 2 + 6}
 
 
 def bound(ops, nbytes, name):
@@ -854,23 +904,24 @@ def integrator_phases(dev, card):
     return rec, per_path, hit["walk_ops_per_ray"]
 
 
-def profile(renderer, card, kernel, label):
-    """torch.profiler over one warm render(16) of the renderer: device
-    time per kernel, the share of the kernel whose name holds `kernel`,
-    host syncs per wavefront iteration, and the device's idle share of an
-    unprofiled warm render(16). Returns {ms (per launch), share,
-    device_ms} of that kernel, or None without device time."""
+def profile(renderer, card, kernel, label, spp=MESH_SPP):
+    """torch.profiler over one warm render(spp) of the renderer: device
+    time per kernel, the share of the kernel whose name holds `kernel` and
+    of the device-to-host copies, host syncs per wavefront iteration, and
+    the device's idle share of an unprofiled warm render(spp). Returns
+    {ms (per launch), share, device_ms, copy_share} of that kernel, or
+    None without device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    renderer.render(samples=MESH_SPP)  # warm, unprofiled
+    renderer.render(samples=spp)  # warm, unprofiled
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        renderer.render(samples=MESH_SPP)
+        renderer.render(samples=spp)
         torch.cuda.synchronize()
     rows = prof.key_averages()
     # the kernels' own rows: an operator's row repeats its kernels' time
@@ -881,7 +932,7 @@ def profile(renderer, card, kernel, label):
 
     total = sum(dev_us(e) for e in kernels)
     iters = renderer.stats["iterations"]
-    print(f"[profile] {label} render({MESH_SPP}), warm, driver {renderer.driver}: {iters} "
+    print(f"[profile] {label} render({spp}), warm, driver {renderer.driver}: {iters} "
           f"wavefront iterations, {renderer.stats['lane_bounces']} lane-bounces, device time "
           f"{total / 1e3:.3f} ms [{card}]", flush=True)
     if total <= 0:
@@ -895,12 +946,243 @@ def profile(renderer, card, kernel, label):
     mine = [e for e in kernels if kernel in e.key]
     hit = sum(dev_us(e) for e in mine)
     count = sum(e.count for e in mine)
+    copy = sum(dev_us(e) for e in kernels if "Memcpy" in e.key)
     print(f"[profile] {kernel} {hit / total:.2%} of device time, {count} launches; the "
-          f"elementwise integrator and the rest {1 - hit / total:.2%}", flush=True)
+          f"device-to-host copies {copy / total:.2%}; the elementwise work and the rest "
+          f"{1 - (hit + copy) / total:.2%}", flush=True)
     for name in ("cudaStreamSynchronize", "aten::_local_scalar_dense", "cudaLaunchKernel"):
         c = sum(e.count for e in rows if e.key == name)
         print(f"[profile] {name}: {c} calls, {c / max(iters, 1):.1f} per iteration", flush=True)
-    return {"ms": hit / 1e3 / max(count, 1), "share": hit / total, "device_ms": total / 1e3}
+    return {"ms": hit / 1e3 / max(count, 1), "share": hit / total, "device_ms": total / 1e3,
+            "copy_share": copy / total}
+
+
+SASS_DIR = os.path.join(ROOT, "raytrace_tpu_torch", "_build", "sass")
+
+
+def sass(builds, out=SASS_DIR):
+    """Each build's SASS ({tag: Built}) into <out>/<tag>.sass; prints the
+    instructions of each kernel (None when cuobjdump is missing)."""
+    import re
+
+    from raytrace_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        print(f"[sass] no cuobjdump beside nvcc ({tool})", flush=True)
+        return None
+    os.makedirs(out, exist_ok=True)
+    counts = {}
+    for tag, built in builds.items():
+        proc = subprocess.run([tool, "-sass", str(built.path)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(f"[sass] {tag}: cuobjdump failed: {proc.stderr.strip()[:200]}", flush=True)
+            continue
+        path = os.path.join(out, f"{tag}.sass")
+        with open(path, "w") as f:
+            f.write(proc.stdout)
+        fn, n = None, {}
+        for line in proc.stdout.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                n[fn] = 0
+            elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+                n[fn] += 1
+        counts[tag] = n
+        for k, v in n.items():
+            print(f"[sass] {tag} {k}: {v} instructions ({path})", flush=True)
+    return counts
+
+
+def refill_efficiency(iters, warps):
+    """The loop efficiency (lane-iterations over 32 x warp-iterations) of
+    the launch under lane refill, the schedule trace_tiles does not take:
+    `warps` resident warps whose threads each take the next lane, in order,
+    once theirs has run all its samples, every warp one iteration a step
+    while any of its threads is live."""
+    import numpy as np
+
+    costs = iters.reshape(-1).cpu().numpy().astype(np.int64)
+    rem = np.zeros(warps * 32, np.int64)
+    nxt = steps = 0
+    while True:
+        free = np.flatnonzero(rem == 0)
+        k = min(free.size, costs.size - nxt)
+        rem[free[:k]] = costs[nxt:nxt + k]
+        nxt += k
+        live = rem > 0
+        if not live.any():
+            return float(costs.sum()) / (32 * steps)
+        steps += int(live.reshape(warps, 32).any(1).sum())
+        rem[live] -= 1
+
+
+def iter_stats(iters, branch, roots, card):
+    """The work the plain version counts per lane (return_iters) on the
+    main path's launch: loop iterations per lane, the efficiency of 32-lane
+    warps and 256-lane blocks that each wait for their slowest lane (the
+    per-thread design), and of lane refill at 16 and 32 resident warps a
+    SM (refill_efficiency), the share of lane-iterations by branch, and the
+    share of warp-iterations by the number of branches their live lanes
+    take. Returns {lane_iterations, by_branch (lane-iterations of each of
+    BRANCHES), near_roots (sphere tests that take the near root)}."""
+    import torch
+
+    from raytrace_tpu_torch.ops.trace_kernel import BRANCHES
+
+    it = iters.reshape(-1).double()
+    total = float(it.sum())
+    effs = []
+    for group in (32, 256):
+        n = it.numel() // group * group
+        g = it[:n].reshape(-1, group)
+        effs.append(float(g.sum()) / float(g.max(1).values.sum() * group))
+    live = float((branch >= 0).sum())
+    count = [float((branch == c).sum()) for c in range(len(BRANCHES))]
+    share = [c / live for c in count]
+    near_roots = float(roots.double().sum())
+    nw = branch.shape[1] // 32
+    taken = torch.zeros(branch.shape[0], nw, dtype=torch.int8, device=branch.device)
+    for c in range(len(BRANCHES)):
+        taken += (branch[:, : nw * 32].reshape(-1, nw, 32) == c).any(-1).to(torch.int8)
+    busy = taken[taken > 0]
+    hist = [float((busy == k).sum()) / busy.numel() for k in range(1, len(BRANCHES) + 1)]
+    print(f"[iters] per lane: mean {float(it.mean()):.2f}, std {float(it.std()):.2f}, min "
+          f"{int(it.min())}, max {int(it.max())} loop iterations; {total:.5g} lane-iterations; "
+          f"efficiency of warps waiting for their slowest lane {effs[0]:.4f}, of 256-lane blocks "
+          f"{effs[1]:.4f}; of lane refill at 16 resident warps a SM "
+          f"{refill_efficiency(iters, SMS * 16):.4f}, at 32 {refill_efficiency(iters, SMS * 32):.4f}",
+          flush=True)
+    print("[iters] lane-iterations by branch: " + ", ".join(
+        f"{b} {v:.4f}" for b, v in zip(BRANCHES, share)) + f"; near roots taken {near_roots:.5g}, "
+        f"{near_roots / total:.4f} a lane-iteration", flush=True)
+    print("[iters] warp-iterations by branches taken: " + ", ".join(
+        f"{k + 1}: {v:.4f}" for k, v in enumerate(hist)) + f" [{card}]", flush=True)
+    return dict(lane_iterations=total, by_branch=dict(zip(BRANCHES, count)),
+                near_roots=near_roots)
+
+
+def trace_phase(dev, card):
+    """Phase 3: `trace_tiles` and its yardstick `trace_tiles_per_thread`
+    against `trace_tiles_reference` on the card under the lane gate
+    (walled 1200x600 and the mixed scene, samples per lane 1: all 9
+    outputs, 4: radiance), the plain version's per-lane counts on the main
+    path's launch, and the three timed in turns at that launch. Returns
+    {max_abs_err, ms, yardstick_ms, plain_ms, work (iter_stats'), tables}."""
+    import torch
+
+    from raytrace_tpu_torch.models.camera import build_camera
+    from raytrace_tpu_torch.models.scene import build_scene
+    from raytrace_tpu_torch.models.walled import walled_scheme
+    from raytrace_tpu_torch.ops import trace_kernel as tk
+
+    def setup(scheme, width, height):
+        scene = build_scene(scheme)
+        tables = tk.SceneTables(scene, build_camera(scheme.cam, width, height),
+                                scheme.render_info.rad_info.russ_roull_info.max_thres).to(dev)
+        flat = torch.arange(width * height, dtype=torch.int32, device=dev)
+        return tables, flat % width, flat // width
+
+    def run(fn, tables, xs, ys, samp, assured, spl, **kw):
+        return fn(xs, ys, samp, tables.sph, tables.ft, tables.cam_vec,
+                  n_sph=tables.n_sph, n_ft=tables.n_ft, has_lens=tables.has_lens,
+                  assured=assured, max_bounces=24, samples_per_lane=spl, **kw)
+
+    max_err = 0.0
+    cases = [("walled", walled_scheme(W, H), W, H, 5, 1), ("walled", walled_scheme(W, H), W, H, 5, 4),
+             ("mixed", mixed_scheme(64, 32), 64, 32, 2, 1), ("mixed", mixed_scheme(64, 32), 64, 32, 2, 4)]
+    for name, scheme, w, h, assured, spl in cases:
+        tables, xs, ys = setup(scheme, w, h)
+        samp = torch.full_like(xs, 7)
+        ref = run(tk.trace_tiles_reference, tables, xs, ys, samp, assured, spl)
+        n_out = 9 if spl == 1 else 3  # miss records mean something only at spl == 1
+        outs = {}
+        for label, fn in (("trace_tiles", tk.trace_tiles),
+                          ("trace_tiles_per_thread", tk._trace_tiles_per_thread)):
+            ours = outs[label] = run(fn, tables, xs, ys, samp, assured, spl)
+            torch.cuda.synchronize()
+            worst = 0.0
+            for k in range(n_out):
+                bad, err = lane_gate(ours[k], ref[k])
+                worst = max(worst, bad)
+                if fn is tk.trace_tiles:
+                    max_err = max(max_err, err)
+                print(f"[parity] {label} {name} {w}x{h} spl={spl} out{k}: bad-lane fraction "
+                      f"{bad:.6f} max|d| {err:.3e}", flush=True)
+                assert bad < 0.01, f"{label} {name} spl={spl} output {k}: {bad:.4f} of lanes differ"
+            print(f"[gate] {label} {name} {w}x{h} spl={spl}: worst bad-lane fraction {worst:.6f} "
+                  f"over {n_out} outputs (limit 0.01); radiance mean "
+                  f"{[round(float(o.mean()) / spl, 5) for o in ours[:3]]}", flush=True)
+        differ = int((torch.stack(outs["trace_tiles"][:n_out])
+                      != torch.stack(outs["trace_tiles_per_thread"][:n_out])).any(0).sum())
+        print(f"[parity] {name} {w}x{h} spl={spl}: {differ} of {xs.numel()} lanes differ between "
+              f"trace_tiles and its yardstick", flush=True)
+
+    # the main path's launch: its per-lane work, then the three in turns
+    tables, xs, ys = setup(walled_scheme(W, H), W, H)
+    samp = torch.zeros_like(xs)
+    _, (iters, branch, roots) = run(tk.trace_tiles_reference, tables, xs, ys, samp, 5,
+                                    TIMING_SPL, return_iters=True)
+    work = iter_stats(iters, branch, roots, card)
+    del branch
+
+    def timed(fn, reps):
+        run(fn, tables, xs, ys, samp, 5, TIMING_SPL)  # warm-up
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run(fn, tables, xs, ys, samp, 5, TIMING_SPL)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    order = [("plain", tk.trace_tiles_reference, 1), ("new", tk.trace_tiles, 5),
+             ("old", tk._trace_tiles_per_thread, 5), ("old", tk._trace_tiles_per_thread, 5),
+             ("new", tk.trace_tiles, 5), ("plain", tk.trace_tiles_reference, 1)]
+    times = {}
+    for label, fn, reps in order:
+        ms = timed(fn, reps)
+        times.setdefault(label, []).append(ms)
+        print(f"[timing] {label} walled {W}x{H} spl={TIMING_SPL}: {ms:.3f} ms/launch "
+              f"({W * H * TIMING_SPL / ms / 1e6:.3f} Gpaths/s) [{card}]", flush=True)
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"[timing] trace_tiles walled {W}x{H} spl={TIMING_SPL}: {ms['new']:.3f} ms/launch, "
+          f"yardstick trace_tiles_per_thread {ms['old']:.3f} ms ({ms['old'] / ms['new']:.3f}x), "
+          f"plain {ms['plain']:.3f} ms [{card}]", flush=True)
+    return dict(max_abs_err=max_err, ms=ms["new"], yardstick_ms=ms["old"], plain_ms=ms["plain"],
+                work=work, tables=tables)
+
+
+PROFILE_CHILD = "--walled-profile"  # the argument of the child that profiles phase 4's render
+
+
+def walled_profile_child(card) -> int:
+    """Phase 4's profiler table in a process of its own: one warm walled
+    1200x600 render(64); prints its result as the last line."""
+    from raytrace_tpu_torch.models.walled import walled_scheme
+    from raytrace_tpu_torch.render.renderer import Renderer
+
+    renderer = Renderer(walled_scheme(W, H), device="cuda")
+    renderer.render(samples=1)  # loads the kernel (built: the parent's cache)
+    result = profile(renderer, card, "trace_tiles_kernel", f"walled {W}x{H}", spp=MAIN_SPP)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def profile_in_child(card):
+    """Phase 4's profiler table, taken by a child process (walled_profile_child):
+    in this process a profiler session after the others lost records of the
+    kernels launched through ctypes (one recorded no device time). Returns
+    its result, or None."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), PROFILE_CHILD, card],
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    assert proc.returncode == 0 and lines, f"the profiling child failed:\n{proc.stderr[-2000:]}"
+    return json.loads(lines[-1])
 
 
 def main() -> int:
@@ -911,14 +1193,15 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == [PROFILE_CHILD]:
+        return walled_profile_child(sys.argv[2])
     import numpy as np
 
     from raytrace_tpu_torch.kernels import build
-    from raytrace_tpu_torch.models.camera import build_camera
-    from raytrace_tpu_torch.models.scene import build_scene
     from raytrace_tpu_torch.models.walled import walled_scheme
     from raytrace_tpu_torch.ops import trace_kernel as tk
     from raytrace_tpu_torch.render.renderer import Renderer
+    from raytrace_tpu_torch.render.target import RenderTarget
     from raytrace_tpu_torch.utils import checkpoint as ckpt
 
     t_start = time.perf_counter()
@@ -952,68 +1235,13 @@ def main() -> int:
     for built in builds:
         print(f"[build] {built.path.name}: nvcc {built.seconds:.2f} s", flush=True)
         for line in built.log.splitlines():
-            if "ptxas" in line and any(k in line for k in ("registers", "spill", "smem",
-                                                            "Compiling")):
+            if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
                 print(f"[build] {line.strip()}", flush=True)
     groups.print_ptxas(variants)
+    sass({"trace_kernel": builds[0]})  # both entries' SASS, for reading
 
     # ---- 3. kernel vs plain on the card ----
-    def setup(scheme, width, height):
-        scene = build_scene(scheme)
-        tables = tk.SceneTables(scene, build_camera(scheme.cam, width, height),
-                                scheme.render_info.rad_info.russ_roull_info.max_thres).to(dev)
-        flat = torch.arange(width * height, dtype=torch.int32, device=dev)
-        return tables, flat % width, flat // width
-
-    def run(fn, tables, xs, ys, samp, assured, spl):
-        return fn(xs, ys, samp, tables.sph, tables.ft, tables.cam_vec,
-                  n_sph=tables.n_sph, n_ft=tables.n_ft, has_lens=tables.has_lens,
-                  assured=assured, max_bounces=24, samples_per_lane=spl)
-
-    max_err = 0.0
-    cases = [("walled", walled_scheme(W, H), W, H, 5, 1), ("walled", walled_scheme(W, H), W, H, 5, 4),
-             ("mixed", mixed_scheme(64, 32), 64, 32, 2, 1), ("mixed", mixed_scheme(64, 32), 64, 32, 2, 4)]
-    for name, scheme, w, h, assured, spl in cases:
-        tables, xs, ys = setup(scheme, w, h)
-        samp = torch.full_like(xs, 7)
-        ours = run(tk.trace_tiles, tables, xs, ys, samp, assured, spl)
-        torch.cuda.synchronize()
-        ref = run(tk.trace_tiles_reference, tables, xs, ys, samp, assured, spl)
-        torch.cuda.synchronize()
-        n_out = 9 if spl == 1 else 3  # miss records mean something only at spl == 1
-        for k in range(n_out):
-            bad, err = lane_gate(ours[k], ref[k])
-            max_err = max(max_err, err)
-            print(f"[parity] {name} {w}x{h} spl={spl} out{k}: bad-lane fraction {bad:.6f} "
-                  f"max|d| {err:.3e}", flush=True)
-            assert bad < 0.01, f"{name} spl={spl} output {k}: {bad:.4f} of lanes differ"
-        print(f"[parity] {name} {w}x{h} spl={spl}: radiance mean "
-              f"{[round(float(o.mean()) / spl, 5) for o in ours[:3]]}", flush=True)
-
-    tables, xs, ys = setup(walled_scheme(W, H), W, H)
-    samp = torch.zeros_like(xs)
-
-    def timed(fn, reps):
-        run(fn, tables, xs, ys, samp, 5, TIMING_SPL)  # warm-up
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            run(fn, tables, xs, ys, samp, 5, TIMING_SPL)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    order = [("plain", tk.trace_tiles_reference, 1), ("kernel", tk.trace_tiles, 5),
-             ("kernel", tk.trace_tiles, 5), ("plain", tk.trace_tiles_reference, 1)]
-    times = {"plain": [], "kernel": []}
-    for label, fn, reps in order:
-        ms = timed(fn, reps)
-        times[label].append(ms)
-        print(f"[timing] {label} walled {W}x{H} spl={TIMING_SPL}: {ms:.3f} ms/launch "
-              f"({W * H * TIMING_SPL / ms / 1e6:.3f} Gpaths/s) [{card}]", flush=True)
-    kernel_ms = sum(times["kernel"]) / 2
-    plain_ms = sum(times["plain"]) / 2
+    trace = trace_phase(dev, card)
 
     # ---- 4. the main path ----
     scheme = walled_scheme(W, H)
@@ -1056,18 +1284,52 @@ def main() -> int:
     assert np.array_equal(resumed.target.acc, full.target.acc), "resume is not bitwise exact"
     print(f"[main] resume at {k} spp: bitwise exact ({2 * k} spp, {W}x{H})", flush=True)
 
+    # the same render with the yardstick in trace_tiles' place, in turns
+    def render_ms(fn):
+        """The median wall time of RENDER_REPS warm renders, each into a
+        fresh target: one render's host side (the pageable copy) varies by
+        several ms, more than the kernels differ."""
+        real, tk.trace_tiles = tk.trace_tiles, fn
+        try:
+            r = Renderer(scheme, device="cuda")
+            r.render(samples=1)
+            times = []
+            for _ in range(RENDER_REPS):
+                r.target = RenderTarget(W, H)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r.render(samples=MAIN_SPP)  # ends in a device -> host copy
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times))
+        finally:
+            tk.trace_tiles = real
+
+    walls = {}
+    yardstick = tk._trace_tiles_per_thread
+    for label, fn in (("trace_tiles", tk.trace_tiles), ("yardstick", yardstick),
+                      ("yardstick", yardstick), ("trace_tiles", tk.trace_tiles)):
+        walls.setdefault(label, []).append(render_ms(fn))
+    sides = ", ".join(
+        f"{k} {sum(v) / 2:.3f} ms ({W * H * MAIN_SPP / (sum(v) / 2) / 1e6:.3f} Gpaths/s; turns "
+        f"{v[0]:.3f}, {v[1]:.3f})" for k, v in walls.items())
+    print(f"[main] walled render(64) in turns, each the median of {RENDER_REPS} renders: {sides} "
+          f"[{card}]", flush=True)
+
     kernels = [{
         "name": "trace_tiles",
         "route": "cuda",
         "source": "raytrace_tpu_torch/csrc/trace_kernel.cu",
         "replaces": "raytrace_tpu/ops/pallas/trace_kernel.py:722",
         "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "max_abs_err": trace["max_abs_err"],
+        "ms": trace["ms"],
+        "plain_ms": trace["plain_ms"],
         "library_ms": None,
         "launches_per_render": launches,
+        "yardstick_ms": trace["yardstick_ms"],
     }]
+    tables = trace["tables"]
     shape = {"trace_tiles": dict(
         n_sph=tables.n_sph, n_ft=tables.n_ft, n_tris=0,
         table_bytes=tensor_bytes(tables.buffers()))}
@@ -1075,6 +1337,9 @@ def main() -> int:
     kernels += mesh_records
     shape.update(mesh_shape)
     hit_record, per_path, walk_ops = integrator_phases(dev, card)
+    walled_profile = profile_in_child(card)
+    if walled_profile:
+        kernels[0]["in_render_ms"] = walled_profile["ms"]
 
     # ---- the fused kernels' bounds: their timed launches' lane-bounces
     # (the wavefront's lane-bounces per path of the same frame, phase 8)
@@ -1084,24 +1349,40 @@ def main() -> int:
     for rec in kernels:
         name, s = rec["name"], shape[rec["name"]]
         lanes, spl = paths[name]
-        per_bounce = s["n_sph"] * SPH_OPS + s["n_ft"] * (TRI_OPS - 2)
-        if name == "trace_tiles":
-            per_bounce += SHADE_SPH_OPS
-            out_floats = 9
-        else:
-            per_bounce += SHADE_MESH_OPS + (walk_ops if name == "mesh_trace"
-                                            else s["n_tris"] * TRI_OPS)
-            out_floats = 3
         lane_bounces = per_path[name] * lanes * spl
+        if name == "trace_tiles":
+            # the plain version's counts of this launch's work (phase 3)
+            work = trace["work"]
+            lane_bounces = work["lane_iterations"]
+            terms = {"sphere tests": lane_bounces * s["n_sph"] * SPH_INSTR,
+                     "near roots": work["near_roots"] * ROOT_INSTR,
+                     "free triangles": lane_bounces * s["n_ft"] * TRI_INSTR,
+                     **{f"shade {b}": n * SHADE_INSTR[b] for b, n in work["by_branch"].items()},
+                     "raygen": lanes * spl * RAYGEN_INSTR}
+            per_bounce = sum(terms.values()) / lane_bounces
+            old = lane_bounces * (s["n_sph"] * SPH_OPS + s["n_ft"] * (TRI_OPS - 2)
+                                  + SHADE_SPH_OPS) / FP32_PEAK * 1e3
+            out_floats = 9
+            note = (f" (the wavefront's {per_path[name]:.4f} per path would give "
+                    f"{per_path[name] * lanes * spl:.4g}); FP32 instructions by term: "
+                    + ", ".join(f"{k} {v:.4g} ({v / FP32_CEILING[name] * 1e3:.4f} ms)"
+                                for k, v in terms.items())
+                    + f"; the earlier count, every operation apart at 67 TFLOP/s: {old:.4f} ms")
+        else:
+            per_bounce = s["n_sph"] * SPH_OPS + s["n_ft"] * (TRI_OPS - 2) + SHADE_MESH_OPS + (
+                walk_ops if name == "mesh_trace" else s["n_tris"] * TRI_OPS)
+            out_floats = 3
+            note = f" ({per_path[name]:.4f} per path x {lanes * spl} paths)"
         nbytes = s["table_bytes"] + lanes * (3 * 4 + out_floats * 4)
         ops = lane_bounces * per_bounce
         rec["bound_ms"], rec["bound_by"] = bound(ops, nbytes, name)
-        print(f"[bound] {name}: {lane_bounces:.4g} lane-bounces ({per_path[name]:.4f} per path x "
-              f"{lanes * spl} paths) x {per_bounce:.1f} FP32 ops at "
-              f"{FP32_CEILING[name] / 1e12:g} T/s (at 67 TFLOP/s: {ops / FP32_PEAK * 1e3:.4f} ms), "
-              f"{nbytes:.4g} bytes: bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}; kernel "
-              f"{rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.2%} of the bound reached)"
-              + (f", yardstick {rec['yardstick_ms']:.4f} ms" if "yardstick_ms" in rec else "")
+        print(f"[bound] {name}: {lane_bounces:.4g} lane-bounces{note}; x {per_bounce:.1f} FP32 "
+              f"instructions at {FP32_CEILING[name] / 1e12:g} T/s ({ops / FP32_CEILING[name] * 1e3:.4f}"
+              f" ms), {nbytes:.4g} bytes ({nbytes / HBM_RATE * 1e3:.4f} ms at 3.35 TB/s): bound "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}; kernel {rec['ms']:.4f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.2%} of the bound reached)"
+              + (f", yardstick {rec['yardstick_ms']:.4f} ms "
+                 f"({rec['bound_ms'] / rec['yardstick_ms']:.2%})" if "yardstick_ms" in rec else "")
               + f" [{card}]", flush=True)
     kernels.append(hit_record)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)

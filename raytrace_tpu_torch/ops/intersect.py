@@ -36,12 +36,19 @@ _MAT = dict(rgb_r=("rr", 0.0), rgb_g=("gg", 0.0), rgb_b=("bb", 0.0),
             n_out=("n_out", 1.0), n_in=("n_in", 1.0))
 
 
-def sphere_t(ox, oy, oz, dx, dy, dz, row):
-    """Near-root distance to the sphere `row` (a table row), INF on miss."""
+def sphere_disc(ox, oy, oz, dx, dy, dz, row):
+    """(dirv, disc) of the rays against the sphere `row` (a table row):
+    a ray's line meets the sphere where disc > 0, its near root at
+    -dirv - sqrt(disc)."""
     ocx, ocy, ocz = ox - row[0], oy - row[1], oz - row[2]
     dirv = dx * ocx + dy * ocy + dz * ocz
     consts = ocx * ocx + ocy * ocy + ocz * ocz - row[3] * row[3]
-    disc = dirv * dirv - consts
+    return dirv, dirv * dirv - consts
+
+
+def sphere_t(ox, oy, oz, dx, dy, dz, row):
+    """Near-root distance to the sphere `row` (a table row), INF on miss."""
+    dirv, disc = sphere_disc(ox, oy, oz, dx, dy, dz, row)
     pos = disc > 0.0
     sq = torch.sqrt(torch.where(pos, disc, torch.ones_like(disc)))
     near = -dirv - sq

@@ -171,9 +171,17 @@ def pack_brute_table(cl_idx, cl_v0, cl_e1, cl_e2):
 
 
 def supports(scene, params) -> bool:
-    """The JAX package's fused_mesh.supports (:169-181): gpu semantics,
-    a mesh with clusters, <= 64 spheres and free triangles; and no cube
-    map, which the port does not have yet."""
+    """The scenes the mesh path kernel takes: gpu semantics, a mesh with
+    clusters, <= 64 spheres and free triangles, and no cube map, which
+    the port does not have yet. The JAX package's fused_mesh.supports
+    (:169-181) also refuses `dir_light_samp`; this gate does not, so a
+    gpu-semantics mesh scene with direct-light sampling renders here
+    through `mesh_trace`, where the JAX Renderer takes its wavefront.
+    Both render the same image: direct-light sampling runs in cpu
+    semantics only (integrator.uses_dls; the JAX integrator.py:920), and
+    the mesh kernel is the faster driver
+    (tests/test_torch_mesh_renderer.py holds the two under the tile
+    gate)."""
     return (
         params.mode == "gpu"
         and not params.debug_single_ray

@@ -8,7 +8,10 @@ regeneration of `samples_per_lane` consecutive sample ids. It returns
 the lane's radiance sum and its last miss record (direction, weight).
 
 - On a CUDA tensor, `trace_tiles` launches the hand-written kernel
-  `csrc/trace_kernel.cu` (built by kernels/build.py) or raises.
+  `csrc/trace_kernel.cu` (built by kernels/build.py) or raises: its
+  entry `trace_tiles`. `_trace_tiles_per_thread` launches the kernel's
+  first design, the yardstick `chip_smoke.py` times it against; no
+  render launches it.
 - On a CPU tensor, it runs `trace_tiles_reference`, the plain torch
   version of the same function, which the CPU tests hold against the
   JAX kernel and `chip_smoke.py` holds the CUDA kernel against.
@@ -28,12 +31,12 @@ from torch import nn
 
 from . import raygen, rng
 from .bsdf import uniform_bsdf
-from .intersect import EPS, closest_sph_ft
+from .intersect import EPS, closest_sph_ft, sphere_disc
 
 MAX_PRIMS = 64  # per kind; the kernel keeps both tables in shared memory
 SPH_COLS, FT_COLS, CAM_LEN, N_OUT = 15, 23, 18, 9
 
-# launches of the CUDA kernel in this process (read by chip_smoke.py)
+# launches of the CUDA kernel's `trace_tiles` entry in this process (read by chip_smoke.py)
 LAUNCHES = 0
 
 
@@ -145,14 +148,28 @@ class SceneTables(nn.Module):
 # --- the plain torch version ----------------------------------------------
 
 
+BRANCHES = ("miss", "diffuse", "mirror", "dielectric", "roulette")  # codes 0-4 of `return_iters`
+
+
 def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
                           n_sph: int, n_ft: int, has_lens: bool, assured: int,
-                          max_bounces: int, samples_per_lane: int = 1):
+                          max_bounces: int, samples_per_lane: int = 1,
+                          return_iters: bool = False):
     """Plain torch mirror of the JAX `_kernel` (:408-662) on flat lanes:
     masked `torch.where` updates and a Python loop bounded by
     max_bounces * samples_per_lane that stops once no lane is active.
     Returns 9 f32 tensors shaped like xs: L rgb, miss_dir xyz, miss_w rgb
-    (the miss records are last-write-wins: meaningful at spl == 1)."""
+    (the miss records are last-write-wins: meaningful at spl == 1).
+
+    return_iters (measurement, like `mesh_kernel.walk_work`): also return
+    (iters, branch, roots): iters, int32 shaped like xs, the loop
+    iterations each lane was active in (one bounce of one of its samples
+    each); branch, int8 (iterations, N), the way each active lane took in
+    each iteration (BRANCHES: a miss, the diffuse, mirror or dielectric
+    lobe, or the Russian roulette's end), -1 where the lane was inactive;
+    roots, int32 shaped like xs, the sphere tests of each lane whose near
+    root the CUDA kernel takes (the ray's line meets the sphere, disc > 0,
+    ahead of the origin's projection, dirv < 0)."""
     shape = xs.shape
     xs, ys, samp = xs.reshape(-1), ys.reshape(-1), samp.reshape(-1)
     spl = samples_per_lane
@@ -175,10 +192,17 @@ def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
     depth = torch.zeros_like(zero)
     sk = torch.zeros_like(samp0)
     where = torch.where
+    iters, branches, roots = torch.zeros_like(xs), [], torch.zeros_like(xs)
+    sph_rows = sph_table[:n_sph].tolist() if return_iters else []
 
     for _ in range(max_bounces * spl):
         if not bool(active.any()):
             break
+        if return_iters:
+            iters += active.to(iters.dtype)
+            for row in sph_rows:
+                dirv, disc = sphere_disc(*o, *d, row)
+                roots += (active & (disc > 0.0) & (dirv < 0.0)).to(roots.dtype)
         h = closest_sph_ft(sph_table, ft_table, *o, *d, n_sph=n_sph, n_ft=n_ft)
         hit = h["kind"] > 0.5
         state, (u0, u1, u2, u3, u7) = rng.next_f32_n(state, 5)
@@ -212,6 +236,11 @@ def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
         ci = [where(term, ci[k] * inv_thres, ci[k]) for k in range(3)]
 
         survive = hm & ~rr_kill
+        if return_iters:
+            lobe = where(h["mkind"] == 3.0, 3, where(
+                (h["mkind"] == 1.0) | ((h["mkind"] == 2.0) & (u0 < h["diffp"])), 1, 2))
+            code = where(hm, where(term, 4, lobe), 0)
+            branches.append(where(active, code, -1).to(torch.int8))
         inten = where(survive, inten * weight, inten)
         o = [where(survive, pos[k], o[k]) for k in range(3)]
         d = [where(survive, nd[k], d[k]) for k in range(3)]
@@ -232,13 +261,17 @@ def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
         else:
             active = survive
 
-    return tuple(v.reshape(shape) for v in (*L, *md, *mw))
+    out = tuple(v.reshape(shape) for v in (*L, *md, *mw))
+    if not return_iters:
+        return out
+    branch = torch.stack(branches) if branches else torch.empty((0, xs.numel()), dtype=torch.int8)
+    return out, (iters.reshape(shape), branch, roots.reshape(shape))
 
 
 # --- the dispatcher --------------------------------------------------------
 
 def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens,
-            assured, max_bounces, samples_per_lane):
+            assured, max_bounces, samples_per_lane, entry="trace_tiles"):
     global LAUNCHES
     from ..kernels import build
 
@@ -259,7 +292,7 @@ def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens
         raise ValueError("samples_per_lane and max_bounces must be >= 1")
 
     lib = build.build("trace_kernel").lib
-    fn = lib.trace_tiles_launch
+    fn = getattr(lib, f"{entry}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + \
         [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
@@ -275,8 +308,9 @@ def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens
                 n_sph, n_ft, int(has_lens), assured, max_bounces,
                 samples_per_lane, out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"trace_tiles kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    if entry == "trace_tiles":
+        LAUNCHES += 1
     return tuple(out[k].view(xs.shape) for k in range(N_OUT))
 
 
@@ -300,3 +334,18 @@ def trace_tiles(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph: int, n_ft:
     if xs.device.type == "cpu":
         return trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, **kw)
     raise ValueError(f"trace_tiles runs on cpu or cuda tensors, not {xs.device}")
+
+
+def _trace_tiles_per_thread(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph: int,
+                            n_ft: int, has_lens: bool, assured: int, max_bounces: int,
+                            samples_per_lane: int = 1):
+    """`trace_tiles` by the entry `trace_tiles_per_thread` of
+    csrc/trace_kernel.cu (a thread per lane, the first design): the
+    yardstick chip_smoke.py times the kernel against. CUDA tensors only."""
+    if xs.device.type != "cuda":
+        raise ValueError(f"the per-thread trace_tiles runs on cuda tensors, not {xs.device}")
+    if n_sph > MAX_PRIMS or n_ft > MAX_PRIMS:
+        raise NotImplementedError(f"trace_tiles takes <= {MAX_PRIMS} spheres and free triangles")
+    return _launch(xs, ys, samp, sph_table, ft_table, cam_vec, n_sph=n_sph, n_ft=n_ft,
+                   has_lens=has_lens, assured=assured, max_bounces=max_bounces,
+                   samples_per_lane=samples_per_lane, entry="trace_tiles_per_thread")

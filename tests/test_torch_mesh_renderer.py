@@ -19,6 +19,7 @@ from raytrace_tpu.models.scene import build_scene as jax_build_scene
 from raytrace_tpu.render.integrator import IntegratorParams
 from raytrace_tpu.render.renderer import camera_to_arrays, sample_batch
 from raytrace_tpu_torch.models import config as cfg
+from raytrace_tpu_torch.models.gltf import LoadedMesh, Primitive
 from raytrace_tpu_torch.ops import mesh_kernel as mk
 from raytrace_tpu_torch.render.renderer import Renderer
 from raytrace_tpu_torch.utils import checkpoint as ckpt
@@ -128,6 +129,56 @@ def test_mesh_resume_bitwise_exact_cpu_semantics(gltf_path, tmp_path):
     resumed.render(samples=2)
     assert resumed.target.count == full.target.count == 4
     np.testing.assert_array_equal(resumed.target.acc, full.target.acc)
+
+
+def _tiny_mesh_scheme(dir_light_samp):
+    """The 24-triangle ring of `__graft_entry__._tiny_mesh` (:172) in front
+    of an emissive sphere, in gpu semantics."""
+    n = 24
+    th = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    v0 = np.stack([np.cos(th), np.sin(th), -6.0 + 0.1 * np.sin(3 * th)], -1)
+    e1 = np.stack([-0.4 * np.sin(th), 0.4 * np.cos(th), np.zeros_like(th)], -1)
+    e2 = np.random.default_rng(3).normal(0, 0.2, (n, 3)) + np.array([0, 0, 0.3])
+    nn = np.cross(e1, e2)
+    nn /= np.maximum(np.linalg.norm(nn, axis=1, keepdims=True), 1e-9)
+    idx = np.stack([np.arange(n), np.arange(n) + n, np.arange(n) + 2 * n], 1).astype(np.int32)
+    mesh = LoadedMesh(primitives=[Primitive(
+        poses=np.concatenate([v0, v0 + e1, v0 + e2]).astype(np.float32),
+        norms=np.concatenate([nn] * 3).astype(np.float32), indices=idx,
+        rgb_factor=np.array([0.7, 0.5, 0.4], np.float32), metal_factor=0.3, rough_factor=0.5)],
+        trans_mat=np.eye(4, dtype=np.float32))
+    s = cfg.parse_scheme({
+        "render_info": {"width": 32, "height": 32, "samps_per_pix": 4, "use_gpu": True,
+                        "rad_info": {"dir_light_samp": dir_light_samp,
+                                     "russ_roull_info": {"assured_depth": 2, "max_thres": 0.5}}},
+        "cam": {"d": [0, 0, -4.0], "o": [0, 0, 0], "up": [0, 1, 0], "view_eulers": [0, 0, 0],
+                "screen_width": 6.0, "screen_height": 6.0},
+        "scene_members": [cfg.Tagged("Sphere", {
+            "c": [1.8, 1.8, -6.0], "r": 1.5, "coloring": cfg.Tagged("Solid", [0, 0, 0]),
+            "mat": {"divert_ray": "Diff", "emissive": [4, 4, 4]}})],
+    })
+    s.scene_members.append(cfg.ModelMember(path="<tiny>", loaded=[mesh]))
+    return s
+
+
+def test_gpu_mesh_scene_with_dls_takes_the_mesh_kernel():
+    """A gpu-semantics mesh scheme with dir_light_samp takes the mesh path
+    kernel (`mk.supports` has no DLS clause, unlike the JAX
+    fused_mesh.supports, which sends it to the wavefront): direct-light
+    sampling runs in cpu semantics only, so the image is the one without
+    DLS, bit for bit, and agrees with the wavefront's under the tile gate
+    (scripts/hw_parity.py)."""
+    fused = Renderer(_tiny_mesh_scheme(True), device="cpu")
+    assert fused.driver == "mesh_fused" and fused.params.dir_light_samp
+    img = fused.render(samples=SPP)
+    wave = Renderer(_tiny_mesh_scheme(True), device="cpu", use_mesh_fused=False)
+    assert wave.driver == "wavefront"
+    ref = wave.render(samples=SPP)
+    tile_gate(img, ref)
+    no_dls = Renderer(_tiny_mesh_scheme(False), device="cpu")
+    assert no_dls.driver == "mesh_fused"
+    np.testing.assert_array_equal(no_dls.render(samples=SPP), img)
+    assert img.mean() > 0.01
 
 
 def _model_yaml(tmp_path, gltf):

@@ -19,7 +19,7 @@ from raytrace_tpu_torch.models.camera import build_camera
 from raytrace_tpu_torch.models.scene import build_scene
 from raytrace_tpu_torch.ops import trace_kernel as tk
 from raytrace_tpu_torch.ops.bsdf import uniform_bsdf
-from raytrace_tpu_torch.ops.intersect import INF, closest_sph_ft
+from raytrace_tpu_torch.ops.intersect import INF, closest_sph_ft, sphere_disc
 from test_torch_scene import schemes
 
 SIZES = {"walled": (32, 32), "mixed": (64, 32)}
@@ -157,3 +157,73 @@ def test_trace_tiles_rejects_what_it_cannot_run():
     meta = xs.to("meta")
     with pytest.raises(ValueError):
         tk.trace_tiles(meta, meta, meta, t.sph, t.ft, t.cam_vec, n_sph=13, **kw)
+    # the per-thread yardstick runs on the card only
+    with pytest.raises(ValueError):
+        tk._trace_tiles_per_thread(xs, xs, xs, t.sph, t.ft, t.cam_vec, n_sph=13, **kw)
+
+
+@pytest.mark.parametrize("name", ["walled", "mixed"])
+def test_sphere_geometry_rows_are_the_table_columns(name):
+    """The CUDA kernel stages each sphere's 16-byte row (cx, cy, cz, r^2)
+    from columns 0-3 of SceneTables.sph: those are the JAX packer's
+    centres and radii, and r^2 as one f32 multiply (its __fmul_rn) gives
+    the plain version's sphere test (r * r of the row's float radius)
+    bit for bit."""
+    (jsph, _), scene = _tables(name)
+    _, ps = schemes(name, *SIZES[name], ASSURED)
+    t = tk.SceneTables(scene, build_camera(ps.cam, *SIZES[name]), 0.5)
+    n = scene.n_spheres
+    sph = t.sph.numpy()
+    np.testing.assert_array_equal(sph[:n, :4], np.asarray(jsph)[:n, :4])
+    r = sph[:n, 3]
+    r2 = r * r  # f32 products, as staged
+    np.testing.assert_array_equal(r2, (r.astype(np.float64) ** 2).astype(np.float32))
+    assert (r2 > 0).all()
+    o, d = _rays(4096, seed=5)
+    ray = [torch.from_numpy(np.ascontiguousarray(a[:, k])) for a in (o, d) for k in range(3)]
+    for row, rr in zip(t.sph[:n].tolist(), r2):
+        dirv, disc = sphere_disc(*ray, row)
+        oc = [ray[k] - row[k] for k in range(3)]
+        staged = dirv * dirv - (oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2]
+                                - torch.tensor(rr))
+        assert torch.equal(disc.view(torch.int32), staged.view(torch.int32))
+
+
+def _run_iters(tables, xs, ys, base, spl):
+    return tk.trace_tiles_reference(
+        xs, ys, torch.full_like(xs, base), tables.sph, tables.ft, tables.cam_vec,
+        n_sph=tables.n_sph, n_ft=tables.n_ft, has_lens=False, assured=ASSURED,
+        max_bounces=MAX_BOUNCES, samples_per_lane=spl, return_iters=True)
+
+
+@pytest.mark.parametrize("name", ["walled", "mixed"])
+def test_iteration_counts_add_over_samples(name):
+    """return_iters: a lane's loop iterations and near roots at 4 samples
+    per lane are the sums of its counts at one sample per lane over the
+    same four sample ids; the branch record has one entry per active
+    lane-iteration, and the outputs are the plain call's."""
+    w, h = SIZES[name]
+    _, scene = _tables(name)
+    _, ps = schemes(name, w, h, ASSURED)
+    t = tk.SceneTables(scene, build_camera(ps.cam, w, h), 0.5)
+    flat = torch.arange(w * h, dtype=torch.int32)
+    xs, ys = flat % w, flat // w
+    out, (iters, branch, roots) = _run_iters(t, xs, ys, 9, 4)
+    assert iters.shape == roots.shape == xs.shape
+    assert iters.dtype == roots.dtype == torch.int32
+    assert branch.dtype == torch.int8 and branch.shape == (int(iters.max()), xs.numel())
+    counts = [_run_iters(t, xs, ys, 9 + k, 1)[1] for k in range(4)]
+    single = [c[0] for c in counts]
+    assert torch.equal(iters, sum(single))
+    assert torch.equal(roots, sum(c[2] for c in counts))
+    assert 0 < int(roots.sum()) and bool((roots <= iters * t.n_sph).all())
+    assert torch.equal((branch >= 0).sum(0).to(torch.int32), iters)
+    assert int(branch.max()) < len(tk.BRANCHES) and int(branch.min()) >= -1
+    assert 1 <= int(single[0].min()) and int(single[0].max()) <= MAX_BOUNCES
+    plain = tk.trace_tiles_reference(
+        xs, ys, torch.full_like(xs, 9), t.sph, t.ft, t.cam_vec, n_sph=t.n_sph, n_ft=t.n_ft,
+        has_lens=False, assured=ASSURED, max_bounces=MAX_BOUNCES, samples_per_lane=4)
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+    share = [(branch == c).sum() for c in range(len(tk.BRANCHES))]
+    assert share[0] > 0 and share[1] > 0 and share[3] > 0  # misses, diffuse, dielectric
