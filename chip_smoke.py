@@ -93,13 +93,41 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    bitwise exact resume on the card in cpu semantics; and torch.profiler
    tables of one warm cpu-semantics render(16) with mesh_hit and with
    the per-thread yardstick in its place: mesh_hit's device ms per
-   launch inside the render and its share of device time.
+   launch inside the render and its share of device time;
+9. the cube map: six 2048x2048 u8 faces (models/procedural.sky_cubemap,
+   biplane's size) written to a temporary directory. Outdoor spheres
+   under the sky at 1200x600 (procedural.outdoor_scheme): `trace_tiles`
+   with the sky (its sky instantiation, counted as trace_tiles_sky)
+   against its plain version on the whole frame at samples per lane 1
+   (all 9 outputs) and 4 under the lane gate, the share of paths that end in the sky, the plain version's
+   counts of the 64-spl launch, that launch timed in turns against the
+   same launch without the sky and against the JAX driver's route done
+   in the port (64 launches of one sample a lane and `cubemap.sample` on
+   their miss records), Renderer(...).render(64) with paths/s and (in a
+   child process of its own, as phase 4's) a torch.profiler table, the
+   image against the wavefront at 16 spp, a small frame against the CPU
+   and a bitwise resume. The a380-class surface under the sky: `mesh_trace`
+   with the sky bitwise against `mesh_trace_reference` on the whole
+   1216x608 frame at 1, 4 and 16 samples per lane, `mesh_trace_brute`
+   with the sky bitwise on the 2,097-triangle cut at 16, each timed
+   against its launch without the sky in turns; render(16) with paths/s
+   and a torch.profiler table, against the wavefront and a bitwise resume; then in cpu semantics
+   through the wavefront: render(16) with mesh_hit launches, a 96x48
+   frame on the card against the CPU and a bitwise resume. A sky scene
+   on the card must launch the sky instantiations (their launch counts).
+   Every resume loads its checkpoint into a new Renderer. Prints the
+   phase's seconds.
 
 Each kernel's record has its bound (bound_ms, bound_by): the larger of
 its bytes over 3.35 TB/s and its FP32 work, counted from the sources,
 over 33.5 T FP32 instructions/s (see FP32_CEILING); trace_tiles' work is
 counted in instructions under contraction on the plain version's counts
-of the launch's lane-bounces by branch and of its near roots.
+of the launch's lane-bounces by branch and of its near roots. The
+trace_tiles and mesh_trace records also carry their sky
+instantiations' sky_ms, sky_bound_ms / sky_bound_by (the same count on
+the plain version's counts of the sky launch, plus SKY_INSTR a fetch and
+the distinct 32-byte sectors of the sky pool its fetches read) and
+sky_launches_per_render.
 
 Any failure raises (exit code != 0). The line before the last is the
 kernels' JSON record; the last line is the device JSON object. Without a
@@ -123,6 +151,16 @@ RENDER_REPS = 5  # warm walled renders a turn when the render is timed against t
 SMS = 132  # the H100 SXM's streaming multiprocessors
 
 
+def reset_launches():
+    """Every CUDA entry's launch count to 0."""
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.ops import trace_kernel as tk
+
+    for counts in (tk.LAUNCHES, mk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
 def lane_gate(ours, ref):
     """Fraction of lanes off by more than 1e-3 relative, and max |a - b|."""
     import torch
@@ -142,6 +180,95 @@ def tile_gate(img, ref, t=8):
     mean_d = float(np.abs(img.mean(axis=(0, 1)) - ref.mean(axis=(0, 1))).max())
     bad = float((np.abs(tiles(img) - tiles(ref)).max(axis=-1) > 0.06).mean())
     return mean_d, bad
+
+
+def gate(tag, label, img, ref):
+    """The tile gate between two images, printed under [tag]; raises."""
+    mean_d, bad_tiles = tile_gate(img, ref)
+    print(f"[{tag}] {label}: channel-mean |d| {mean_d:.3e}, bad 8x8 tiles {bad_tiles:.4f}",
+          flush=True)
+    assert mean_d < 2e-3 and bad_tiles < 0.02, f"{label}: the images disagree"
+
+
+def card_vs_cpu(tag, label, scheme, width, height, spp):
+    """The scheme at width x height, render(spp) on the card and on the
+    CPU, under the tile gate."""
+    from raytrace_tpu_torch.render.renderer import Renderer
+
+    small = variant(scheme, width, height)
+    t0 = time.perf_counter()
+    cpu_img = Renderer(small, device="cpu").render(samples=spp)
+    cpu_s = time.perf_counter() - t0
+    gpu_img = Renderer(small, device="cuda").render(samples=spp)
+    gate(tag, f"{label} {width}x{height}x{spp} card vs cpu ({cpu_s:.1f} s on the cpu)", gpu_img,
+         cpu_img)
+
+
+def resume_bitwise(tag, r, label, k=4):
+    """Each time into a fresh target: render(2k, batch=k) on r against
+    render(k) on r, a checkpoint saved, loaded into a new Renderer built
+    as r was (scheme, mode, driver, route), render(k) there; bitwise or
+    raise."""
+    import numpy as np
+
+    from raytrace_tpu_torch.render.renderer import Renderer
+    from raytrace_tpu_torch.render.target import RenderTarget
+    from raytrace_tpu_torch.utils import checkpoint as ckpt
+
+    r.target = RenderTarget(r.width, r.height)
+    r.render(samples=2 * k, batch=k)
+    full = r.target.acc.copy()
+    r.target = RenderTarget(r.width, r.height)
+    r.render(samples=k)
+    resumed = Renderer(r.scheme, device="cuda", samples_per_launch=r.samples_per_launch,
+                       mode=r.mode, use_fused=r.driver == "fused",
+                       use_mesh_fused=r.driver == "mesh_fused",
+                       use_wavefront=r.driver == "wavefront")
+    if r.driver == "mesh_fused":
+        resumed.tables.route = r.tables.route
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        ckpt.save(path, r.target)
+        resumed.target = ckpt.load(path)
+    resumed.render(samples=k)
+    assert resumed.driver == r.driver and resumed.target.count == 2 * k and np.array_equal(
+        resumed.target.acc, full), f"{label}: resume is not bitwise exact"
+    print(f"[{tag}] resume at {k} spp: bitwise exact ({2 * k} spp, {label})", flush=True)
+
+
+def warm_render(tag, label, scheme, spp, card, route=None, **kw):
+    """One warm render (a 1-spp render first, then a fresh target) with the
+    launch counts reset just before and read just after; `route` sets the
+    mesh tables' route whatever the gate says. Returns (renderer, image,
+    every entry's launches, seconds)."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.ops import trace_kernel as tk
+    from raytrace_tpu_torch.render.renderer import Renderer
+    from raytrace_tpu_torch.render.target import RenderTarget
+
+    r = Renderer(scheme, device="cuda", **kw)
+    if route is not None:
+        r.tables.route = route
+    r.render(samples=1)  # loads the torch kernels it uses, grows the allocator
+    r.target = RenderTarget(r.width, r.height)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(samples=spp)  # ends in a device -> host copy
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(mk.LAUNCHES, **tk.LAUNCHES)
+    w, h = r.width, r.height
+    print(f"[{tag}] Renderer({label} {w}x{h}, cuda{''.join(f', {k}={v}' for k, v in kw.items())})"
+          f".render({spp}): {dt:.4f} s, {w * h * spp / dt:.1f} paths/s, {r.mode} semantics, "
+          f"driver {r.driver}, stats {r.stats}, launches {({k: v for k, v in counts.items() if v})}"
+          f" [{card}]", flush=True)
+    assert img.shape == (h, w, 3) and np.isfinite(img).all(), f"{label}: bad image"
+    print(f"[{tag}] {label} image mean per channel {img.mean(axis=(0, 1)).tolist()}", flush=True)
+    return r, img, counts, dt
 
 
 def mixed_scheme(width, height):
@@ -264,7 +391,6 @@ def mesh_phases(dev, card, variants):
     from raytrace_tpu_torch.models.scene import build_scene
     from raytrace_tpu_torch.ops import mesh_kernel as mk
     from raytrace_tpu_torch.render.renderer import Renderer
-    from raytrace_tpu_torch.utils import checkpoint as ckpt
 
     t0 = time.perf_counter()
     a380 = procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP)
@@ -438,8 +564,7 @@ def mesh_phases(dev, card, variants):
         torch.cuda.synchronize()
         print(f"[mesh] Renderer({label}, cuda) constructed in {time.perf_counter() - t0:.3f} s "
               f"(host set-up)", flush=True)
-        for k in mk.LAUNCHES:
-            mk.LAUNCHES[k] = 0
+        reset_launches()
         t0 = time.perf_counter()
         img = renderer.render(samples=MESH_SPP)  # ends in a device -> host copy
         torch.cuda.synchronize()
@@ -455,32 +580,9 @@ def mesh_phases(dev, card, variants):
         if name == "mesh_trace":  # the warm render, profiled
             profiled = profile(renderer, card, "mesh_trace_kernel",
                                f"a380-class gpu semantics {MESH_W}x{MESH_H}")
+            resume_bitwise("mesh", renderer, f"a380-class {MESH_W}x{MESH_H}")
 
-    small = variant(a380, 96, 48)
-    t0 = time.perf_counter()
-    cpu_img = Renderer(small, device="cpu").render(samples=MESH_SPP)
-    cpu_s = time.perf_counter() - t0
-    gpu_img = Renderer(small, device="cuda").render(samples=MESH_SPP)
-    mean_d, bad_tiles = tile_gate(gpu_img, cpu_img)
-    print(f"[mesh] a380-class 96x48x{MESH_SPP} card vs cpu ({cpu_s:.1f} s on the cpu): "
-          f"channel-mean |d| {mean_d:.3e}, bad 8x8 tiles {bad_tiles:.4f}", flush=True)
-    assert mean_d < 2e-3 and bad_tiles < 0.02, "card render disagrees with the CPU render"
-
-    k = 4
-    full = Renderer(a380, device="cuda")
-    full.render(samples=2 * k, batch=k)
-    first = Renderer(a380, device="cuda")
-    first.render(samples=k)
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
-        path = os.path.join(tmp, "ck.npz")
-        ckpt.save(path, first.target)
-        resumed = Renderer(a380, device="cuda")
-        resumed.target = ckpt.load(path)
-    resumed.render(samples=k)
-    assert resumed.target.count == full.target.count == 2 * k
-    assert np.array_equal(resumed.target.acc, full.target.acc), "resume is not bitwise exact"
-    print(f"[mesh] resume at {k} spp: bitwise exact ({2 * k} spp, a380-class "
-          f"{MESH_W}x{MESH_H})", flush=True)
+    card_vs_cpu("mesh", "a380-class", a380, 96, 48, MESH_SPP)
 
     records = [{"name": name, "route": "cuda", "source": "raytrace_tpu_torch/csrc/mesh_kernel.cu",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
@@ -557,6 +659,17 @@ SHADE_INSTR = {"miss": 3, "diffuse": 18 + 7 + 41, "mirror": 18 + 7 + 7,
                "dielectric": 18 + 7 + 10, "roulette": 18 + 2 + 6}
 
 
+def tiles_terms(work, n_sph, n_ft, paths):
+    """trace_tiles' FP32 instructions by term on a launch's plain-version
+    counts (iter_stats' work) of `paths` paths."""
+    lane_bounces = work["lane_iterations"]
+    return {"sphere tests": lane_bounces * n_sph * SPH_INSTR,
+            "near roots": work["near_roots"] * ROOT_INSTR,
+            "free triangles": lane_bounces * n_ft * TRI_INSTR,
+            **{f"shade {b}": n * SHADE_INSTR[b] for b, n in work["by_branch"].items()},
+            "raygen": paths * RAYGEN_INSTR}
+
+
 def bound(ops, nbytes, name):
     """(bound_ms, bound_by) of a launch of kernel `name` doing `ops` FP32
     operations and moving `nbytes` bytes."""
@@ -566,6 +679,12 @@ def bound(ops, nbytes, name):
 
 def tensor_bytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def table_bytes(tables):
+    """The bytes of a kernel's tables but the sky pool, of which the
+    launch's fetches read their distinct sectors (sky_sectors)."""
+    return tensor_bytes(b for n, b in tables.named_buffers() if n != "sky.pool")
 
 
 HIT_TABLES = ("sgbounds", "sbounds", "bounds", "count", "tri", "gid")
@@ -765,18 +884,11 @@ def integrator_phases(dev, card):
     counts the fused kernels' bounds are reckoned from: lane-bounces per
     path of the walled, a380-class and 2,097-triangle frames in gpu
     semantics, and mesh_hit's least walk per ray."""
-    import numpy as np
-    import torch
-
     from raytrace_tpu_torch.models import procedural
     from raytrace_tpu_torch.models.config import ModelMember
     from raytrace_tpu_torch.models.walled import walled_scheme
     from raytrace_tpu_torch.ops import mesh_kernel as mk
-    from raytrace_tpu_torch.ops import trace_kernel as tk
     from raytrace_tpu_torch.render import integrator as itg
-    from raytrace_tpu_torch.render.renderer import Renderer
-    from raytrace_tpu_torch.render.target import RenderTarget
-    from raytrace_tpu_torch.utils import checkpoint as ckpt
 
     a380 = procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP)
     a380_cpu = variant(a380, use_gpu=False)
@@ -785,41 +897,8 @@ def integrator_phases(dev, card):
     hit = mesh_hit_phase(dev, card, a380_cpu)
 
     # ---- 8. the integrator paths at full width ----
-    def reset():
-        tk.LAUNCHES = 0
-        for k in mk.LAUNCHES:
-            mk.LAUNCHES[k] = 0
-
     def render(label, scheme, spp, route=None, **kw):
-        """One warm render (a 1-spp render first, then a fresh target)
-        with the counts reset just before and read just after; `route`
-        sets the mesh tables' route whatever the gate says."""
-        w, h = scheme.render_info.width, scheme.render_info.height
-        r = Renderer(scheme, device="cuda", **kw)
-        if route is not None:
-            r.tables.route = route
-        r.render(samples=1)  # loads the torch kernels it uses, grows the allocator
-        r.target = RenderTarget(w, h)
-        torch.cuda.synchronize()
-        reset()
-        t0 = time.perf_counter()
-        img = r.render(samples=spp)  # ends in a device -> host copy
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = dict(mk.LAUNCHES, trace_tiles=tk.LAUNCHES)
-        print(f"[paths] Renderer({label} {w}x{h}, cuda{''.join(f', {k}={v}' for k, v in kw.items())})"
-              f".render({spp}): {dt:.4f} s, {w * h * spp / dt:.1f} paths/s, {r.mode} semantics, "
-              f"driver {r.driver}, stats {r.stats}, launches {counts} [{card}]", flush=True)
-        assert img.shape == (h, w, 3) and np.isfinite(img).all(), f"{label}: bad image"
-        print(f"[paths] {label} image mean per channel {img.mean(axis=(0, 1)).tolist()}",
-              flush=True)
-        return r, img, counts
-
-    def gate(label, img, ref):
-        mean_d, bad_tiles = tile_gate(img, ref)
-        print(f"[paths] {label}: channel-mean |d| {mean_d:.3e}, bad 8x8 tiles {bad_tiles:.4f}",
-              flush=True)
-        assert mean_d < 2e-3 and bad_tiles < 0.02, f"{label}: the images disagree"
+        return warm_render("paths", label, scheme, spp, card, route, **kw)[:3]
 
     # the slice's main path: cpu semantics through the wavefront
     def only_mesh_hit(counts):
@@ -846,7 +925,7 @@ def integrator_phases(dev, card):
         route = MESH_KERNELS[name][0] if name in MESH_KERNELS else None
         _, fused_img, counts = render(label, scheme, spp, route=route)
         assert counts[name] > 0 and counts["mesh_hit"] == 0
-        gate(f"{label} {w}x{h}x{spp} wavefront vs {name}", wf_img, fused_img)
+        gate("paths", f"{label} {w}x{h}x{spp} wavefront vs {name}", wf_img, fused_img)
 
     against_fused("a380-class", a380, MESH_SPP, "mesh_trace", use_mesh_fused=False)
     surface = procedural.a380_cam_scheme(MESH_W, MESH_H, MESH_SPP)
@@ -857,29 +936,9 @@ def integrator_phases(dev, card):
     print(f"[bound] lane-bounces per path through the wavefront, gpu semantics: {per_path}",
           flush=True)
 
-    small = variant(a380_cpu, 96, 48)
-    t0 = time.perf_counter()
-    cpu_img = Renderer(small, device="cpu").render(samples=MESH_SPP)
-    cpu_s = time.perf_counter() - t0
-    gpu_img = Renderer(small, device="cuda").render(samples=MESH_SPP)
-    gate(f"a380-class cpu semantics 96x48x{MESH_SPP} card vs cpu ({cpu_s:.1f} s on the cpu)",
-         gpu_img, cpu_img)
-
-    k = 4
-    full = Renderer(a380_cpu, device="cuda")
-    full.render(samples=2 * k, batch=k)
-    first = Renderer(a380_cpu, device="cuda")
-    first.render(samples=k)
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
-        path = os.path.join(tmp, "ck.npz")
-        ckpt.save(path, first.target)
-        resumed = Renderer(a380_cpu, device="cuda")
-        resumed.target = ckpt.load(path)
-    resumed.render(samples=k)
-    assert resumed.target.count == full.target.count == 2 * k
-    assert np.array_equal(resumed.target.acc, full.target.acc), "resume is not bitwise exact"
-    print(f"[paths] resume at {k} spp: bitwise exact ({2 * k} spp, a380-class {MESH_W}x{MESH_H}, "
-          f"cpu semantics, wavefront)", flush=True)
+    card_vs_cpu("paths", "a380-class cpu semantics", a380_cpu, 96, 48, MESH_SPP)
+    full = r  # the main path's renderer
+    resume_bitwise("paths", full, f"a380-class {MESH_W}x{MESH_H}, cpu semantics, wavefront")
 
     # the main path's render profiled with the kernel, then with the
     # per-thread yardstick in its place (the integrator's mesh_hit wrapped)
@@ -1148,35 +1207,390 @@ def trace_phase(dev, card):
         print(f"[timing] {label} walled {W}x{H} spl={TIMING_SPL}: {ms:.3f} ms/launch "
               f"({W * H * TIMING_SPL / ms / 1e6:.3f} Gpaths/s) [{card}]", flush=True)
     ms = {k: sum(v) / len(v) for k, v in times.items()}
+    differ = int((torch.stack(run(tk.trace_tiles, tables, xs, ys, samp, 5, TIMING_SPL))
+                  != torch.stack(run(tk._trace_tiles_per_thread, tables, xs, ys, samp, 5,
+                                     TIMING_SPL))).any(0).sum())
+    print(f"[parity] walled {W}x{H} spl={TIMING_SPL}: {differ} of {xs.numel()} lanes differ "
+          f"between trace_tiles and its yardstick", flush=True)
     print(f"[timing] trace_tiles walled {W}x{H} spl={TIMING_SPL}: {ms['new']:.3f} ms/launch, "
           f"yardstick trace_tiles_per_thread {ms['old']:.3f} ms ({ms['old'] / ms['new']:.3f}x), "
           f"plain {ms['plain']:.3f} ms [{card}]", flush=True)
     return dict(max_abs_err=max_err, ms=ms["new"], yardstick_ms=ms["old"], plain_ms=ms["plain"],
                 work=work, tables=tables)
 
+# ---- 9. the cube map ----
+# The sky fetch of cubemap.cuh sky_rgb and its radiance add, in FP32
+# instructions (intrinsics: nothing fuses), counted as the bounds count, along
+# the shortest way: the normalize 11 (3 FMUL, 2 FADD, the clamp's compare, the
+# square root, 1 / n, 3 FMUL), the face 3 (|x| >= |y|, |x| >= |z|, the sign),
+# su and sv 8 (FMUL, FDIV, the 0.5 FMUL and FADD each), the width and height to
+# float 2, px and py 10 (FMUL, FMAX, FMIN, w - 1, its FMAX each), the texel's
+# three components 6 (to float, / 255), the add 6 (3 FMUL, 3 FADD): 46. A
+# missed path's weight record is in SHADE_INSTR["miss"].
+SKY_INSTR = 46
+SKY_SECTOR = 32  # bytes of a sector of the sky pool, what a fetch reads from memory
+SKY_WF_SPP = 16  # the sky renders against the wavefront, and the small frames
 
-PROFILE_CHILD = "--walled-profile"  # the argument of the child that profiles phase 4's render
+
+def sky_sectors(sky):
+    """A stand-in for the SkyTables `sky` in a plain version's run: it
+    samples as `sky` does and marks the SKY_SECTOR-byte sectors of the
+    pool each fetch reads (the misses of neighbouring lanes share them).
+    Returns (stand-in, counts): counts() is (fetches, the distinct
+    sectors' bytes), the bytes the run's fetches must move at least."""
+    import torch
+
+    from raytrace_tpu_torch.ops import cubemap, texture
+
+    pool, size = sky.pool, sky.pool.element_size()
+    seen = torch.zeros(-(-pool.numel() * size // SKY_SECTOR), dtype=torch.bool,
+                       device=pool.device)
+    fetches = torch.zeros((), dtype=torch.int64, device=pool.device)
+
+    class Counting(torch.nn.Module):
+        def sample(self, dx, dy, dz):
+            ok, base3 = cubemap.texel(sky.offsets, sky.dims, sky.uv_scales, dx, dy, dz)
+            b = base3[ok].long()
+            if sky.kind == texture.POOL_U32:  # a packed word a texel
+                first, last = b // 3 * 4, b // 3 * 4 + 3
+            else:  # three components
+                first, last = b * size, (b + 3) * size - 1
+            seen[first // SKY_SECTOR] = True
+            seen[last // SKY_SECTOR] = True
+            fetches.add_(b.numel())
+            return sky.sample(dx, dy, dz)
+
+    return Counting(), lambda: (int(fetches), int(seen.sum()) * SKY_SECTOR)
 
 
-def walled_profile_child(card) -> int:
-    """Phase 4's profiler table in a process of its own: one warm walled
-    1200x600 render(64); prints its result as the last line."""
+def sky_render(label, scheme, spp, card, entry=None, **kw):
+    """warm_render under [sky]; with `entry`, asserts that the render
+    launched that sky entry and not its no-sky twin. Returns (renderer,
+    image, launches)."""
+    r, img, counts, _ = warm_render("sky", label, scheme, spp, card, **kw)
+    if entry is not None:
+        assert counts[entry] > 0 and not counts[entry[:-len("_sky")]], \
+            f"{label}: the sky render did not launch {entry} alone"
+    return r, img, counts
+
+
+def sky_tiles(dev, card, outdoor):
+    """Phase 9, outdoor spheres + sky through trace_tiles_sky. Returns
+    {ms, no_sky_ms, route_ms, plain_ms, max_abs_err, work, launches,
+    table_bytes, n_sph, n_ft}."""
+    import torch
+
+    from raytrace_tpu_torch.models.camera import build_camera
+    from raytrace_tpu_torch.models.scene import build_scene
+    from raytrace_tpu_torch.ops import trace_kernel as tk
+
+    t0 = time.perf_counter()
+    scene = build_scene(outdoor)
+    tables = tk.SceneTables(scene, build_camera(outdoor.cam, W, H), 0.5).to(dev)
+    torch.cuda.synchronize()
+    print(f"[sky] outdoor: {scene.n_spheres} spheres, sky pool {scene.sky_pool.dtype} x "
+          f"{scene.sky_pool.size}, faces {scene.cm_dims.tolist()}, uv scales "
+          f"{scene.cm_uv_scales.tolist()}; build_scene + SceneTables {time.perf_counter() - t0:.3f} "
+          f"s (host)", flush=True)
+    flat = torch.arange(W * H, dtype=torch.int32, device=dev)
+    xs, ys = flat % W, flat // W
+    zero = torch.zeros_like(xs)
+
+    def run(fn, samp, spl, sky=tables.sky, **kw):
+        return fn(xs, ys, samp, tables.sph, tables.ft, tables.cam_vec, n_sph=tables.n_sph,
+                  n_ft=tables.n_ft, has_lens=tables.has_lens, assured=5, max_bounces=24,
+                  samples_per_lane=spl, sky=sky, **kw)
+
+    err = 0.0
+    for spl in (1, 4):
+        samp = torch.full_like(xs, 7)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = run(tk.trace_tiles_reference, samp, spl)
+        end.record()
+        end.synchronize()
+        ours = run(tk.trace_tiles, samp, spl)
+        torch.cuda.synchronize()
+        n_out = 9 if spl == 1 else 3
+        worst = 0.0
+        for k in range(n_out):
+            bad, e = lane_gate(ours[k], ref[k])
+            worst, err = max(worst, bad), max(err, e)
+            assert bad < 0.01, f"trace_tiles_sky outdoor spl={spl} output {k}: {bad:.4f} differ"
+        differ = int((torch.stack(ours[:n_out]) != torch.stack(ref[:n_out])).any(0).sum())
+        print(f"[sky] trace_tiles_sky outdoor {W}x{H} spl={spl}: worst bad-lane fraction "
+              f"{worst:.6f} over {n_out} outputs (limit 0.01), {differ} lanes differ, max|d| "
+              f"{err:.3e}; radiance mean {[round(float(o.mean()) / spl, 5) for o in ours[:3]]}; "
+              f"plain {start.elapsed_time(end):.1f} ms", flush=True)
+        if spl == 1:
+            ended = float(((ref[3] != 0) | (ref[4] != 0) | (ref[5] != 0)).float().mean())
+            print(f"[sky] outdoor spl=1: {ended:.4f} of the paths end in the sky", flush=True)
+
+    # the main launch: the plain version's counts, then it with the sky,
+    # without it, by the JAX route and plain, in turns
+    counting, sky_counts = sky_sectors(tables.sky)
+    _, (iters, branch, roots) = run(tk.trace_tiles_reference, zero, TIMING_SPL, sky=counting,
+                                    return_iters=True)
+    work = iter_stats(iters, branch, roots, card)
+    fetches, sky_bytes = sky_counts()
+    assert fetches == work["by_branch"]["miss"], "the sky's fetches and the misses disagree"
+    del branch
+
+    def route():
+        """The JAX driver's route in the port: launches of one sample a lane
+        without the sky, each resolved outside the kernel from its miss
+        records (raytrace_tpu/render/renderer.py:169-178)."""
+        acc = [torch.zeros(xs.shape, dtype=torch.float32, device=dev) for _ in range(3)]
+        for s in range(TIMING_SPL):
+            out = run(tk.trace_tiles, zero + s, 1, sky=None)
+            md, mw = out[3:6], out[6:9]
+            missed = (md[0] != 0) | (md[1] != 0) | (md[2] != 0)
+            c = tables.sky.sample(torch.where(missed, md[0], torch.ones_like(md[0])), md[1], md[2])
+            acc = [acc[k] + (out[k] + torch.where(missed, mw[k] * c[k], torch.zeros_like(c[k])))
+                   for k in range(3)]
+        return acc
+
+    kinds = {"sky": lambda: run(tk.trace_tiles, zero, TIMING_SPL),
+             "no-sky": lambda: run(tk.trace_tiles, zero, TIMING_SPL, sky=None),
+             "jax-route": route,
+             "plain": lambda: run(tk.trace_tiles_reference, zero, TIMING_SPL)}
+    launched, routed = kinds["sky"](), route()
+    for k in range(3):
+        bad, e = lane_gate(launched[k], routed[k])
+        print(f"[sky] trace_tiles_sky spl={TIMING_SPL} against the JAX route, channel {k}: "
+              f"bad-lane fraction {bad:.6f} max|d| {e:.3e}", flush=True)
+        assert bad < 0.01, "the sky launch disagrees with the JAX driver's route"
+    times = {}
+    for kind, reps in (("plain", 1), ("sky", 5), ("no-sky", 5), ("jax-route", 2), ("jax-route", 2),
+                       ("no-sky", 5), ("sky", 5), ("plain", 1)):
+        kinds[kind]()  # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            kinds[kind]()
+        end.record()
+        end.synchronize()
+        times.setdefault(kind, []).append(start.elapsed_time(end) / reps)
+        print(f"[timing] {kind} outdoor {W}x{H} spl={TIMING_SPL}: {times[kind][-1]:.3f} ms/launch "
+              f"[{card}]", flush=True)
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"[timing] trace_tiles_sky outdoor {W}x{H} spl={TIMING_SPL}: {ms['sky']:.3f} ms/launch "
+          f"({W * H * TIMING_SPL / ms['sky'] / 1e6:.3f} Gpaths/s); without the sky "
+          f"{ms['no-sky']:.3f} ms ({ms['sky'] / ms['no-sky']:.3f}x); the JAX route "
+          f"{ms['jax-route']:.3f} ms ({ms['jax-route'] / ms['sky']:.2f}x the sky launch); plain "
+          f"{ms['plain']:.1f} ms [{card}]", flush=True)
+
+    r, _, counts = sky_render("outdoor + sky", outdoor, MAIN_SPP, card, "trace_tiles_sky")
+    _, fused16, _ = sky_render("outdoor + sky", outdoor, SKY_WF_SPP, card, "trace_tiles_sky")
+    _, wf16, _ = sky_render("outdoor + sky", outdoor, SKY_WF_SPP, card, use_wavefront=True)
+    gate("sky", f"outdoor + sky {W}x{H}x{SKY_WF_SPP} trace_tiles_sky vs the wavefront", fused16,
+         wf16)
+    card_vs_cpu("sky", "outdoor + sky", outdoor, 128, 64, SKY_WF_SPP)
+    resume_bitwise("sky", r, f"outdoor + sky {W}x{H}")
+    return dict(ms=ms["sky"], no_sky_ms=ms["no-sky"], route_ms=ms["jax-route"],
+                plain_ms=ms["plain"], max_abs_err=err, work=work, misses=fetches,
+                sky_bytes=sky_bytes, pool_bytes=tensor_bytes([tables.sky.pool]),
+                launches=counts["trace_tiles_sky"], n_sph=tables.n_sph, n_ft=tables.n_ft,
+                table_bytes=table_bytes(tables))
+
+
+def sky_mesh(dev, card, a380, surface):
+    """Phase 9, the a380-class surface + sky through mesh_trace_sky (and the
+    2,097-triangle cut through mesh_trace_brute_sky), then through the
+    wavefront in cpu semantics. Returns {ms, no_sky_ms, plain_ms,
+    max_abs_err, lane_bounces, misses, sky_bytes, pool_bytes, launches,
+    table_bytes}."""
+    import torch
+
+    from raytrace_tpu_torch.models.camera import build_camera
+    from raytrace_tpu_torch.models.scene import build_scene
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+
+    fx, fy = (lambda f: (f % MESH_W, f // MESH_W))(
+        torch.arange(MESH_W * MESH_H, dtype=torch.int32, device=dev))
+    zero = torch.zeros_like(fx)
+    out = {}
+    for label, scheme, name in (("a380-class + sky", a380, "mesh_trace"),
+                                ("surface-2097 + sky", surface, "mesh_trace_brute")):
+        t0 = time.perf_counter()
+        scene = build_scene(scheme)
+        tables = mk.MeshTables(scene, build_camera(scheme.cam, MESH_W, MESH_H), 0.5).to(dev)
+        torch.cuda.synchronize()
+        route = MESH_KERNELS[name][0]
+        print(f"[sky] {label}: {scene.n_mesh_tris} triangles, route {route}, sky pool "
+              f"{scene.sky_pool.dtype} x {scene.sky_pool.size}; build_scene + MeshTables "
+              f"{time.perf_counter() - t0:.3f} s (host)", flush=True)
+        sky = tables.sky
+
+        def launch(spl, with_sky, samp=zero):
+            tables.sky = sky if with_sky else None
+            try:
+                return mk.mesh_trace(fx, fy, samp, tables, route=route, assured=5,
+                                     max_bounces=24, samples_per_lane=spl)
+            finally:
+                tables.sky = sky
+
+        err = 0.0
+        for spl in ((1, 4, MESH_SPP) if name == "mesh_trace" else (MESH_SPP,)):
+            samp = torch.full_like(fx, 7)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            tables.sky, sky_counts = sky_sectors(sky)
+            start.record()
+            ref, (iters, misses) = mk.mesh_trace_reference(
+                fx, fy, samp, tables, route=route, assured=5, max_bounces=24,
+                samples_per_lane=spl, return_counts=True)
+            end.record()
+            end.synchronize()
+            tables.sky = sky
+            plain_ms = start.elapsed_time(end)
+            ours = launch(spl, True, samp)
+            torch.cuda.synchronize()
+            differ = int((torch.stack(ours) != torch.stack(ref)).any(0).sum())
+            err = max(err, max(lane_gate(ours[k], ref[k])[1] for k in range(3)))
+            print(f"[sky] {name}_sky {label} {MESH_W}x{MESH_H} spl={spl}: {differ} lanes differ "
+                  f"from the plain version; {int(misses.sum())} of {int(iters.sum())} lane-bounces "
+                  f"end in the sky; radiance mean {[round(float(o.mean()) / spl, 6) for o in ours]}; "
+                  f"plain {plain_ms:.1f} ms", flush=True)
+            assert differ == 0, f"{name}_sky {label} spl={spl}: {differ} lanes differ"
+        t = {}  # the counted launch (samp, spl MESH_SPP), with and without the sky
+        for kind in ("sky", "no-sky", "no-sky", "sky"):
+            launch(MESH_SPP, kind == "sky", samp)  # warm-up
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(2):
+                launch(MESH_SPP, kind == "sky", samp)
+            end.record()
+            end.synchronize()
+            t.setdefault(kind, []).append(start.elapsed_time(end) / 2)
+        ms = {k: sum(v) / len(v) for k, v in t.items()}
+        print(f"[timing] {name}_sky {label} {MESH_W}x{MESH_H} spl={MESH_SPP}: {ms['sky']:.3f} "
+              f"ms/launch ({MESH_W * MESH_H * MESH_SPP / ms['sky'] / 1e3:.1f} Mpaths/s), without the "
+              f"sky {ms['no-sky']:.3f} ms ({ms['sky'] / ms['no-sky']:.3f}x; turns {t}) [{card}]",
+              flush=True)
+        fetches, sky_bytes = sky_counts()  # the counted launch's
+        assert fetches == int(misses.sum()), "the sky's fetches and the misses disagree"
+        out[name] = dict(ms=ms["sky"], no_sky_ms=ms["no-sky"], plain_ms=plain_ms,
+                         max_abs_err=err, lane_bounces=float(iters.sum()), misses=fetches,
+                         sky_bytes=sky_bytes, pool_bytes=tensor_bytes([sky.pool]),
+                         table_bytes=table_bytes(tables))
+        del tables
+
+    # the renders: gpu semantics through mesh_trace_sky and the wavefront
+    r, img, counts = sky_render("a380-class + sky", a380, MESH_SPP, card, "mesh_trace_sky")
+    out["mesh_trace"]["launches"] = counts["mesh_trace_sky"]
+    _, wf, _ = sky_render("a380-class + sky", a380, MESH_SPP, card, use_mesh_fused=False)
+    gate("sky", f"a380-class + sky {MESH_W}x{MESH_H}x{MESH_SPP} mesh_trace_sky vs the wavefront",
+         img, wf)
+    resume_bitwise("sky", r, f"a380-class + sky {MESH_W}x{MESH_H}")
+    # cpu semantics through the wavefront: mesh_hit and no fused kernel
+    cpu = variant(a380, use_gpu=False)
+    r, _, counts = sky_render("a380-class + sky", cpu, MESH_SPP, card)
+    assert r.driver == "wavefront" and {k for k, v in counts.items() if v} == {"mesh_hit"}, \
+        f"the cpu-semantics sky render launched {counts}"
+    card_vs_cpu("sky", "a380-class + sky cpu semantics", cpu, 96, 48, SKY_WF_SPP)
+    resume_bitwise("sky", r, f"a380-class + sky {MESH_W}x{MESH_H}, cpu semantics")
+    return out
+
+
+def sky_phase(dev, card):
+    """Phase 9: the cube map on every path (see the module docstring).
+    Returns {"trace_tiles": sky_tiles' result, "mesh_trace": ...,
+    "mesh_trace_brute": ...} (sky_mesh's)."""
+    from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.models.config import ModelMember
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_sky_") as face_dir:
+        t0 = time.perf_counter()
+        sky = procedural.sky_cubemap(face_dir)
+        print(f"[sky] six {procedural.SKY_SIZE}x{procedural.SKY_SIZE} u8 faces generated and "
+              f"written in {time.perf_counter() - t0:.3f} s (host)", flush=True)
+        result = {"trace_tiles": sky_tiles(dev, card, procedural.outdoor_scheme(sky, W, H, MAIN_SPP))}
+        a380 = procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP)
+        a380.scene_members.append(sky)
+        surface = procedural.a380_cam_scheme(MESH_W, MESH_H, MESH_SPP)
+        surface.scene_members += [ModelMember(path="<2,097-triangle surface>", loaded=[
+            procedural.make_mesh(2097, n_textures=0)]), sky]
+        result.update(sky_mesh(dev, card, a380, surface))
+    print(f"[sky] phase 9 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return result
+
+
+def sky_bounds(kernels, sky, shape, walk_ops, card):
+    """The sky entries' bounds into the trace_tiles and mesh_trace records
+    (with sky_ms, sky_plain_ms, sky_launches_per_render): each kernel's
+    count on its sky launch's own plain-version counts (sky_phase), plus
+    SKY_INSTR a fetch and the distinct sectors of the sky pool the
+    launch's fetches read (sky_sectors); shape and walk_ops as the no-sky
+    bounds take them."""
+    for rec in kernels:
+        name = rec["name"]
+        if name not in ("trace_tiles", "mesh_trace"):
+            continue
+        k = sky[name]
+        misses = k["misses"]
+        if name == "trace_tiles":
+            ops = sum(tiles_terms(k["work"], k["n_sph"], k["n_ft"], W * H * TIMING_SPL).values())
+            nbytes = k["table_bytes"] + W * H * (3 * 4 + 9 * 4)
+        else:
+            s = shape[name]
+            ops = k["lane_bounces"] * (s["n_sph"] * SPH_OPS + s["n_ft"] * (TRI_OPS - 2)
+                                       + SHADE_MESH_OPS + walk_ops)
+            nbytes = k["table_bytes"] + MESH_W * MESH_H * (3 * 4 + 3 * 4)
+        ops += misses * SKY_INSTR
+        nbytes += k["sky_bytes"]
+        b_ms, b_by = bound(ops, nbytes, name)
+        rec.update(sky_ms=k["ms"], sky_plain_ms=k["plain_ms"], sky_bound_ms=b_ms,
+                   sky_bound_by=b_by, sky_launches_per_render=k["launches"])
+        print(f"[bound] {name}_sky: {misses:.4g} sky fetches x {SKY_INSTR} FP32 instructions; "
+              f"{k['sky_bytes'] / SKY_SECTOR:.4g} distinct {SKY_SECTOR} B sectors of the "
+              f"{k['pool_bytes']:.4g} B pool ({k['sky_bytes']:.4g} B; a sector a fetch would be "
+              f"{misses * SKY_SECTOR:.4g} B); {ops:.4g} FP32 instructions ({ops / FP32_CEILING[name] * 1e3:.4f}"
+              f" ms), {nbytes:.4g} bytes ({nbytes / HBM_RATE * 1e3:.4f} ms): bound {b_ms:.4f} ms by "
+              f"{b_by}; kernel {k['ms']:.4f} ms ({b_ms / k['ms']:.2%} of the bound reached), without "
+              f"the sky {k['no_sky_ms']:.4f} ms" + (f", the JAX route {k['route_ms']:.4f} ms"
+                                                    if "route_ms" in k else "") + f" [{card}]",
+              flush=True)
+
+
+PROFILE_CHILD = "--profile"  # the argument of the child that profiles warm renders
+
+
+def profile_child(what, card) -> int:
+    """Profiler tables in a process of its own: "walled", phase 4's warm
+    walled 1200x600 render(64); "sky", phase 9's warm outdoor + sky
+    render(64) and a380-class + sky render(16) (the faces written anew).
+    Prints {label: profile's result} as the last line."""
+    from raytrace_tpu_torch.models import procedural
     from raytrace_tpu_torch.models.walled import walled_scheme
     from raytrace_tpu_torch.render.renderer import Renderer
 
-    renderer = Renderer(walled_scheme(W, H), device="cuda")
-    renderer.render(samples=1)  # loads the kernel (built: the parent's cache)
-    result = profile(renderer, card, "trace_tiles_kernel", f"walled {W}x{H}", spp=MAIN_SPP)
-    print(json.dumps(result), flush=True)
+    results = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_sky_") as face_dir:
+        if what == "walled":
+            runs = [("walled", walled_scheme(W, H), "trace_tiles_kernel", MAIN_SPP)]
+        else:
+            sky = procedural.sky_cubemap(face_dir)
+            a380 = procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP)
+            a380.scene_members.append(sky)
+            runs = [("outdoor + sky", procedural.outdoor_scheme(sky, W, H, MAIN_SPP),
+                     "trace_tiles_kernel", MAIN_SPP),
+                    ("a380-class + sky", a380, "mesh_trace_kernel", MESH_SPP)]
+        for label, scheme, kernel, spp in runs:
+            renderer = Renderer(scheme, device="cuda")
+            renderer.render(samples=1)  # loads the kernel (built: the parent's cache)
+            results[label] = profile(renderer, card, kernel,
+                                     f"{label} {renderer.width}x{renderer.height}", spp=spp)
+    print(json.dumps(results), flush=True)
     return 0
 
 
-def profile_in_child(card):
-    """Phase 4's profiler table, taken by a child process (walled_profile_child):
-    in this process a profiler session after the others lost records of the
-    kernels launched through ctypes (one recorded no device time). Returns
-    its result, or None."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), PROFILE_CHILD, card],
+def profile_in_child(what, card):
+    """profile_child(what)'s tables, taken by a child process: in this
+    process a profiler session after the others lost records of the
+    kernels launched through ctypes (they recorded no device time).
+    Returns its {label: result or None}."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), PROFILE_CHILD, what, card],
                           capture_output=True, text=True, timeout=600)
     lines = proc.stdout.strip().splitlines()
     for line in lines[:-1]:
@@ -1194,7 +1608,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == [PROFILE_CHILD]:
-        return walled_profile_child(sys.argv[2])
+        return profile_child(sys.argv[2], sys.argv[3])
     import numpy as np
 
     from raytrace_tpu_torch.kernels import build
@@ -1202,7 +1616,6 @@ def main() -> int:
     from raytrace_tpu_torch.ops import trace_kernel as tk
     from raytrace_tpu_torch.render.renderer import Renderer
     from raytrace_tpu_torch.render.target import RenderTarget
-    from raytrace_tpu_torch.utils import checkpoint as ckpt
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1238,7 +1651,11 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
                 print(f"[build] {line.strip()}", flush=True)
     groups.print_ptxas(variants)
-    sass({"trace_kernel": builds[0]})  # both entries' SASS, for reading
+    counts = sass({"trace_kernel": builds[0]}) or {}  # every entry's SASS, for reading
+    for fn, n in counts.get("trace_kernel", {}).items():
+        if "trace_tiles_kernelILb0" in fn:
+            print(f"[sass] trace_tiles_kernel<false> (the entry trace_tiles): {n} instructions "
+                  f"(2,120 before the kernel took the cube map)", flush=True)
 
     # ---- 3. kernel vs plain on the card ----
     trace = trace_phase(dev, card)
@@ -1247,12 +1664,12 @@ def main() -> int:
     scheme = walled_scheme(W, H)
     renderer = Renderer(scheme, device="cuda")
     torch.cuda.synchronize()
-    tk.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     img = renderer.render(samples=MAIN_SPP)  # ends in a device -> host copy
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = tk.LAUNCHES
+    launches = tk.LAUNCHES["trace_tiles"]
     print(f"[main] Renderer(walled {W}x{H}, cuda).render({MAIN_SPP}): {dt:.4f} s, "
           f"{W * H * MAIN_SPP / dt:.1f} paths/s, kernel launches {launches} [{card}]", flush=True)
     assert launches > 0, "the main path did not launch the CUDA kernel"
@@ -1260,29 +1677,8 @@ def main() -> int:
     print(f"[main] image mean per channel {img.mean(axis=(0, 1)).tolist()}", flush=True)
 
     # the same frame at a small size: card vs the plain version on the CPU
-    small = walled_scheme(128, 64)
-    gpu_img = Renderer(small, device="cuda").render(samples=16)
-    cpu_img = Renderer(small, device="cpu").render(samples=16)
-    mean_d, bad_tiles = tile_gate(gpu_img, cpu_img)
-    print(f"[main] 128x64x16 card vs cpu: channel-mean |d| {mean_d:.3e}, "
-          f"bad 8x8 tiles {bad_tiles:.4f}", flush=True)
-    assert mean_d < 2e-3 and bad_tiles < 0.02, "card render disagrees with the CPU render"
-
-    # resume: render(2k, batch=k) == render(k), checkpoint save/load, render(k)
-    k = 4
-    full = Renderer(scheme, device="cuda")
-    full.render(samples=2 * k, batch=k)
-    first = Renderer(scheme, device="cuda")
-    first.render(samples=k)
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
-        path = os.path.join(tmp, "ck.npz")
-        ckpt.save(path, first.target)
-        resumed = Renderer(scheme, device="cuda")
-        resumed.target = ckpt.load(path)
-    resumed.render(samples=k)
-    assert resumed.target.count == full.target.count == 2 * k
-    assert np.array_equal(resumed.target.acc, full.target.acc), "resume is not bitwise exact"
-    print(f"[main] resume at {k} spp: bitwise exact ({2 * k} spp, {W}x{H})", flush=True)
+    card_vs_cpu("main", "walled", scheme, 128, 64, 16)
+    resume_bitwise("main", renderer, f"walled {W}x{H}")
 
     # the same render with the yardstick in trace_tiles' place, in turns
     def render_ms(fn):
@@ -1305,8 +1701,13 @@ def main() -> int:
         finally:
             tk.trace_tiles = real
 
+    def yardstick(*args, sky=None, **kw):
+        """The yardstick in trace_tiles' place: the render passes sky=None,
+        which the yardstick, without a cube map, does not take."""
+        return tk._trace_tiles_per_thread(*args, **kw) if sky is None else \
+            tk._trace_tiles_per_thread(*args, sky=sky, **kw)
+
     walls = {}
-    yardstick = tk._trace_tiles_per_thread
     for label, fn in (("trace_tiles", tk.trace_tiles), ("yardstick", yardstick),
                       ("yardstick", yardstick), ("trace_tiles", tk.trace_tiles)):
         walls.setdefault(label, []).append(render_ms(fn))
@@ -1337,9 +1738,14 @@ def main() -> int:
     kernels += mesh_records
     shape.update(mesh_shape)
     hit_record, per_path, walk_ops = integrator_phases(dev, card)
-    walled_profile = profile_in_child(card)
+    walled_profile = profile_in_child("walled", card)["walled"]
     if walled_profile:
         kernels[0]["in_render_ms"] = walled_profile["ms"]
+    sky = sky_phase(dev, card)
+    sky_profiles = profile_in_child("sky", card)
+    for rec, label in ((kernels[0], "outdoor + sky"), (kernels[1], "a380-class + sky")):
+        if sky_profiles[label]:
+            rec["sky_in_render_ms"] = sky_profiles[label]["ms"]
 
     # ---- the fused kernels' bounds: their timed launches' lane-bounces
     # (the wavefront's lane-bounces per path of the same frame, phase 8)
@@ -1354,11 +1760,7 @@ def main() -> int:
             # the plain version's counts of this launch's work (phase 3)
             work = trace["work"]
             lane_bounces = work["lane_iterations"]
-            terms = {"sphere tests": lane_bounces * s["n_sph"] * SPH_INSTR,
-                     "near roots": work["near_roots"] * ROOT_INSTR,
-                     "free triangles": lane_bounces * s["n_ft"] * TRI_INSTR,
-                     **{f"shade {b}": n * SHADE_INSTR[b] for b, n in work["by_branch"].items()},
-                     "raygen": lanes * spl * RAYGEN_INSTR}
+            terms = tiles_terms(work, s["n_sph"], s["n_ft"], lanes * spl)
             per_bounce = sum(terms.values()) / lane_bounces
             old = lane_bounces * (s["n_sph"] * SPH_OPS + s["n_ft"] * (TRI_OPS - 2)
                                   + SHADE_SPH_OPS) / FP32_PEAK * 1e3
@@ -1384,6 +1786,8 @@ def main() -> int:
               + (f", yardstick {rec['yardstick_ms']:.4f} ms "
                  f"({rec['bound_ms'] / rec['yardstick_ms']:.2%})" if "yardstick_ms" in rec else "")
               + f" [{card}]", flush=True)
+
+    sky_bounds(kernels, sky, shape, walk_ops, card)
     kernels.append(hit_record)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 """CLI entry — the reference's main.rs analogue, for static schemes of
-spheres, free triangles and `!Model` glTF meshes.
+spheres, free triangles, `!Model` glTF meshes and the `!DistantCubeMap`
+sky (face paths resolved against the scheme's directory).
 
     python -m raytrace_tpu_torch.cli <scheme.yml> [no_ui] --device cuda \
         [--mode gpu|cpu] --samples N --out render_out.png [--checkpoint ck.npz] \
@@ -7,7 +8,7 @@ spheres, free triangles and `!Model` glTF meshes.
 
 Renders to a PNG, rewritten (with the checkpoint, when asked) after every
 sample batch, as the reference's no-ui output loop (ui_util.rs:37-54).
-Animation schemes and cube maps are not ported yet and raise.
+Animation schemes are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ def main(argv=None):
     scheme = load_scheme(args.scheme)
     info = scheme.render_info
     if info.animation:
-        raise NotImplementedError("animation schemes are not ported yet (ROADMAP queue 1, item 14)")
+        raise NotImplementedError("animation schemes are not ported yet (ROADMAP queue 1, item 6)")
     if args.scale > 1:
         info.width //= args.scale
         info.height //= args.scale

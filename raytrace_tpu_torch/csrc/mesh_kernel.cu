@@ -114,6 +114,14 @@
 // semantics' 20*EPS self-hit guard, which the TPU kernel left out). See
 // the note at group_walk below for its design.
 //
+// The cube map (mesh_trace_kernel<kBrute, true>, which the entries
+// mesh_trace and mesh_trace_brute launch when given a face table): a live
+// lane that hits nothing adds (throughput * inten) * sky(direction) to its
+// radiance there, the texel fetched from the sky pool (cubemap.cuh) under
+// the face table the block stages; the JAX driver adds the same term per bounce from the kernel's
+// miss records (raytrace_tpu/render/fused_mesh.py:343-353). Like the rest of
+// this file, it equals mesh_trace_reference bitwise.
+//
 // Built by raytrace_tpu_torch/kernels/build.py (nvcc -arch sm_90a, no
 // --use_fast_math); called through ctypes from ops/mesh_kernel.py. A
 // launch the card refuses (too much shared memory, too many threads)
@@ -121,6 +129,7 @@
 
 #include <math_constants.h>
 
+#include "cubemap.cuh"
 #include "path_common.cuh"
 
 namespace {
@@ -132,7 +141,6 @@ constexpr int kGroup = 16;   // clusters per supercluster
 constexpr int kSGroup = 8;   // superclusters per supergroup
 constexpr int kBruteChunk = 64;
 constexpr int kAttrCols = 48;
-constexpr int kPoolU16 = 1, kPoolU32 = 2;  // else f32 (ops/texture.py)
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 constexpr int kRayGroup = 16;    // mesh_hit: threads per ray
@@ -259,26 +267,9 @@ __device__ __forceinline__ void vnorm(float& x, float& y, float& z, float eps) {
   z *= inv;
 }
 
-// the three components at flat offset base3, converted after the gather
+// the three components at flat offset base3 of the texture pool
 __device__ __forceinline__ float3 texel(const Mesh& m, int base3) {
-  if (m.pool_kind == kPoolU32) {
-    long long k = base3 / 3;
-    k = k < 0 ? 0 : (k > m.pool_len - 1 ? m.pool_len - 1 : k);
-    const uint32_t w = __ldg(static_cast<const uint32_t*>(m.pool) + k);
-    return make_float3(static_cast<float>(w & 0xFFu) / 255.f,
-                       static_cast<float>((w >> 8) & 0xFFu) / 255.f,
-                       static_cast<float>((w >> 16) & 0xFFu) / 255.f);
-  }
-  long long k = base3;
-  k = k < 0 ? 0 : (k > m.pool_len - 3 ? m.pool_len - 3 : k);
-  if (m.pool_kind == kPoolU16) {
-    const uint16_t* p = static_cast<const uint16_t*>(m.pool) + k;
-    return make_float3(static_cast<float>(__ldg(p)) / 65535.f,
-                       static_cast<float>(__ldg(p + 1)) / 65535.f,
-                       static_cast<float>(__ldg(p + 2)) / 65535.f);
-  }
-  const float* p = static_cast<const float*>(m.pool) + k;
-  return make_float3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
+  return pool_texel(m.pool, m.pool_kind, m.pool_len, base3);
 }
 
 // nearest fetch of descriptor d = [offset, width, height] (uv_image.rs:10-23):
@@ -680,11 +671,13 @@ struct Lanes {
 
 // The whole path of lane i (inactive when i >= n), its nearest mesh hits
 // found with the rest of its warp (warp_nearest); every lane of the warp
-// calls it.
-template <bool kBrute>
+// calls it. kSky: a lane that hits nothing adds the sky's term (s_face the
+// staged face table).
+template <bool kBrute, bool kSky>
 __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* sph,
                                            const float* ft, const float* cam, const Mesh& m,
-                                           const float4* rows) {
+                                           const float4* rows, const Sky& sky,
+                                           const int* s_face) {
   bool active = i < L.n;
   const int xi = active ? L.xs[i] : 0, yi = active ? L.ys[i] : 0;
   const uint32_t hpix = jenkins(static_cast<uint32_t>(xi) ^ (static_cast<uint32_t>(yi) << 16));
@@ -736,6 +729,11 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
     } else if (kind != 0) {
       survive = shade_sph_ft(p, sph, ft, kind, best, t_best, u0, u1, u2, u3, u7, L.assured,
                              max_thres, inv_thres);
+    } else if constexpr (kSky) {  // a miss: L += (ci * inten) * sky(d), the path ends
+      const float3 c = sky_rgb(s_face, sky, p.ray.dx, p.ray.dy, p.ray.dz);
+      p.lr += p.cir * p.inten * c.x;
+      p.lg += p.cig * p.inten * c.y;
+      p.lb += p.cib * p.inten * c.z;
     }
 
     if (L.spl > 1) {
@@ -765,19 +763,23 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
 // blocks, as many as the SMs hold, whose warps take 32-lane tiles from the
 // counter `work` (0 at launch) until the lanes run out, so no warp waits
 // for the others of its block. The brute route's table is resident in
-// dynamic shared memory (3 float4 a row), loaded once a block.
-template <bool kBrute>
+// dynamic shared memory (3 float4 a row), loaded once a block. kSky: the
+// cube map's face table is staged too (the sky entries).
+template <bool kBrute, bool kSky>
 __global__ void __launch_bounds__(kBrute ? kBruteThreads : kThreads, kBrute ? 1 : kTraceBlocks)
 mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* __restrict__ ft_g,
-                  const float* __restrict__ cam_g, const Mesh m, int* __restrict__ work) {
+                  const float* __restrict__ cam_g, const Mesh m, int* __restrict__ work,
+                  const Sky sky) {
   extern __shared__ float4 rows[];
   __shared__ float sph[kMaxPrims * kSphCols];
   __shared__ float ft[kMaxPrims * kFtCols];
   __shared__ float cam[kCamLen];
+  __shared__ int s_face[kSky ? 6 * kFaceCols : 1];
   stage_scene(sph, sph_g, L.n_sph, ft, ft_g, L.n_ft, cam, cam_g);
   if (kBrute) {
     for (int k = threadIdx.x; k < m.n_brute * 3; k += blockDim.x) rows[k] = __ldg(m.btri + k);
   }
+  if constexpr (kSky) stage_sky(s_face, sky.face);
   __syncthreads();  // the only barrier
   const int lane = static_cast<int>(threadIdx.x & 31);
   for (;;) {
@@ -785,7 +787,7 @@ mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* _
     if (lane == 0) tile = atomicAdd(work, 1);
     tile = __shfl_sync(kFull, tile, 0);
     if (tile >= (L.n + 31) / 32) break;
-    trace_lane<kBrute>(tile * 32 + lane, L, sph, ft, cam, m, rows);
+    trace_lane<kBrute, kSky>(tile * 32 + lane, L, sph, ft, cam, m, rows, sky, s_face);
   }
 }
 
@@ -898,14 +900,14 @@ int fail(cudaError_t e) {
   return static_cast<int>(e);
 }
 
-// One persistent launch of mesh_trace_kernel<kBrute>: as many blocks as
-// the SMs hold with `smem` bytes of dynamic shared memory, at most one a
+// One persistent launch of mesh_trace_kernel<kBrute, kSky>: as many blocks
+// as the SMs hold with `smem` bytes of dynamic shared memory, at most one a
 // 32-lane tile.
-template <bool kBrute>
+template <bool kBrute, bool kSky>
 int launch_persistent(const Lanes& L, const float* sph, const float* ft, const float* cam,
-                      const Mesh& m, int* work, size_t smem, cudaStream_t s) {
+                      const Mesh& m, int* work, size_t smem, cudaStream_t s, const Sky& sky) {
   constexpr int threads = kBrute ? kBruteThreads : kThreads;
-  cudaError_t e = cudaFuncSetAttribute(mesh_trace_kernel<kBrute>,
+  cudaError_t e = cudaFuncSetAttribute(mesh_trace_kernel<kBrute, kSky>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return fail(e);
@@ -914,31 +916,39 @@ int launch_persistent(const Lanes& L, const float* sph, const float* ft, const f
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
     return fail(e);
   }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mesh_trace_kernel<kBrute>, threads,
-                                                    smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mesh_trace_kernel<kBrute, kSky>,
+                                                    threads, smem);
   if (e != cudaSuccess) return fail(e);
   const int tiles = (L.n + 31) / 32, warps = threads / 32;
   const int resident = (per_sm > 1 ? per_sm : 1) * sms, needed = (tiles + warps - 1) / warps;
-  mesh_trace_kernel<kBrute><<<resident < needed ? resident : needed, threads, smem, s>>>(
-      L, sph, ft, cam, m, work);
+  mesh_trace_kernel<kBrute, kSky><<<resident < needed ? resident : needed, threads, smem, s>>>(
+      L, sph, ft, cam, m, work, sky);
   return static_cast<int>(cudaGetLastError());
 }
 
+// sky.face nullptr: the entries without the cube map; else the route
+// entries' sky instantiations (the yardsticks take none)
 int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float* ft,
-                 const float* cam, const Mesh& m, int* work, void* stream) {
+                 const float* cam, const Mesh& m, int* work, void* stream, const Sky& sky) {
   if (L.n <= 0) return 0;
+  const bool with_sky = sky.face != nullptr;
   if (L.n_sph > kMaxPrims || L.n_ft > kMaxPrims || m.n_brute % kBruteChunk ||
-      (work == nullptr && (entry == kEntryWalk || entry == kEntryBrute))) {
+      (work == nullptr && (entry == kEntryWalk || entry == kEntryBrute)) ||
+      (with_sky && (sky.pool == nullptr || sky.len < 1 ||
+                    (entry != kEntryWalk && entry != kEntryBrute)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (L.n + kThreads - 1) / kThreads;
+  const size_t brute_smem = static_cast<size_t>(m.n_brute) * 3 * sizeof(float4);
   switch (entry) {
     case kEntryWalk:
-      return launch_persistent<false>(L, sph, ft, cam, m, work, 0, s);
+      return with_sky ? launch_persistent<false, true>(L, sph, ft, cam, m, work, 0, s, sky)
+                      : launch_persistent<false, false>(L, sph, ft, cam, m, work, 0, s, sky);
     case kEntryBrute:
-      return launch_persistent<true>(L, sph, ft, cam, m, work,
-                                     static_cast<size_t>(m.n_brute) * 3 * sizeof(float4), s);
+      return with_sky
+                 ? launch_persistent<true, true>(L, sph, ft, cam, m, work, brute_smem, s, sky)
+                 : launch_persistent<true, false>(L, sph, ft, cam, m, work, brute_smem, s, sky);
     case kEntryPerThread:
       mesh_trace_yardstick_kernel<false><<<blocks, kThreads, 0, s>>>(L, sph, ft, cam, m);
       break;
@@ -1044,7 +1054,10 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
 
 // The four mesh_trace entries share one C signature; `work` is a zeroed
 // int32 the warps of mesh_trace and mesh_trace_brute take their tiles
-// from (unused by the yardsticks).
+// from (unused by the yardsticks). The cube map's arguments are null
+// (sky_face nullptr) without one: the (6, kFaceCols) int32 face table and
+// the sky pool of sky_len elements in its dtype sky_kind; the yardsticks
+// take none.
 #define MESH_TRACE_ARGS                                                                      \
   const int32_t *xs, const int32_t *ys, const int32_t *samp, int n, const float *sph,        \
       const float *ft, const float *cam, int n_sph, int n_ft, int has_lens, int assured,     \
@@ -1052,7 +1065,8 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
       const float *bounds, const int *count, const float *tri, const int *gid, int n_sg,     \
       int width, const float *btri, const int *bgid, int n_brute, const float *attr,         \
       const int *desc, const void *pool, int pool_kind, long long pool_len, float *out,      \
-      int *work, void *stream
+      int *work, void *stream, const int *sky_face, const void *sky_pool, int sky_kind,      \
+      long long sky_len
 #define MESH_TRACE_PASS(entry)                                                               \
   launch_trace(entry, Lanes{xs, ys, samp, n, n_sph, n_ft, has_lens, assured, max_bounces,    \
                             spl, out},                                                       \
@@ -1060,7 +1074,7 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
                Mesh{sgbounds, sbounds, bounds, count, reinterpret_cast<const float4*>(tri),  \
                     gid, n_sg, width, reinterpret_cast<const float4*>(btri), bgid, n_brute,  \
                     attr, desc, pool, pool_kind, pool_len},                                  \
-               work, stream)
+               work, stream, Sky{sky_face, sky_pool, sky_kind, sky_len})
 
 extern "C" int mesh_trace_launch(MESH_TRACE_ARGS) { return MESH_TRACE_PASS(kEntryWalk); }
 

@@ -1,10 +1,10 @@
 """Scheme schema: the reference's YAML scheme files, parsed to dataclasses.
 
 Mirrors `raytrace_tpu/models/config.py` (same field names, defaults and
-parsing rules) for what the port renders: render info, camera, spheres
-free triangles and `!Model` glTF members. `!DistantCubeMap` parses to a
-placeholder that `models.scene.build_scene` rejects until its ROADMAP
-item lands; keyframe animation is not parsed (static schemes only).
+parsing rules) for what the port renders: render info, camera, spheres,
+free triangles, `!Model` glTF members and the `!DistantCubeMap` sky (six
+faces, each `[path, u_scale, v_scale]`, in the WGSL face order). Keyframe
+animation is not parsed (static schemes only).
 
 PyYAML is imported only by `load_scheme`, so building a scheme from a
 dict (`parse_scheme`) needs nothing beyond numpy.
@@ -85,10 +85,25 @@ class FreeTriangleMember:
 
 
 @dataclass
-class CubeMapMember:
-    """Placeholder: the cube map is not ported yet."""
+class CubeMapFace:
+    path: str
+    u_scale: float
+    v_scale: float
 
-    faces: dict
+
+FACE_ORDER = ("neg_z", "pos_z", "neg_x", "pos_x", "neg_y", "pos_y")  # the WGSL face ids 0-5
+
+
+@dataclass
+class CubeMapMember:
+    """The distant cube map: one face per FACE_ORDER name, in that order."""
+
+    neg_z: CubeMapFace
+    pos_z: CubeMapFace
+    neg_x: CubeMapFace
+    pos_x: CubeMapFace
+    neg_y: CubeMapFace
+    pos_y: CubeMapFace
 
 
 @dataclass
@@ -170,10 +185,14 @@ def parse_member(m):
             rgb=_vec(v["rgb"]), mat=_parse_material(v.get("mat")),
         )
     if m.tag == "DistantCubeMap":
-        return CubeMapMember(faces=dict(v))
+        faces = {}
+        for f in FACE_ORDER:
+            p, us, vs = v[f]
+            faces[f] = CubeMapFace(path=p, u_scale=float(us), v_scale=float(vs))
+        return CubeMapMember(**faces)
     if m.tag == "Model":
         if v.get("animation") is not None:
-            raise NotImplementedError("animated models are not ported yet (ROADMAP queue 1, item 14)")
+            raise NotImplementedError("animated models are not ported yet (ROADMAP queue 1, item 6)")
         return ModelMember(
             path=v["path"], uniform_scale=float(v["uniform_scale"]),
             translation=_vec(v["translation"]), euler_angles=_vec(v["euler_angles"]),

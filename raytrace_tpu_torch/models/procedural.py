@@ -1,4 +1,4 @@
-"""The a380-class mesh scene, built procedurally.
+"""The a380-class mesh scene and a cube-map sky, built procedurally.
 
 The reference's a380 asset (127,749 triangles, README.md:173) is not in
 this repository, so the JAX package benchmarks a stand-in of the same
@@ -9,12 +9,23 @@ a displaced, flattened sphere surface of exactly 127,749 triangles,
 split into 20 primitives with procedural 1024x1024 u8 base-colour
 textures (the script's BENCH_MESH_TEXTURES=20), under the a380.yml
 camera and sun at 1216x608, assured depth 5, max_thres 0.5.
+
+The sky scenes have no asset here either (the reference's
+outside_spheres.yml and biplane's six 2048x2048 faces are not in the
+repository): `sky_cubemap` writes six u8 PNG faces of biplane's size, in
+which a wrong face or texel shows, and `outdoor_scheme` puts spheres
+under them, open to the sky, as the offline stand-in for
+outside_spheres.yml. Both are fixtures like models/walled.py.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from .config import ModelMember, Scheme, Tagged, parse_scheme
+from ..utils.image import save_png
+from .config import (FACE_ORDER, CubeMapFace, CubeMapMember, ModelMember, Scheme, Tagged,
+                     parse_scheme)
 from .gltf import LoadedMesh, Primitive, TextureData
 
 N_TRIS = 127_749  # the a380 element count
@@ -120,4 +131,68 @@ def a380_scheme(width: int = WIDTH, height: int = HEIGHT, spp: int = 16) -> Sche
     scheme = a380_cam_scheme(width, height, spp)
     scheme.scene_members.append(ModelMember(path="<procedural a380-class surface>",
                                             loaded=[make_mesh()]))
+    return scheme
+
+
+SKY_SIZE = 2048  # biplane's faces: six 2048x2048 u8 faces, 75.5 MB (BENCH_NOTES.md:517)
+SKY_GRID = 64  # a dark grid line every SKY_GRID texels
+# a hue per face, in FACE_ORDER
+SKY_HUES = np.array([[255, 96, 64], [64, 160, 255], [96, 255, 96], [255, 224, 64],
+                     [160, 96, 255], [64, 255, 224]], np.float32)
+# the faces whose uv scales are not (1, 1): a mirrored u, a stretched and mirrored v
+SKY_SCALES = {"pos_x": (-1.0, 1.0), "neg_y": (0.75, -1.25)}
+
+
+def sky_face(index: int, size: int, seed: int = 0) -> np.ndarray:
+    """Face `index` of FACE_ORDER as a (size, size, 3) u8 array (row 0 is
+    the first texel row): the face's hue times a gradient along u and v,
+    a dark line every SKY_GRID texels and seeded noise of up to 23 per
+    channel, so that neighbouring texels and faces differ."""
+    v, u = np.mgrid[0:size, 0:size].astype(np.float32)
+    grad = 0.25 + 0.5 * u / max(size - 1, 1) + 0.25 * v / max(size - 1, 1)
+    img = SKY_HUES[index] * grad[..., None]
+    img[(u % SKY_GRID == 0) | (v % SKY_GRID == 0)] = 16.0
+    noise = np.random.default_rng(seed * 6 + index).integers(0, 24, (size, size, 3))
+    return np.clip(img + noise, 0, 255).astype(np.uint8)
+
+
+def sky_cubemap(face_dir: str, size: int = SKY_SIZE, seed: int = 0) -> CubeMapMember:
+    """Writes the six faces (`sky_face`) as PNGs into face_dir and returns
+    the cube map member that names them, with SKY_SCALES."""
+    faces = {}
+    for i, name in enumerate(FACE_ORDER):
+        path = os.path.join(face_dir, f"sky_{name}.png")
+        save_png(path, sky_face(i, size, seed)[::-1])  # save_png writes row 0 last
+        faces[name] = CubeMapFace(path, *SKY_SCALES.get(name, (1.0, 1.0)))
+    return CubeMapMember(**faces)
+
+
+def outdoor_scheme(sky: CubeMapMember, width: int = 1200, height: int = 600,
+                   spp: int = 16) -> Scheme:
+    """Spheres under the sky: a ground sphere, a mirror, a dielectric, a
+    diffuse and an emissive sphere, open to the cube map `sky`, in gpu
+    semantics (assured depth 5, max_thres 0.5) at the walled camera."""
+    def sphere(c, r, rgb, mat):
+        return Tagged("Sphere", {"c": c, "r": r, "coloring": Tagged("Solid", rgb), "mat": mat})
+
+    raw = {
+        "render_info": {
+            "width": width, "height": height, "samps_per_pix": spp,
+            "rad_info": {"russ_roull_info": {"assured_depth": 5, "max_thres": 0.5}},
+            "use_gpu": True,
+        },
+        "cam": {"d": [0, 0, -5.0], "o": [0, 0.5, 0], "up": [0, 1, 0],
+                "screen_width": 10.0, "screen_height": 5.0},
+        "scene_members": [
+            sphere([0.0, -1000.0, -10.0], 999.0, [0.6, 0.6, 0.55], {"divert_ray": "Diff"}),
+            sphere([-2.6, 0.0, -7.0], 1.0, [0.95, 0.95, 0.95], {"divert_ray": "Spec"}),
+            sphere([0.0, 0.0, -6.0], 1.0, [1.0, 1.0, 1.0],
+                   {"divert_ray": Tagged("Dielectric", {"n_out": 1.0, "n_in": 1.5})}),
+            sphere([2.6, 0.0, -7.0], 1.0, [0.8, 0.35, 0.2], {"divert_ray": "Diff"}),
+            sphere([0.0, 3.0, -11.0], 1.0, [0.0, 0.0, 0.0],
+                   {"divert_ray": "Diff", "emissive": [6.0, 6.0, 5.0]}),
+        ],
+    }
+    scheme = parse_scheme(raw)
+    scheme.scene_members.append(sky)
     return scheme

@@ -2,15 +2,16 @@
 
 Mirrors `raytrace_tpu/models/scene.py` (`SceneArrays` :39-153,
 `_TexPool` :188, `_mesh_triangle_arrays` :297, `build_scene` :496-748)
-for spheres, free triangles and glTF meshes: the same field names,
-padding (spheres and free triangles to a multiple of 8 rows) and
+for spheres, free triangles, glTF meshes and the cube map: the same
+field names, padding (spheres and free triangles to a multiple of 8 rows) and
 values, so `ops.trace_kernel.pack_scene_tables` and
 `ops.mesh_kernel.pack_mesh_tables` pack the same tables as the JAX
 package. Mesh fields are left unpadded (the JAX package pads them to a
 multiple of 2,048 for its TPU chunking); `mt_tri12`, the MXU Woop table
 and the asset-local instancing tables are not built (see
-ops/mesh_kernel.py). The cube map is not ported yet; `build_scene`
-rejects it.
+ops/mesh_kernel.py). The cube map's six faces go into a texel pool of
+their own, `sky_pool` (:525-545), with the face tables cm_offsets,
+cm_dims and cm_uv_scales in the WGSL face order (config.FACE_ORDER).
 
 `SceneTensors` is the scene on the device for the integrator and the
 wavefront driver (render/integrator.py): the JAX Renderer's one
@@ -26,8 +27,8 @@ import torch
 from torch import nn
 
 from . import gltf
-from .config import (CubeMapMember, FreeTriangleMember, ModelMember, Scheme, SphereMember,
-                     resolve_asset_path)
+from .config import (FACE_ORDER, CubeMapMember, FreeTriangleMember, ModelMember, Scheme,
+                     SphereMember, resolve_asset_path)
 
 ATTR_COLS = 48  # mt_attr width, the JAX layout (integrator.py:757-759)
 
@@ -80,8 +81,14 @@ class SceneArrays:
     cl_idx: np.ndarray = _zeros(0, 8, dtype=np.int32)  # (C, W) mesh-tri id, -1 pad
     cl_lo: np.ndarray = _zeros(0, 3)  # (C, 3) cluster AABB
     cl_hi: np.ndarray = _zeros(0, 3)
-    # --- texel pool: flat RGB, packed u32 | u16 | f32 (see _TexPool) ---
+    # --- cube map faces, in config.FACE_ORDER (JAX defaults without one) ---
+    cm_offsets: np.ndarray = _zeros(6, dtype=np.int32)  # R offset of each face in sky_pool
+    cm_dims: np.ndarray = _zeros(6, 2, dtype=np.int32)  # (w, h)
+    cm_uv_scales: np.ndarray = field(default_factory=lambda: np.ones((6, 2), np.float32))
+    # --- texel pools: flat RGB, packed u32 | u16 | f32 (see _TexPool); the
+    # mesh textures and the cube map's faces in separate pools ---
     tex_pool: np.ndarray = _zeros(1, dtype=np.uint32)
+    sky_pool: np.ndarray = _zeros(1, dtype=np.uint32)
     # --- static metadata ---
     n_spheres: int = 0
     n_free_tris: int = 0
@@ -93,6 +100,7 @@ class SceneArrays:
 _ARRAY_FIELDS = tuple(f.name for f in fields(SceneArrays) if f.name.startswith(("sph_", "ft_")))
 _MESH_FIELDS = tuple(f.name for f in fields(SceneArrays)
                      if f.name.startswith(("mt_", "cl_")) or f.name == "tex_pool")
+_SKY_FIELDS = ("cm_offsets", "cm_dims", "cm_uv_scales", "sky_pool")
 
 
 def _pad(arr: np.ndarray, n: int, fill=0.0) -> np.ndarray:
@@ -302,9 +310,37 @@ def _mesh_fields(mt: dict) -> dict:
     )
 
 
+def _sky_fields(cubemap: CubeMapMember, scheme_dir: str) -> dict:
+    """The cube map's faces -> the SceneArrays sky fields (scene.py:525-545
+    of the JAX package): each face decoded once per resolved path with
+    PIL's convert("RGB") as u8, into a pool of its own."""
+    from PIL import Image
+
+    sky = _TexPool()
+    offsets = np.zeros((6,), np.int32)
+    dims = np.zeros((6, 2), np.int32)
+    scales = np.ones((6, 2), np.float32)
+    decoded: dict = {}  # repeated face paths share one decode
+    for i, name in enumerate(FACE_ORDER):
+        face = getattr(cubemap, name)
+        p = resolve_asset_path(face.path, scheme_dir)
+        if p not in decoded:
+            with Image.open(p) as im:
+                raw = np.asarray(im.convert("RGB"), dtype=np.uint8)
+            decoded[p] = (raw.astype(np.float32) / 255.0, raw)
+        img, raw = decoded[p]
+        off, w, h = sky.add(img, raw=raw)
+        offsets[i] = off
+        dims[i] = (w, h)
+        scales[i] = (face.u_scale, face.v_scale)
+    return dict(cm_offsets=offsets, cm_dims=dims, cm_uv_scales=scales, sky_pool=sky.finalize())
+
+
 def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
-    """Members -> SceneArrays (spheres, free triangles, glTF meshes)."""
+    """Members -> SceneArrays (spheres, free triangles, glTF meshes, the
+    cube map: the last one, as the reference keeps only one)."""
     spheres, tris, meshes = [], [], []
+    cubemap = None
     image_cache: dict = {}  # one decode per (file, image) across instances
     for m in scheme.scene_members:
         if isinstance(m, SphereMember):
@@ -319,8 +355,7 @@ def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
                     resolve_asset_path(m.path, scheme.scheme_dir), m.translation,
                     m.uniform_scale, m.euler_angles, image_cache=image_cache))
         elif isinstance(m, CubeMapMember):
-            raise NotImplementedError(
-                "the cube map is not ported yet (ROADMAP queue 1, item 2: cubemap.sample)")
+            cubemap = m
         else:
             raise TypeError(f"unknown member {m!r}")
 
@@ -345,6 +380,7 @@ def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
     pool = _TexPool()
     mt = _mesh_triangle_arrays(meshes, pool)
     mesh = _mesh_fields(mt) if mt else {}
+    sky = _sky_fields(cubemap, scheme.scheme_dir) if cubemap is not None else {}
     return SceneArrays(
         sph_c=f32(sph_c, Sp), sph_r=_pad(sph_r, Sp), sph_rgb=f32(sph_rgb, Sp),
         sph_emissive=sm[0], sph_has_em=sm[1], sph_kind=sm[2],
@@ -358,8 +394,8 @@ def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
         ft_diffp=fm[3], ft_n_out=fm[4], ft_n_in=fm[5],
         ft_valid=_pad(np.ones((F,), bool), Fp),
         tex_pool=pool.finalize(),
-        n_spheres=S, n_free_tris=F, has_cubemap=False,
-        **mesh,
+        n_spheres=S, n_free_tris=F, has_cubemap=cubemap is not None,
+        **mesh, **sky,
     )
 
 
@@ -368,13 +404,11 @@ def from_reference(ref_fields: Mapping) -> SceneArrays:
     numpy array (e.g. `{f: np.asarray(getattr(s, f)) ...}`), -> this
     package's SceneArrays, mesh fields included: the JAX package's
     padded mesh rows are dropped and mt_attr's bitcast descriptor
-    columns zeroed. Its asset-local instancing and Woop tables are not
+    columns zeroed, and the cube map's face tables and sky pool with
+    has_cubemap. Its asset-local instancing and Woop tables are not
     carried: the port packs its kernel tables from the flattened cl_*
-    fields. A scene with a cube map is rejected."""
-    if bool(ref_fields["has_cubemap"]):
-        raise NotImplementedError(
-            "the cube map is not ported yet (ROADMAP queue 1, item 2: cubemap.sample)")
-    kw = {k: np.array(ref_fields[k]) for k in _ARRAY_FIELDS}
+    fields."""
+    kw = {k: np.array(ref_fields[k]) for k in _ARRAY_FIELDS + _SKY_FIELDS}
     M = int(ref_fields.get("n_mesh_tris", 0))
     if M:
         kw.update({k: np.array(ref_fields[k]) for k in _MESH_FIELDS})
@@ -389,7 +423,7 @@ def from_reference(ref_fields: Mapping) -> SceneArrays:
         n_spheres=int(ref_fields["n_spheres"]),
         n_free_tris=int(ref_fields["n_free_tris"]),
         n_mesh_tris=M,
-        has_cubemap=False,
+        has_cubemap=bool(ref_fields["has_cubemap"]),
     )
 
 
@@ -405,13 +439,15 @@ class SceneTensors(nn.Module):
     without their padding rows (their rows keep the SceneArrays order,
     so sphere indices are the JAX integrator's), and for a mesh scene
     `mesh`, the flattened, camera-ordered walk tables and shading
-    attributes of `ops.mesh_kernel.MeshTables` (None without a mesh).
+    attributes of `ops.mesh_kernel.MeshTables` (None without a mesh), and
+    `sky`, the cube map's `ops.cubemap.SkyTables` (None without one).
     `cam` is the camera row as Python floats (raygen's constants) and
     `emitters` the emissive spheres (index, center, emissive) that
     direct-light sampling sums over, as float32 values."""
 
     def __init__(self, scene: SceneArrays, cam, max_thres: float):
         super().__init__()
+        from ..ops.cubemap import SkyTables
         from ..ops.mesh_kernel import MeshTables
         from ..ops.trace_kernel import make_cam_vec
 
@@ -424,6 +460,9 @@ class SceneTensors(nn.Module):
                 self.register_buffer(k, torch.from_numpy(a.astype(np.int64) if a.dtype == np.int32
                                                          else a))
         self.mesh = MeshTables(scene, cam, max_thres) if self.n_mesh_tris else None
+        # a mesh scene's sky rides in its MeshTables: one copy on the device
+        self.sky = (self.mesh.sky if self.mesh is not None
+                    else SkyTables(scene) if scene.has_cubemap else None)
         self.cam = [float(v) for v in make_cam_vec(cam, max_thres).reshape(-1)]
         self.has_lens = cam.lens_r is not None
         self.emitters = [(e, [float(v) for v in scene.sph_c[e]],

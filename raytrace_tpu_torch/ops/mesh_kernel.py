@@ -10,8 +10,13 @@ bounce of every lane itself. Per lane: counter-RNG seed, camera raygen,
 closest hit over <= 64 spheres, <= 64 free triangles and the mesh,
 shading of either kind, Russian roulette, and in place regeneration of
 `samples_per_lane` consecutive sample ids. It returns the lane's
-radiance sum. The pend protocol, the lane queue, fast2 and the
-`RTPU_*` knobs are not ported (ROADMAP, "Not to port").
+radiance sum. With a cube map (`MeshTables.sky`), a live lane that hits
+nothing adds (throughput * inten) * sky(direction) there, the term the
+JAX driver adds per bounce from the kernel's miss records
+(fused_mesh.py:343-353); the entries then run their sky instantiations,
+counted as `mesh_trace_sky` and `mesh_trace_brute_sky` in LAUNCHES. The
+pend protocol, the lane queue, fast2 and the `RTPU_*` knobs are not
+ported (ROADMAP, "Not to port").
 
 The mesh nearest hit has two routes, each its own CUDA entry point in
 `csrc/mesh_kernel.cu`; in both a path stays with its thread and the
@@ -61,7 +66,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import raygen, rng
+from . import cubemap, raygen, rng
 from .raygen import normalize
 from .bsdf import uniform_bsdf
 from .intersect import EPS, INF, closest_sph_ft, triangle_tuv
@@ -82,7 +87,8 @@ _NOHIT_LO, _NOHIT_HI = 3.0e38, -3.0e38  # inverted AABB of padding clusters (the
 # JAX layout; the slab test does not retire it, the walks skip count-0 clusters)
 
 # launches of each CUDA entry point in this process (read by chip_smoke.py)
-LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_hit": 0, "mesh_hit_per_thread": 0,
+LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_trace_sky": 0,
+            "mesh_trace_brute_sky": 0, "mesh_hit": 0, "mesh_hit_per_thread": 0,
             "mesh_trace_per_thread": 0, "mesh_trace_brute_lockstep": 0}
 
 
@@ -172,8 +178,8 @@ def pack_brute_table(cl_idx, cl_v0, cl_e1, cl_e2):
 
 def supports(scene, params) -> bool:
     """The scenes the mesh path kernel takes: gpu semantics, a mesh with
-    clusters, <= 64 spheres and free triangles, and no cube map, which
-    the port does not have yet. The JAX package's fused_mesh.supports
+    clusters, and <= 64 spheres and free triangles, with or without a
+    cube map. The JAX package's fused_mesh.supports
     (:169-181) also refuses `dir_light_samp`; this gate does not, so a
     gpu-semantics mesh scene with direct-light sampling renders here
     through `mesh_trace`, where the JAX Renderer takes its wavefront.
@@ -189,19 +195,20 @@ def supports(scene, params) -> bool:
         and scene.n_clusters > 0
         and scene.n_spheres <= MAX_PRIMS
         and scene.n_free_tris <= MAX_PRIMS
-        and not scene.has_cubemap
     )
 
 
 class MeshTables(nn.Module):
     """A mesh scene's packed tables and camera as buffers, moved with
-    `.to(device)`. `route` is the nearest-hit route the scene takes:
-    brute up to MAX_BRUTE_TRIS triangles, the walk above."""
+    `.to(device)`; `sky` the cube map's SkyTables (None without one).
+    `route` is the nearest-hit route the scene takes: brute up to
+    MAX_BRUTE_TRIS triangles, the walk above."""
 
     def __init__(self, scene, cam, max_thres: float):
         super().__init__()
         if not scene.n_mesh_tris:
             raise ValueError("MeshTables needs a scene with a mesh")
+        self.sky = cubemap.SkyTables(scene) if scene.has_cubemap else None
         sph, ft = pack_scene_tables(scene)
         walk = pack_mesh_tables(scene.cl_idx, scene.cl_lo, scene.cl_hi, scene.cl_v0,
                                 scene.cl_e1, scene.cl_e2, cam_o=cam.o)
@@ -430,12 +437,19 @@ def mesh_attrs(attr, desc, pool, pool_kind: int, mi, bu, bv):
 
 
 def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int,
-                         samples_per_lane: int = 1, route: str | None = None):
+                         samples_per_lane: int = 1, route: str | None = None,
+                         return_counts: bool = False):
     """Plain torch mirror of the kernel on flat lanes: masked
     `torch.where` updates and a Python loop bounded by max_bounces *
     samples_per_lane that stops once no lane is active. The mesh nearest
-    hit runs on the active lanes only, on `route` (default tables.route).
-    Returns the radiance (r, g, b), 3 f32 tensors shaped like xs."""
+    hit runs on the active lanes only, on `route` (default tables.route);
+    with tables.sky, a miss adds the sky's term. Returns the radiance
+    (r, g, b), 3 f32 tensors shaped like xs.
+
+    return_counts (measurement, like trace_tiles_reference's
+    return_iters): also return (iters, misses), int32 shaped like xs: the
+    loop iterations each lane was active in (its lane-bounces) and the
+    times its paths left the scene (the sky fetches, with a sky)."""
     route = tables.route if route is None else route
     if route not in ROUTES:
         raise ValueError(f"route must be one of {tuple(ROUTES)}, not {route!r}")
@@ -461,6 +475,7 @@ def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int
     depth = torch.zeros_like(zero)
     sk = torch.zeros_like(samp0)
     where = torch.where
+    iters, misses = torch.zeros_like(xs), torch.zeros_like(xs)
 
     for _ in range(max_bounces * spl):
         if not bool(active.any()):
@@ -474,6 +489,15 @@ def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int
         sph_ft = active & ~mesh & (h["kind"] > 0.5)
         state, (u0, u1, u2, u3, u4, u5, u6, u7) = rng.next_f32_n(state, 8)
         rr_kill = (depth >= float(assured)) & (u7 > max_thres)
+        miss = active & ~mesh & ~(h["kind"] > 0.5)
+        if return_counts:
+            iters += active.to(iters.dtype)
+            misses += miss.to(misses.dtype)
+        if tables.sky is not None:  # a miss: L += (ci * inten) * sky(d), the path ends
+            mi = miss.nonzero()[:, 0]
+            rgb = tables.sky.sample(*(c[mi] for c in d))
+            L = [L[k].index_put((mi,), L[k][mi] + ci[k][mi] * inten[mi] * rgb[k])
+                 for k in range(3)]
 
         # ---- sphere / free-triangle hits: trace_tiles' shading ----
         t_safe = where(sph_ft, h["t_best"], zero)
@@ -547,7 +571,8 @@ def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int
         else:
             active = survive
 
-    return tuple(v.reshape(shape) for v in L)
+    out = tuple(v.reshape(shape) for v in L)
+    return (out, (iters.reshape(shape), misses.reshape(shape))) if return_counts else out
 
 
 # --- the dispatcher --------------------------------------------------------
@@ -557,7 +582,7 @@ _I32_BUFFERS = ("count", "gid", "bgid", "desc")
 
 
 def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_lane,
-            entry=None):
+            sky=None, entry=None):
     from ..kernels import build
 
     dev = xs.device
@@ -578,6 +603,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
         raise ValueError("samples_per_lane and max_bounces must be >= 1")
 
     entry = entry or ROUTES[route]
+    sky_args = cubemap.launch_args(sky, dev)
     lib = build.build("mesh_kernel").lib
     fn = getattr(lib, f"{entry}_launch")
     fn.restype = ctypes.c_int
@@ -586,7 +612,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_void_p] * 3 + cubemap.ARGTYPES)
     xs_c, ys_c, samp_c = xs.contiguous(), ys.contiguous(), samp.contiguous()
     n = xs_c.numel()
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
@@ -604,10 +630,10 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
                 tb.btri.data_ptr(), tb.bgid.data_ptr(), tb.btri.shape[0],
                 tb.attr.data_ptr(), tb.desc.data_ptr(), tb.pool.data_ptr(),
                 tb.pool_kind, tb.pool.numel(),
-                out.data_ptr(), None if work is None else work.data_ptr(), stream)
+                out.data_ptr(), None if work is None else work.data_ptr(), stream, *sky_args)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[entry] += 1
+    LAUNCHES[entry if sky is None else f"{entry}_sky"] += 1  # the kernel's instantiation
     return tuple(out[k].view(xs.shape) for k in range(3))
 
 
@@ -618,7 +644,8 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
     tables.route (the MAX_BRUTE_TRIS gate; the tests and chip_smoke.py
     pass both routes on one scene). Lane i covers sample ids samp[i] ..
     samp[i] + samples_per_lane - 1. Returns the radiance sum (r, g, b):
-    3 f32 tensors shaped like xs.
+    3 f32 tensors shaped like xs, with the sky's terms where tables.sky
+    is set.
 
     CPU tensors run `mesh_trace_reference`; CUDA tensors launch the CUDA
     kernel's entry point of the route or raise (the brute entry, for
@@ -631,7 +658,7 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
     kw = dict(route=route, assured=assured, max_bounces=max_bounces,
               samples_per_lane=samples_per_lane)
     if xs.device.type == "cuda":
-        return _launch(xs, ys, samp, tables, **kw)
+        return _launch(xs, ys, samp, tables, sky=tables.sky, **kw)
     if xs.device.type == "cpu":
         return mesh_trace_reference(xs, ys, samp, tables, **kw)
     raise ValueError(f"mesh_trace runs on cpu or cuda tensors, not {xs.device}")
@@ -640,8 +667,8 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
 def _mesh_trace_yardstick(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: int,
                           samples_per_lane: int = 1, route: str | None = None):
     """`mesh_trace` by the route's yardstick entry (YARDSTICKS): the first
-    design, which chip_smoke.py times the kernel against. CUDA tensors
-    only."""
+    design, which chip_smoke.py times the kernel against, without the
+    cube map. CUDA tensors only."""
     if xs.device.type != "cuda":
         raise ValueError(f"the mesh_trace yardsticks run on cuda tensors, not {xs.device}")
     route = tables.route if route is None else route

@@ -53,14 +53,21 @@ def fetch_rgb(pool: torch.Tensor, kind: int, base3: torch.Tensor):
     return tuple(vals)
 
 
-def sample_nearest(pool: torch.Tensor, kind: int, off, wid, hei, u, v):
+def nearest_texel(off, wid, hei, u, v):
     """off / wid / hei: int32 per-lane descriptors; u, v: f32. Returns
-    (ok, (r, g, b)): ok = wid > 0, and black where not ok."""
+    (ok, base3): ok = wid > 0, base3 the flat offset of the nearest
+    texel's R component (0 where not ok)."""
     wf, hf = wid.to(torch.float32), hei.to(torch.float32)
     zero = torch.zeros_like(u)
     px = torch.minimum(torch.maximum(u * wf, zero), torch.clamp(wf - 1.0, min=0.0)).to(torch.int32)
     py = torch.minimum(torch.maximum(v * hf, zero), torch.clamp(hf - 1.0, min=0.0)).to(torch.int32)
     ok = wid > 0
-    base3 = torch.where(ok, off + 3 * (px + py * wid), torch.zeros_like(off))
-    rgb = fetch_rgb(pool, kind, base3)
-    return ok, tuple(torch.where(ok, c, zero) for c in rgb)
+    return ok, torch.where(ok, off + 3 * (px + py * wid), torch.zeros_like(off))
+
+
+def sample_nearest(pool: torch.Tensor, kind: int, off, wid, hei, u, v):
+    """nearest_texel's texel fetched. Returns (ok, (r, g, b)), black
+    where not ok."""
+    ok, base3 = nearest_texel(off, wid, hei, u, v)
+    zero = torch.zeros_like(u)
+    return ok, tuple(torch.where(ok, c, zero) for c in fetch_rgb(pool, kind, base3))

@@ -7,9 +7,19 @@ free triangles, BSDF sampling, Russian roulette, and in-place
 regeneration of `samples_per_lane` consecutive sample ids. It returns
 the lane's radiance sum and its last miss record (direction, weight).
 
+With a cube map (`sky`, an `ops.cubemap.SkyTables`), a lane adds
+miss_weight * sky(direction) to its radiance at its miss. A missed path
+ends there, so this is the JAX driver's resolve outside the kernel
+(raytrace_tpu/render/renderer.py:169-178) taken per sample, and the
+lanes keep regenerating at any `samples_per_lane` (the JAX driver runs
+one sample a lane with replicas, :472, because it has one miss record
+per lane).
+
 - On a CUDA tensor, `trace_tiles` launches the hand-written kernel
   `csrc/trace_kernel.cu` (built by kernels/build.py) or raises: its
-  entry `trace_tiles`. `_trace_tiles_per_thread` launches the kernel's
+  entry `trace_tiles`, which runs the kernel's sky instantiation when
+  given a cube map (counted as `trace_tiles_sky` in LAUNCHES).
+  `_trace_tiles_per_thread` launches the kernel's
   first design, the yardstick `chip_smoke.py` times it against; no
   render launches it.
 - On a CPU tensor, it runs `trace_tiles_reference`, the plain torch
@@ -29,15 +39,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import raygen, rng
+from . import cubemap, raygen, rng
 from .bsdf import uniform_bsdf
 from .intersect import EPS, closest_sph_ft, sphere_disc
 
 MAX_PRIMS = 64  # per kind; the kernel keeps both tables in shared memory
 SPH_COLS, FT_COLS, CAM_LEN, N_OUT = 15, 23, 18, 9
 
-# launches of the CUDA kernel's `trace_tiles` entry in this process (read by chip_smoke.py)
-LAUNCHES = 0
+# launches of the CUDA kernel's render entries in this process (read by chip_smoke.py)
+LAUNCHES = {"trace_tiles": 0, "trace_tiles_sky": 0}
 
 
 # --- host-side packing (bit-equal to the JAX package's) -------------------
@@ -121,7 +131,8 @@ def make_cam_vec(cam, max_thres: float = 0.5) -> np.ndarray:
 
 def supports(scene, params) -> bool:
     """gpu semantics, spheres + free triangles only, each <= 64, and no
-    mesh (the JAX package's trace_kernel.supports, :704-712)."""
+    mesh (the JAX package's trace_kernel.supports, :704-712); with or
+    without a cube map."""
     return (
         params.mode == "gpu"
         and not params.debug_single_ray
@@ -132,10 +143,12 @@ def supports(scene, params) -> bool:
 
 
 class SceneTables(nn.Module):
-    """The packed scene and camera as buffers, moved with `.to(device)`."""
+    """The packed scene and camera as buffers, moved with `.to(device)`;
+    `sky` the cube map's SkyTables (None without one)."""
 
     def __init__(self, scene, cam, max_thres: float):
         super().__init__()
+        self.sky = cubemap.SkyTables(scene) if scene.has_cubemap else None
         sph, ft = pack_scene_tables(scene)
         self.register_buffer("sph", torch.from_numpy(sph))
         self.register_buffer("ft", torch.from_numpy(ft))
@@ -153,13 +166,15 @@ BRANCHES = ("miss", "diffuse", "mirror", "dielectric", "roulette")  # codes 0-4 
 
 def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
                           n_sph: int, n_ft: int, has_lens: bool, assured: int,
-                          max_bounces: int, samples_per_lane: int = 1,
+                          max_bounces: int, samples_per_lane: int = 1, sky=None,
                           return_iters: bool = False):
     """Plain torch mirror of the JAX `_kernel` (:408-662) on flat lanes:
     masked `torch.where` updates and a Python loop bounded by
     max_bounces * samples_per_lane that stops once no lane is active.
     Returns 9 f32 tensors shaped like xs: L rgb, miss_dir xyz, miss_w rgb
-    (the miss records are last-write-wins: meaningful at spl == 1).
+    (the miss records are last-write-wins: meaningful at spl == 1). With
+    `sky` (SkyTables), a lane that misses adds miss_w * sky(miss_dir) to L
+    there.
 
     return_iters (measurement, like `mesh_kernel.walk_work`): also return
     (iters, branch, roots): iters, int32 shaped like xs, the loop
@@ -222,6 +237,11 @@ def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
         add_miss = active & ~hit
         md = [where(add_miss, d[k], md[k]) for k in range(3)]
         mw = [where(add_miss, ci[k] * inten, mw[k]) for k in range(3)]
+        if sky is not None:  # the sky at the miss, on the lanes that missed
+            mi = add_miss.nonzero()[:, 0]
+            rgb = sky.sample(*(c[mi] for c in d))
+            L = [L[k].index_put((mi,), L[k][mi] + (ci[k][mi] * inten[mi]) * rgb[k])
+                 for k in range(3)]
         rgb = (h["rgb_r"], h["rgb_g"], h["rgb_b"])
         em = (h["em_r"], h["em_g"], h["em_b"])
         add_em = active & hit & (h["has_em"] > 0.5)
@@ -271,8 +291,7 @@ def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
 # --- the dispatcher --------------------------------------------------------
 
 def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens,
-            assured, max_bounces, samples_per_lane, entry="trace_tiles"):
-    global LAUNCHES
+            assured, max_bounces, samples_per_lane, sky=None, entry="trace_tiles"):
     from ..kernels import build
 
     dev = xs.device
@@ -290,12 +309,13 @@ def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens
         raise ValueError(f"cam_vec must be {CAM_LEN} f32 on {dev}")
     if samples_per_lane < 1 or max_bounces < 1:
         raise ValueError("samples_per_lane and max_bounces must be >= 1")
+    sky_args = cubemap.launch_args(sky, dev)
 
     lib = build.build("trace_kernel").lib
     fn = getattr(lib, f"{entry}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + \
-        [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+        [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + cubemap.ARGTYPES
 
     xs_c, ys_c, samp_c = xs.contiguous(), ys.contiguous(), samp.contiguous()
     sph_c, ft_c, cam_c = sph_table.contiguous(), ft_table.contiguous(), cam_vec.contiguous()
@@ -306,29 +326,31 @@ def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens
         rc = fn(xs_c.data_ptr(), ys_c.data_ptr(), samp_c.data_ptr(), n,
                 sph_c.data_ptr(), ft_c.data_ptr(), cam_c.data_ptr(),
                 n_sph, n_ft, int(has_lens), assured, max_bounces,
-                samples_per_lane, out.data_ptr(), stream)
+                samples_per_lane, out.data_ptr(), stream, *sky_args)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    if entry == "trace_tiles":
-        LAUNCHES += 1
+    key = entry if sky is None else f"{entry}_sky"  # the kernel's instantiation
+    if key in LAUNCHES:
+        LAUNCHES[key] += 1
     return tuple(out[k].view(xs.shape) for k in range(N_OUT))
 
 
 def trace_tiles(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph: int, n_ft: int,
                 has_lens: bool, assured: int, max_bounces: int,
-                samples_per_lane: int = 1):
+                samples_per_lane: int = 1, sky=None):
     """xs, ys, samp: int32 lane tensors of any shape ((N,) or the JAX
-    package's (R, 128)); sph_table / ft_table / cam_vec from
-    `SceneTables` (or pack_scene_tables / make_cam_vec). Lane i covers
-    sample ids samp[i] .. samp[i] + samples_per_lane - 1. Returns
-    (L rgb, miss_dir xyz, miss_w rgb): 9 f32 tensors shaped like xs.
+    package's (R, 128)); sph_table / ft_table / cam_vec / sky from
+    `SceneTables` (or pack_scene_tables / make_cam_vec / SkyTables). Lane
+    i covers sample ids samp[i] .. samp[i] + samples_per_lane - 1. Returns
+    (L rgb, miss_dir xyz, miss_w rgb): 9 f32 tensors shaped like xs; with
+    a sky, L holds the sky's terms.
 
     CPU tensors run `trace_tiles_reference`; CUDA tensors launch the
     CUDA kernel or raise."""
     if n_sph > MAX_PRIMS or n_ft > MAX_PRIMS:
         raise NotImplementedError(f"trace_tiles takes <= {MAX_PRIMS} spheres and free triangles")
     kw = dict(n_sph=n_sph, n_ft=n_ft, has_lens=has_lens, assured=assured,
-              max_bounces=max_bounces, samples_per_lane=samples_per_lane)
+              max_bounces=max_bounces, samples_per_lane=samples_per_lane, sky=sky)
     if xs.device.type == "cuda":
         return _launch(xs, ys, samp, sph_table, ft_table, cam_vec, **kw)
     if xs.device.type == "cpu":
@@ -340,8 +362,9 @@ def _trace_tiles_per_thread(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph
                             n_ft: int, has_lens: bool, assured: int, max_bounces: int,
                             samples_per_lane: int = 1):
     """`trace_tiles` by the entry `trace_tiles_per_thread` of
-    csrc/trace_kernel.cu (a thread per lane, the first design): the
-    yardstick chip_smoke.py times the kernel against. CUDA tensors only."""
+    csrc/trace_kernel.cu (a thread per lane, the first design, without the
+    cube map): the yardstick chip_smoke.py times the kernel against. CUDA
+    tensors only."""
     if xs.device.type != "cuda":
         raise ValueError(f"the per-thread trace_tiles runs on cuda tensors, not {xs.device}")
     if n_sph > MAX_PRIMS or n_ft > MAX_PRIMS:

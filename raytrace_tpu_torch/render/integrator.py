@@ -31,8 +31,11 @@ Only what is bit-identical is shared with the kernels' plain versions:
 `rng`, `intersect.triangle_tuv`, `mesh_kernel.mesh_attrs` (the JAX
 `mesh_attrs_dense`) and the texel fetch. The mesh nearest hit is
 `mesh_kernel.mesh_hit`: its CUDA kernel on the card, its plain version on
-the CPU. The cube map (`sample_cubemap` and the miss records) and the
-differentiable tier's fixed-length scan are not ported yet.
+the CPU. The cube map: a lane that misses records its direction and
+weight (`miss_d`, `miss_w`; a path misses at most once, and then ends),
+resolved once after the loop through `ops/cubemap.sample`
+(:1034-1040); debug_single_ray samples the sky in its one bounce. The
+differentiable tier's fixed-length scan is not ported yet.
 
 Draws: 8 uniforms per bounce in mesh scenes, 5 in meshless ones
 (u0, u1, u2, u3, u7; integrator.py:862-869).
@@ -80,6 +83,24 @@ class IntegratorParams:
 def uses_dls(scene, params: IntegratorParams) -> bool:
     """Direct-light sampling runs in cpu semantics only, over spheres."""
     return bool(params.dir_light_samp and params.mode == "cpu" and scene.n_spheres)
+
+
+def tracks_miss(scene, params: IntegratorParams) -> bool:
+    """The lane state carries miss records: a cube map and a full path."""
+    return scene.sky is not None and not params.debug_single_ray
+
+
+def resolve_sky(scene, L, miss_d, miss_w, lanes=None):
+    """L + miss_w * sky(miss_d) where the lane missed (some miss_w
+    component > 0) and, given the bool mask `lanes`, is one of them: the
+    post-loop resolve of trace_paths (:1034-1040). The sky is sampled on
+    those lanes only."""
+    missed = (miss_w[0] > 0.0) | (miss_w[1] > 0.0) | (miss_w[2] > 0.0)
+    if lanes is not None:
+        missed = missed & lanes
+    mi = missed.nonzero()[:, 0]
+    sky = scene.sky.sample(*(c[mi] for c in miss_d))
+    return tuple(L[k].index_put((mi,), L[k][mi] + miss_w[k][mi] * sky[k]) for k in range(3))
 
 
 def _where3(mask, a, b):
@@ -308,6 +329,8 @@ def init_lanes(scene, params, ro, rd, state):
     st = dict(ro=ro, rd=rd, L=(zero, zero, zero), ci=(one, one, one), inten=one, rng=state,
               active=torch.ones_like(zero, dtype=torch.bool),
               bounce=torch.zeros_like(zero, dtype=torch.int32))
+    if tracks_miss(scene, params):
+        st["miss_d"] = st["miss_w"] = (zero, zero, zero)
     if uses_dls(scene, params):
         st["dls"] = dict(active=torch.zeros_like(st["active"]), pos=(zero, zero, zero),
                          norm=(zero, zero, zero), ci=(one, one, one),
@@ -331,6 +354,13 @@ def _bounce_step(scene, params: IntegratorParams, st):
     L, ci, inten = st["L"], st["ci"], st["inten"]
     zero = torch.zeros_like(t)
     ah = active & hit
+    miss_rec = {}
+    if tracks_miss(scene, params):
+        # the miss record (gpu: ci * inten, :880-886; cpu: ci, :905-910),
+        # resolved after the loop
+        am = active & ~hit
+        mw = tuple(c * inten for c in ci) if params.mode == "gpu" else ci
+        miss_rec = dict(miss_d=_where3(am, rd, st["miss_d"]), miss_w=_where3(am, mw, st["miss_w"]))
 
     if params.mode == "gpu":
         add_em = ah & sh["has_em"]
@@ -378,14 +408,15 @@ def _bounce_step(scene, params: IntegratorParams, st):
 
     if params.debug_single_ray:
         # first-hit emissive only (radiance.rs:31-33); a miss shows the sky,
-        # black without a cube map
-        L = tuple(torch.where(active & ~hit, zero, torch.where(ah, sh["emissive"][k], L[k]))
+        # black without a cube map (:955-959)
+        sky = scene.sky.sample(*rd) if scene.sky is not None else (zero, zero, zero)
+        L = tuple(torch.where(active & ~hit, sky[k], torch.where(ah, sh["emissive"][k], L[k]))
                   for k in range(3))
         new_active = torch.zeros_like(new_active)
 
     out = dict(ro=_where3(new_active, sh["pos"], ro), rd=_where3(new_active, sh["new_d"], rd),
                L=L, ci=ci, inten=inten, rng=state, active=new_active,
-               bounce=st["bounce"] + new_active.to(torch.int32))
+               bounce=st["bounce"] + new_active.to(torch.int32), **miss_rec)
     if dls:
         out["dls"] = dict(active=new_active & sh["should_dls"], pos=sh["pos"], norm=sh["norm"],
                           ci=ci, self_idx=torch.where(kind == KIND_SPHERE, idx,
@@ -401,11 +432,13 @@ def max_depth(params: IntegratorParams) -> int:
 def trace_paths(scene, params: IntegratorParams, ro, rd, state):
     """Trace a batch of rays to completion (integrator.py:986-1041, the
     forward `while` loop: at most max_depth bounces, ending when no lane
-    is active, which syncs with the host once per bounce). Returns
-    (L, rng): L a 3-tuple of (N,) f32."""
+    is active, which syncs with the host once per bounce), then the cube
+    map's resolve. Returns (L, rng): L a 3-tuple of (N,) f32."""
     st = init_lanes(scene, params, ro, rd, state)
     for _ in range(max_depth(params)):
         if not bool(st["active"].any()):
             break
         st = _bounce_step(scene, params, st)
+    if tracks_miss(scene, params):
+        return resolve_sky(scene, st["L"], st["miss_d"], st["miss_w"]), st["rng"]
     return st["L"], st["rng"]

@@ -18,9 +18,12 @@ Port of `raytrace_tpu/render/renderer.py` (:394-427, :606-628, `render`
 A driver flag left None takes that driver when the scene supports it;
 False skips it; True demands it and raises NotImplementedError when the
 scene does not support it (where the JAX package would quietly route
-elsewhere). No cube map yet. The fused drivers cover up to
-`samples_per_launch` consecutive sample ids per launch (the kernels
-regenerate samples in place); the wavefront takes up to that many per
+elsewhere). Every driver takes a cube map: the fused kernels fetch the
+sky at a lane's miss, the integrator drivers resolve it from the miss
+records. The fused drivers cover up to `samples_per_launch` consecutive
+sample ids per launch (the kernels regenerate samples in place, with a
+sky too: the JAX driver's one sample a lane with replicas, :472, is a
+TPU layout choice); the wavefront takes up to that many per
 call (its per-(sample, pixel) slots bound the memory), the plain driver
 one at a time. Both integrator drivers run their lanes in the JAX
 package's 32x32-tile pixel order. Sample ids continue at `target.count`, so an
@@ -102,7 +105,7 @@ def sample_batch_fused(tables: tk.SceneTables, params: IntegratorParams, xs, ys,
             xs, ys, samp, tables.sph, tables.ft, tables.cam_vec,
             n_sph=tables.n_sph, n_ft=tables.n_ft, has_lens=tables.has_lens,
             assured=params.assured_depth, max_bounces=params.max_bounces,
-            samples_per_lane=spl,
+            samples_per_lane=spl, sky=tables.sky,
         )
         acc += torch.stack((lr, lg, lb), dim=1)
     return acc
@@ -158,7 +161,6 @@ class Renderer:
         self.width, self.height = info.width, info.height
         self.params = params_from_scheme(scheme, mode)
         self.mode = self.params.mode
-        # build_scene raises NotImplementedError on the cube map
         self.scene = build_scene(scheme)
         self.samples_per_launch = samples_per_launch
         self.camera = build_camera(scheme.cam, self.width, self.height)

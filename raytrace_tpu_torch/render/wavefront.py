@@ -8,16 +8,21 @@ iteration:
      per-(pixel, sample) streams as `trace_paths`);
   2. the per-lane bounce cap kills lanes at max_depth bounces (and with
      them a pending direct-light term, as trace_paths drops pendings at
-     its loop's end); lanes whose path ended retire their radiance;
+     its loop's end); lanes whose path ended retire their radiance, with
+     the cube map's term where the path missed (trace_paths' post-loop
+     resolve, :212-230);
   3. dead lanes take the next work units off a queue counter: ranked by
      a prefix sum over the pool, handed out sample-major over the
      tile-ordered pixel table, seeded from (x, y, sample) and raygen'd
-     in place, with a cleared direct-light state.
+     in place, with a cleared direct-light state and miss record.
 
 The loop ends when the queue is drained and the last path has died: its
 condition is one `.any()` per iteration, a sync with the host (the
 iteration count is in `return_stats`). Not ported: `sort_lanes`
-(measured a loss on the TPU, :105-115) and `ablate` (profiling stubs).
+(measured a loss on the TPU, :105-115), `ablate` (profiling stubs) and
+the sky resolve's 8192-lane tiles under `lax.cond` (a TPU gather trick,
+:228-248): the retiring lanes that missed are gathered (`nonzero`, with
+a sky a second sync an iteration) and their sky sampled in one pass.
 
 Accumulation is deterministic, without atomics: a retiring lane writes
 its radiance into its work unit's own (sample, pixel) slot (each unit
@@ -32,7 +37,8 @@ from __future__ import annotations
 import torch
 
 from ..ops import raygen, rng
-from .integrator import IntegratorParams, _bounce_step, init_lanes, max_depth, uses_dls
+from .integrator import (IntegratorParams, _bounce_step, init_lanes, max_depth, resolve_sky,
+                         tracks_miss, uses_dls)
 
 
 def wavefront_batch(scene, params: IntegratorParams, xs_tab, ys_tab, sample_base: int,
@@ -49,6 +55,7 @@ def wavefront_batch(scene, params: IntegratorParams, xs_tab, ys_tab, sample_base
     cam, has_lens = scene.cam, scene.has_lens
     cap = max_depth(params)
     dls = uses_dls(scene, params)
+    sky = tracks_miss(scene, params)
 
     zeros = torch.zeros((pool,), dtype=torch.float32, device=dev)
     ones = torch.ones_like(zeros)
@@ -81,6 +88,9 @@ def wavefront_batch(scene, params: IntegratorParams, xs_tab, ys_tab, sample_base
                   bounce=where(valid, torch.zeros_like(st["bounce"]), st["bounce"]))
         if dls:  # a fresh work unit must not inherit a pending direct-light term
             st["dls"] = dict(st["dls"], active=st["dls"]["active"] & ~valid)
+        if sky:  # nor a miss record (:287-288)
+            for k in ("miss_d", "miss_w"):
+                st[k] = tuple(where(valid, zeros, c) for c in st[k])
         return st, where(valid, ids, unit), q
 
     st, unit, q = assign(st, unit, q)
@@ -94,8 +104,11 @@ def wavefront_batch(scene, params: IntegratorParams, xs_tab, ys_tab, sample_base
         if dls:
             st["dls"]["active"] = st["dls"]["active"] & st["active"]
         term = was_active & ~st["active"]
+        L = st["L"]
+        if sky:  # a retiring path that missed adds its sky term
+            L = resolve_sky(scene, L, st["miss_d"], st["miss_w"], lanes=term)
         slot = torch.where(term, unit, torch.full_like(unit, n_work))
-        slots.index_put_((slot,), torch.stack(st["L"], dim=1))
+        slots.index_put_((slot,), torch.stack(L, dim=1))
         st, unit, q = assign(st, unit, q)
 
     per_sample = slots[:n_work].view(n_samples, n_pix, 3)

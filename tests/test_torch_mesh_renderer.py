@@ -2,8 +2,8 @@
 `!Model` scheme on the CPU (the plain torch version of the mesh kernel)
 against the JAX package's sample_batch on the same pixels and sample
 ids; mesh scenes outside the mesh path kernel through the wavefront;
-exact resume; what the port refuses; the CLI on a `!Model` scheme; and
-that a mesh render runs without jax."""
+a mesh scene with a cube map through the mesh kernel; exact resume; the
+CLI on a `!Model` scheme; and that a mesh render runs without jax."""
 import os
 import subprocess
 import sys
@@ -68,14 +68,32 @@ def test_resume_bitwise_exact(gltf_path, tmp_path):
     np.testing.assert_array_equal(resumed.target.acc, full.target.acc)
 
 
-@pytest.mark.parametrize("change", [
-    lambda s: s.scene_members.append(cfg.CubeMapMember(faces={})),
-], ids=["cubemap"])
-def test_unsupported_mesh_scenes_raise(gltf_path, change):
+def test_sky_mesh_scene_renders(gltf_path, tmp_path):
+    """A mesh scene with a cube map takes mesh_trace (its plain version
+    here); the image passes the tile gate against the wavefront's, and a
+    resume is bitwise."""
+    from test_torch_cubemap import add_sky, write_faces
+
     _, scheme = octa_schemes(gltf_path, W, H)
-    change(scheme)
-    with pytest.raises(NotImplementedError):
-        Renderer(scheme, device="cpu")
+    add_sky(scheme, cfg, cfg.parse_member, write_faces(tmp_path))
+    r = Renderer(scheme, device="cpu", samples_per_launch=3)
+    assert r.driver == "mesh_fused" and r.tables.sky is not None
+    img = r.render(samples=SPP)
+    wave = Renderer(scheme, device="cpu", use_mesh_fused=False)
+    assert wave.driver == "wavefront"
+    tile_gate(img, wave.render(samples=SPP))
+    assert img.mean() > 0.05
+    full = Renderer(scheme, device="cpu")
+    full.render(samples=4, batch=2)
+    first = Renderer(scheme, device="cpu")
+    first.render(samples=2)
+    path = str(tmp_path / "ck.npz")
+    ckpt.save(path, first.target)
+    resumed = Renderer(scheme, device="cpu")
+    resumed.target = ckpt.load(path)
+    resumed.render(samples=2)
+    assert resumed.target.count == full.target.count == 4
+    np.testing.assert_array_equal(resumed.target.acc, full.target.acc)
 
 
 def _cpu_mode(s, mod, parse):

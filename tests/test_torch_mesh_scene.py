@@ -372,12 +372,26 @@ def test_surface_scene_matches_jax():
 # --- the two repairs -------------------------------------------------------
 
 
-def test_from_reference_rejects_cube_map(tmp_path):
-    js, _ = octa_schemes(write_gltf(tmp_path / "m.gltf"), n_inst=1)
-    fields = reference_fields(jax_build_scene(js))
-    fields["has_cubemap"] = True
-    with pytest.raises(NotImplementedError):
-        from_reference(fields)
+def test_from_reference_carries_cube_map(tmp_path):
+    """A mesh scene with a cube map crosses with its sky pool, face
+    tables and has_cubemap, beside the mesh's own texel pool, and its
+    MeshTables carry the sky."""
+    from raytrace_tpu_torch.models.camera import build_camera
+    from test_torch_cubemap import SKY_FIELDS, add_sky, write_faces
+
+    js, ps = octa_schemes(write_gltf(tmp_path / "m.gltf", textured=True), n_inst=1)
+    value = write_faces(tmp_path)
+    add_sky(js, jax_cfg, jax_cfg._parse_member, value)
+    add_sky(ps, cfg, cfg.parse_member, value)
+    jscene = jax_build_scene(js)
+    back, ours = from_reference(reference_fields(jscene)), build_scene(ps)
+    assert back.has_cubemap and ours.has_cubemap
+    for f in SKY_FIELDS + ("tex_pool",):
+        np.testing.assert_array_equal(getattr(back, f), np.asarray(getattr(jscene, f)), f)
+        np.testing.assert_array_equal(getattr(back, f), getattr(ours, f), f)
+    assert back.tex_pool.size == 8 * 16 + 4 * 4
+    tables = mk.MeshTables(back, build_camera(ps.cam, 64, 32), 0.5)
+    np.testing.assert_array_equal(tables.sky.face[:, 0].numpy(), ours.cm_offsets)
 
 
 def test_trace_kernel_supports_rejects_mesh(tmp_path):

@@ -2,8 +2,9 @@
 CPU (the plain torch version of the kernel) against the JAX package's
 sample_batch on the same pixels and sample ids; the Renderer's choice of
 driver (scenes outside the fused kernel go to the wavefront, and their
-images agree with the JAX package); exact sample counts and resume; what
-the port refuses; the CLI; and that the port runs without jax or flax."""
+images agree with the JAX package); cube-map scenes through the fused
+kernel; exact sample counts and resume; what the port refuses; the CLI;
+and that the port runs without jax or flax."""
 import os
 import subprocess
 import sys
@@ -127,14 +128,42 @@ def test_wavefront_scenes_render(name):
     assert img.mean() > 0.01
 
 
-@pytest.mark.parametrize("change", [
-    lambda s: s.scene_members.append(cfg.CubeMapMember(faces={})),
-], ids=["cubemap"])
-def test_unsupported_scenes_raise(change):
-    scheme = walled_scheme(W, H)
-    change(scheme)
-    with pytest.raises(NotImplementedError):
-        Renderer(scheme, device="cpu")
+def _sky_scheme(tmp_path):
+    """The mixed scene (open to the sky) under a cube map."""
+    from test_torch_cubemap import add_sky, write_faces
+
+    return add_sky(schemes("mixed", W, H, 5)[1], cfg, cfg.parse_member, write_faces(tmp_path))
+
+
+def test_sky_scene_renders(tmp_path):
+    """A meshless cube-map scene takes trace_tiles (its plain version
+    here); the image passes the tile gate against the wavefront's, and
+    the sky shows: the scene without it is darker."""
+    scheme = _sky_scheme(tmp_path)
+    r = Renderer(scheme, device="cpu", samples_per_launch=3)
+    assert r.driver == "fused" and r.tables.sky is not None
+    img = r.render(samples=SPP)
+    wave = Renderer(scheme, device="cpu", use_wavefront=True)
+    assert wave.driver == "wavefront" and wave.tables.sky is not None
+    tile_gate(img, wave.render(samples=SPP))
+    no_sky = Renderer(schemes("mixed", W, H, 5)[1], device="cpu").render(samples=SPP)
+    assert img.mean() > 1.5 * no_sky.mean()
+    assert np.abs(img - no_sky).max(-1).mean() > 0.05  # most pixels see it
+
+
+def test_sky_resume_bitwise_exact(tmp_path):
+    scheme = _sky_scheme(tmp_path)
+    full = Renderer(scheme, device="cpu")
+    full.render(samples=4, batch=2)
+    first = Renderer(scheme, device="cpu")
+    first.render(samples=2)
+    path = str(tmp_path / "ck.npz")
+    ckpt.save(path, first.target)
+    resumed = Renderer(scheme, device="cpu")
+    resumed.target = ckpt.load(path)
+    resumed.render(samples=2)
+    assert resumed.target.count == full.target.count == 4
+    np.testing.assert_array_equal(resumed.target.acc, full.target.acc)
 
 
 @pytest.mark.parametrize("kw,driver", [
@@ -231,6 +260,30 @@ def test_cli_writes_png_and_resumes(tmp_path):
     cli.main([str(yml), "--device", "cpu", "--samples", "1", "--out", str(out),
               "--resume", str(ck), "--checkpoint", str(ck)])
     assert ckpt.load(str(ck)).count == 3
+
+
+def test_cli_renders_cube_map_scheme(tmp_path, capsys):
+    """A !DistantCubeMap scheme: face paths relative to the scheme resolve
+    against its directory."""
+    from raytrace_tpu_torch import cli
+    from test_torch_cubemap import write_faces
+
+    faces = "".join(f"    {n}: [{os.path.basename(p)}, {us}, {vs}]\n"
+                    for n, (p, us, vs) in write_faces(tmp_path).items())
+    yml = tmp_path / "sky.yml"
+    yml.write_text(
+        "render_info: {width: 32, height: 16, samps_per_pix: 2,\n"
+        "  rad_info: {russ_roull_info: {assured_depth: 3, max_thres: 0.5}}}\n"
+        "cam: {d: [0, 0, -5], o: [0, -1, 0], up: [0, 1, 0], screen_width: 10, screen_height: 5}\n"
+        "scene_members:\n"
+        "- !Sphere {c: [0, -1, -6], r: 1, coloring: !Solid [0.75, 0.75, 0.75],\n"
+        "   mat: {divert_ray: Spec}}\n"
+        f"- !DistantCubeMap\n{faces}")
+    out = tmp_path / "out.png"
+    cli.main([str(yml), "no_ui", "--device", "cpu", "--out", str(out)])
+    assert "fused driver" in capsys.readouterr().out
+    png = np.asarray(Image.open(out))
+    assert png.shape == (16, 32, 4) and (png[..., :3].max(-1) > 0).mean() > 0.9
 
 
 def test_cli_mode_cpu(tmp_path, capsys):

@@ -120,18 +120,40 @@ def test_load_scheme_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("member", [
-    # glTF models are ported; animated ones are not (ROADMAP queue 1, item 14)
+    # glTF models are ported; animated ones are not (ROADMAP queue 1, item 6)
     cfg.Tagged("Model", {"path": "x.gltf", "uniform_scale": 1.0,
                          "translation": [0, 0, 0], "euler_angles": [0, 0, 0],
                          "animation": {"keyframes": []}}),
-    cfg.Tagged("DistantCubeMap", {f: ["x.png", 1.0, 1.0] for f in
-                                  ("neg_z", "pos_z", "neg_x", "pos_x", "neg_y", "pos_y")}),
 ])
 def test_build_scene_rejects_unported_members(member):
     scheme = walled_scheme(32, 16)
     with pytest.raises(NotImplementedError):
         scheme.scene_members.append(cfg.parse_member(member))
         build_scene(scheme)
+
+
+def test_build_scene_takes_cube_map(tmp_path):
+    """The walled scheme with a !DistantCubeMap member: every SceneArrays
+    field equals the JAX build's, the sky's among them, and the packed
+    tables stay those of the scene without it."""
+    from test_torch_cubemap import add_sky, write_faces
+
+    value = write_faces(tmp_path)
+    js, ps = schemes("walled", 64, 32, 2)
+    add_sky(js, jax_cfg, jax_cfg._parse_member, value)
+    add_sky(ps, cfg, cfg.parse_member, value)
+    jscene, scene = jax_build_scene(js), build_scene(ps)
+    assert scene.has_cubemap and scene.cm_dims.min() > 0
+    for f in dataclasses.fields(SceneArrays):
+        ours, ref = getattr(scene, f.name), getattr(jscene, f.name)
+        if isinstance(ours, np.ndarray):
+            assert ours.dtype == np.asarray(ref).dtype, f.name
+            np.testing.assert_array_equal(ours, np.asarray(ref), err_msg=f.name)
+        else:
+            assert ours == ref, f.name
+    plain = build_scene(schemes("walled", 64, 32, 2)[1])
+    for ours, ref in zip(tk.pack_scene_tables(scene), tk.pack_scene_tables(plain)):
+        np.testing.assert_array_equal(ours, ref)
 
 
 def test_from_reference_rejects_mesh():

@@ -119,7 +119,7 @@ def test_trace_tiles_reference_matches_jax(name, spl):
     ref = [np.asarray(r) for r in ref]
 
     tables = tk.SceneTables(scene, build_camera(ps.cam, w, h), 0.5)
-    launches = tk.LAUNCHES
+    launches = dict(tk.LAUNCHES)
     ours = tk.trace_tiles(torch.from_numpy(xs), torch.from_numpy(ys), torch.from_numpy(samp),
                           tables.sph, tables.ft, tables.cam_vec, **statics)
     assert tk.LAUNCHES == launches  # CPU tensors never reach the CUDA kernel
