@@ -116,7 +116,26 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    frame on the card against the CPU and a bitwise resume. A sky scene
    on the card must launch the sky instantiations (their launch counts).
    Every resume loads its checkpoint into a new Renderer. Prints the
-   phase's seconds.
+   phase's seconds;
+10. the differentiable tier: walled 1200x600 (gpu semantics, assured
+   depth 5, 24 bounces) through the differentiable sample_batch at one
+   sample (id 0): the image bitwise the forward render's, every gradient
+   of split_diff_scene's fields and the camera's o, d, up, right finite,
+   forward and backward ms and peak allocated memory; then five steps of
+   make_train_step from the scene with its two emitters' emissive halved
+   and its four walls' rgb moved by 0.1 toward the true image at the same
+   sample ids, each a tenth of the Polyak step, the loss printed and
+   falling at every step. The a380-class 1216x608 frame likewise, through
+   mesh_hit: the (t, u, v) recomputed at the kernel's ids on the frame's
+   primary rays bitwise the kernel's, mesh_hit's launches (and no other
+   kernel's) with the counts reset just before and read just after, the
+   image bitwise the forward render's, and the image and every gradient
+   against the same render with the plain walk in mesh_hit's place (the
+   tile gate, the lanes that differ, relative L2 within 1e-2); the
+   2,097-triangle cut at 152x76 on the card against the cpu (every
+   gradient within 1e-3) and walled in cpu semantics at that size
+   (within 1e-2); and, in a child process, a torch.profiler table of the
+   a380-class render's forward and backward with mesh_hit's ms a launch.
 
 Each kernel's record has its bound (bound_ms, bound_by): the larger of
 its bytes over 3.35 TB/s and its FP32 work, counted from the sources,
@@ -127,7 +146,9 @@ trace_tiles and mesh_trace records also carry their sky
 instantiations' sky_ms, sky_bound_ms / sky_bound_by (the same count on
 the plain version's counts of the sky launch, plus SKY_INSTR a fetch and
 the distinct 32-byte sectors of the sky pool its fetches read) and
-sky_launches_per_render.
+sky_launches_per_render; the mesh_hit record its launches a
+differentiable a380-class render (diff_launches_per_render) and its ms a
+launch there (diff_in_render_ms, phase 10's profiler table).
 
 Any failure raises (exit code != 0). The line before the last is the
 kernels' JSON record; the last line is the device JSON object. Without a
@@ -1553,18 +1574,319 @@ def sky_bounds(kernels, sky, shape, walk_ops, card):
               flush=True)
 
 
+# ---- 10. the differentiable tier ----
+DIFF_STEPS = 5  # make_train_step steps on walled
+DIFF_GRAD_GATE = 1e-2  # relative L2 of each a380-class gradient, mesh_hit against the plain walk
+DIFF_CPU_GATE = 1e-3  # relative L2 of each gradient of the 2,097-triangle cut, card against cpu
+DIFF_CPU_GEOM_GATE = 1e-2  # the same of walled in cpu semantics (diff_card_vs_cpu)
+DIFF_CUT = (152, 76)  # the 2,097-triangle cut's frame for card against cpu
+CAM_LEAVES = ("o", "d", "up", "right")
+
+
+def diff_setup(scheme, device):
+    """(SceneTensors, camera, differentiable params, xs, ys, weights) of a
+    scheme's whole frame on `device`; the loss weights uniform in [0, 1)
+    from seed 0, the same on every device."""
+    import dataclasses
+
+    import torch
+
+    from raytrace_tpu_torch.models.camera import build_camera
+    from raytrace_tpu_torch.models.scene import SceneTensors, build_scene
+    from raytrace_tpu_torch.render.renderer import params_from_scheme
+
+    w, h = scheme.render_info.width, scheme.render_info.height
+    cam = build_camera(scheme.cam, w, h)
+    params = dataclasses.replace(params_from_scheme(scheme), differentiable=True)
+    scene = SceneTensors(build_scene(scheme), cam, params.max_thres).to(device)
+    flat = torch.arange(w * h, dtype=torch.int32, device=device)
+    wts = torch.rand((w * h, 3), generator=torch.Generator().manual_seed(0)).to(device)
+    return scene, cam, params, flat % w, flat // w, wts
+
+
+def diff_render(scene, cam, params, xs, ys, wts):
+    """One differentiable sample (id 0) of the lanes (xs, ys) through
+    renderer.sample_batch, then the backward of sum(sums * wts). Returns
+    (sums, {field: gradient} over split_diff_scene's fields and the
+    camera's o, d, up, right as cam.*, forward ms, backward ms, the peak
+    of allocated device bytes over both (0 on the cpu))."""
+    import torch
+
+    from raytrace_tpu_torch.ops.raygen import camera_to_arrays
+    from raytrace_tpu_torch.parallel.distributed import split_diff_scene
+    from raytrace_tpu_torch.render.renderer import sample_batch
+
+    dev = xs.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    diff, merge = split_diff_scene(scene)
+    leaves = {k: v.requires_grad_() for k, v in diff.items()}
+    cm = camera_to_arrays(cam, dev)
+    cam_leaves = {f"cam.{k}": getattr(cm, k).requires_grad_() for k in CAM_LEAVES}
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = sample_batch(merge(leaves), params, xs, ys, 0, 1, cam=cm)
+    sync()
+    t1 = time.perf_counter()
+    (out * wts).sum().backward()
+    sync()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    grads = {k: v.grad if v.grad is not None else torch.zeros_like(v)
+             for k, v in {**leaves, **cam_leaves}.items()}
+    return out.detach(), grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3, peak
+
+
+def rel_l2(ours, ref):
+    """|ours - ref| / |ref| in f64: 0 where both are 0, inf where only ref is."""
+    num = float((ours.double() - ref.double().to(ours.device)).norm())
+    den = float(ref.double().norm())
+    return 0.0 if num == 0.0 else (num / den if den else float("inf"))
+
+
+def plain_mesh_hit(o, d, t_seed, tables, *, t_min):
+    """mesh_hit's plain walk on the card's tensors, in the kernel's place."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+
+    t, gid, u, v = mk.mesh_hit_walk(o, d, t_seed, tables, t_min=float(np.float32(t_min)))
+    return t, gid.to(torch.int32), u, v
+
+
+def polyak_step(scene, loss, grads, fields=("sph_emissive", "sph_rgb"), fraction=0.1):
+    """A gradient step over `fields` of `fraction` * loss / |g|^2 (as
+    tests/test_torch_train_step.py takes it)."""
+    lr = fraction * float(loss) / sum(float((grads[k] ** 2).sum()) for k in fields)
+    return scene.replace(**{k: getattr(scene, k) - lr * grads[k] for k in fields})
+
+
+def diff_walled(dev, card):
+    """Walled 1200x600 through the differentiable sample_batch: the image
+    bitwise the forward render's, finite gradients, forward / backward ms
+    and peak memory; then DIFF_STEPS steps of make_train_step from the
+    perturbed scene toward the true scene's image, the loss falling."""
+    import dataclasses
+
+    import torch
+
+    from raytrace_tpu_torch.models.walled import walled_scheme
+    from raytrace_tpu_torch.ops.raygen import camera_to_arrays
+    from raytrace_tpu_torch.parallel.distributed import make_train_step
+    from raytrace_tpu_torch.render.renderer import sample_batch
+
+    scene, cam, params, xs, ys, wts = diff_setup(walled_scheme(W, H), dev)
+    with torch.no_grad():
+        plain = sample_batch(scene, dataclasses.replace(params, differentiable=False), xs, ys, 0, 1)
+    diff_render(scene, cam, params, xs, ys, wts)  # warm: loads torch's kernels
+    out, grads, fwd, bwd, peak = diff_render(scene, cam, params, xs, ys, wts)
+    assert torch.equal(out, plain), "walled: the differentiable forward is not the forward render"
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    assert not bad, f"walled: non-finite gradients of {bad}"
+    print(f"[diff] walled {W}x{H}, 1 sample, {params.mode} semantics, assured "
+          f"{params.assured_depth}, {params.max_bounces} bounces: image bitwise the forward "
+          f"render's; forward {fwd:.1f} ms, backward {bwd:.1f} ms, peak {peak / 2**30:.2f} GiB "
+          f"allocated; |gradient| "
+          + ", ".join(f"{k} {float(g.norm()):.4g}" for k, g in grads.items()) + f" [{card}]",
+          flush=True)
+
+    # train from the perturbed scene toward the true image at the same sample ids
+    em, rgb = scene.sph_emissive.clone(), scene.sph_rgb.clone()
+    em[7:9] *= 0.5  # the two emitters
+    rgb[9:13] += 0.1  # the four walls
+    sc, losses, times = scene.replace(sph_emissive=em, sph_rgb=rgb), [], []
+    step = make_train_step()
+    for _ in range(DIFF_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, (g, _) = step(sc, camera_to_arrays(cam, dev), params, xs, ys, 0, plain)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        sc = polyak_step(sc, loss, g)
+    print(f"[diff] walled make_train_step x{DIFF_STEPS} (sph_emissive, sph_rgb, a tenth of the "
+          f"Polyak step): loss {losses}, ms per step {[round(t, 1) for t in times]} [{card}]",
+          flush=True)
+    assert all(b < a for a, b in zip(losses, losses[1:])), "walled: the loss did not fall"
+    return dict(fwd_ms=fwd, bwd_ms=bwd, peak_gib=peak / 2**30, losses=losses, step_ms=times)
+
+
+def diff_a380(dev, card):
+    """The a380-class 1216x608 frame through the differentiable
+    sample_batch: mesh_hit's launches; the recomputed (t, u, v) bitwise the
+    kernel's on the frame's primary rays; the image bitwise the forward
+    render's; the image and every gradient against the same render with
+    the plain walk in mesh_hit's place (the tile gate, DIFF_GRAD_GATE)."""
+    import dataclasses
+
+    import torch
+
+    from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.ops import raygen, rng
+    from raytrace_tpu_torch.ops.intersect import EPS, INF, triangle_tuv
+    from raytrace_tpu_torch.ops.texture import take
+    from raytrace_tpu_torch.render import integrator as itg
+    from raytrace_tpu_torch.render.renderer import sample_batch
+
+    scene, cam, params, xs, ys, wts = diff_setup(
+        procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP), dev)
+
+    # the primary rays: the kernel's (t, u, v) and the recomputation at its ids
+    state = rng.init_state(xs, ys, torch.zeros_like(xs))
+    _, ro, rd = raygen.generate_paths(state, xs, ys, scene.cam, scene.has_lens)
+    t, gid, u, v = mk.mesh_hit(ro, rd, torch.full_like(ro[0], INF), scene.mesh, t_min=EPS)
+    won = gid >= 0
+    g = gid.long().clamp(min=0)
+    rt, ru, rv = triangle_tuv(*ro, *rd, *(take(getattr(scene, k), g).unbind(1)
+                                          for k in ("mt_v0", "mt_e1", "mt_e2")))
+    same = all(torch.equal(a[won], b[won]) for a, b in ((t, rt), (u, ru), (v, rv)))
+    print(f"[diff] a380-class primary rays: {int(won.sum())} of {won.numel()} hit the mesh; "
+          f"(t, u, v) recomputed at mesh_hit's ids from mt_v0 / mt_e1 / mt_e2: "
+          f"{'bitwise equal to' if same else 'different from'} the kernel's", flush=True)
+    assert same, "the recomputed (t, u, v) differ from the kernel's"
+
+    with torch.no_grad():
+        forward = sample_batch(scene, dataclasses.replace(params, differentiable=False), xs, ys,
+                               0, 1)
+    diff_render(scene, cam, params, xs, ys, wts)  # warm
+    reset_launches()
+    out, grads, fwd, bwd, peak = diff_render(scene, cam, params, xs, ys, wts)
+    counts = dict(mk.LAUNCHES)
+    launches = counts.pop("mesh_hit")
+    assert launches > 0 and not any(counts.values()), f"launches {counts}, mesh_hit {launches}"
+    assert torch.equal(out, forward), "a380-class: the differentiable forward is not the forward"
+    real = itg.mesh_hit
+    itg.mesh_hit = plain_mesh_hit
+    try:
+        out_p, grads_p, fwd_p, bwd_p, peak_p = diff_render(scene, cam, params, xs, ys, wts)
+    finally:
+        itg.mesh_hit = real
+    print(f"[diff] a380-class {MESH_W}x{MESH_H}, 1 sample, {params.mode} semantics, "
+          f"{params.max_bounces} bounces, through mesh_hit ({launches} launches a render): forward "
+          f"{fwd:.1f} ms, backward {bwd:.1f} ms, peak {peak / 2**30:.2f} GiB; image bitwise the "
+          f"forward render's; with the plain walk in its place: forward {fwd_p:.1f} ms, backward "
+          f"{bwd_p:.1f} ms, peak {peak_p / 2**30:.2f} GiB [{card}]", flush=True)
+    lanes = int((out != out_p).any(dim=1).sum())
+    print(f"[diff] a380-class: {lanes} of {out.shape[0]} lanes differ between mesh_hit and the "
+          f"plain walk", flush=True)
+    img = lambda a: a.reshape(MESH_H, MESH_W, 3).cpu().numpy()
+    gate("diff", f"a380-class {MESH_W}x{MESH_H}x1 mesh_hit vs the plain walk", img(out), img(out_p))
+    rels = {k: rel_l2(grads[k], grads_p[k]) for k in grads}
+    print("[diff] a380-class gradients, relative L2 mesh_hit vs the plain walk (|plain|): "
+          + ", ".join(f"{k} {r:.3e} ({float(grads_p[k].norm()):.4g})" for k, r in rels.items()),
+          flush=True)
+    bad = [k for k, r in rels.items() if not r <= DIFF_GRAD_GATE]
+    assert not bad, f"a380-class: the gradients of {bad} are over the {DIFF_GRAD_GATE} gate"
+    return dict(launches=launches, fwd_ms=fwd, bwd_ms=bwd, peak_gib=peak / 2**30, lanes=lanes,
+                rel_l2=rels)
+
+
+def diff_card_vs_cpu(dev, card):
+    """One differentiable sample at DIFF_CUT on the card (mesh_hit) and on
+    the cpu (the plain walk): the 2,097-triangle cut (four 256x256
+    textures; in gpu semantics only its emissive, colour factor and texels
+    take gradients), every gradient within DIFF_CPU_GATE; and walled in
+    cpu semantics, where the spheres' centres and radii and the camera
+    take them too (the dielectrics' angle-dependent weights), within
+    DIFF_CPU_GEOM_GATE: sine and cosine may differ by an ulp between the
+    card and the cpu, and move a knife-edge path."""
+    import torch
+
+    from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.models.config import ModelMember
+    from raytrace_tpu_torch.models.walled import walled_scheme
+
+    w, h = DIFF_CUT
+    surface = procedural.a380_cam_scheme(w, h, 1)
+    surface.scene_members.append(ModelMember(path="<2,097-triangle surface>", loaded=[
+        procedural.make_mesh(2097, n_textures=4, tex_size=256)]))
+    result = {}
+    for label, scheme, limit in (
+            ("surface-2097", surface, DIFF_CPU_GATE),
+            ("walled cpu semantics", variant(walled_scheme(w, h), use_gpu=False),
+             DIFF_CPU_GEOM_GATE)):
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            runs.append(diff_render(*diff_setup(scheme, device)))
+            print(f"[diff] {label} {w}x{h} on the {device.type}: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        (out, grads, *_), (out_c, grads_c, *_) = runs
+        lanes = int((out.cpu() != out_c).any(dim=1).sum())
+        rels = {k: rel_l2(grads[k].cpu(), grads_c[k]) for k in grads}
+        print(f"[diff] {label} card vs cpu: {lanes} lanes differ; gradients' relative L2 "
+              f"(|cpu|) " + ", ".join(f"{k} {r:.3e} ({float(grads_c[k].norm()):.4g})"
+                                     for k, r in rels.items()), flush=True)
+        bad = [k for k, r in rels.items() if not r <= limit]
+        assert not bad, f"{label}: card and cpu gradients of {bad} differ over {limit}"
+        result[label] = dict(lanes=lanes, rel_l2=rels)
+    return result
+
+
+def diff_phase(dev, card):
+    """Phase 10: the differentiable tier (see the module docstring)."""
+    t_phase = time.perf_counter()
+    result = dict(walled=diff_walled(dev, card), a380=diff_a380(dev, card),
+                  card_vs_cpu=diff_card_vs_cpu(dev, card))
+    print(f"[diff] phase 10 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return result
+
+
+def profile_diff(card):
+    """torch.profiler over one warm differentiable a380-class render
+    (forward and backward): device time by kernel, and mesh_hit's ms per
+    launch and share. Returns {ms, share, device_ms, launches} or None
+    without device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from raytrace_tpu_torch.models import procedural
+
+    setup = diff_setup(procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP), torch.device("cuda", 0))
+    diff_render(*setup)  # warm
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, fwd, bwd, _ = diff_render(*setup)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    total = sum(float(e.self_device_time_total) for e in kernels)
+    label = f"a380-class {MESH_W}x{MESH_H} differentiable render, forward and backward"
+    print(f"[profile] {label}: device time {total / 1e3:.3f} ms in {fwd + bwd:.1f} ms of wall "
+          f"time (profiled) [{card}]", flush=True)
+    if total <= 0:
+        print("[profile] the profiler recorded no device time", flush=True)
+        return None
+    for e in sorted(kernels, key=lambda e: float(e.self_device_time_total), reverse=True)[:12]:
+        us = float(e.self_device_time_total)
+        print(f"[profile] {us / total:7.2%} {us / 1e3:10.3f} ms {e.count:7d}x {e.key[:90]}",
+              flush=True)
+    mine = [e for e in kernels if "mesh_hit_kernel" in e.key]
+    hit, count = sum(float(e.self_device_time_total) for e in mine), sum(e.count for e in mine)
+    print(f"[profile] mesh_hit_kernel {hit / total:.2%} of device time, {count} launches, "
+          f"{hit / 1e3 / max(count, 1):.4f} ms a launch", flush=True)
+    return {"ms": hit / 1e3 / max(count, 1), "share": hit / total, "device_ms": total / 1e3,
+            "launches": count}
+
+
 PROFILE_CHILD = "--profile"  # the argument of the child that profiles warm renders
 
 
 def profile_child(what, card) -> int:
     """Profiler tables in a process of its own: "walled", phase 4's warm
     walled 1200x600 render(64); "sky", phase 9's warm outdoor + sky
-    render(64) and a380-class + sky render(16) (the faces written anew).
+    render(64) and a380-class + sky render(16) (the faces written anew);
+    "diff", phase 10's differentiable a380-class render (profile_diff).
     Prints {label: profile's result} as the last line."""
     from raytrace_tpu_torch.models import procedural
     from raytrace_tpu_torch.models.walled import walled_scheme
     from raytrace_tpu_torch.render.renderer import Renderer
 
+    if what == "diff":
+        print(json.dumps({"a380-class differentiable": profile_diff(card)}), flush=True)
+        return 0
     results = {}
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_sky_") as face_dir:
         if what == "walled":
@@ -1788,6 +2110,10 @@ def main() -> int:
               + f" [{card}]", flush=True)
 
     sky_bounds(kernels, sky, shape, walk_ops, card)
+    diff = diff_phase(dev, card)
+    diff_profile = profile_in_child("diff", card)["a380-class differentiable"]
+    hit_record["diff_launches_per_render"] = diff["a380"]["launches"]
+    hit_record["diff_in_render_ms"] = diff_profile["ms"] if diff_profile else None
     kernels.append(hit_record)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,10 +15,12 @@ cm_dims and cm_uv_scales in the WGSL face order (config.FACE_ORDER).
 
 `SceneTensors` is the scene on the device for the integrator and the
 wavefront driver (render/integrator.py): the JAX Renderer's one
-`jax.device_put(self.scene)` per Renderer (renderer.py:828-830).
+`jax.device_put(self.scene)` per Renderer (renderer.py:828-830). Its
+`replace` is the JAX `scene.replace(**diff)` of the differentiable tier.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field, fields
 from typing import Mapping, Optional
 
@@ -431,6 +433,21 @@ _SPH_TENSORS = ("sph_c", "sph_r", "sph_rgb", "sph_emissive", "sph_has_em", "sph_
                 "sph_diffp", "sph_n_out", "sph_n_in")
 _FT_TENSORS = ("ft_v0", "ft_e1", "ft_e2", "ft_norm", "ft_rgb", "ft_emissive", "ft_has_em",
                "ft_kind", "ft_diffp", "ft_n_out", "ft_n_in")
+_MT_TENSORS = ("mt_v0", "mt_e1", "mt_e2")  # the differentiable tier's mesh hit (integrator.py)
+# the fields `replace` takes besides the buffers above
+_ATTR_LEAVES = {"mt_const_norm": (0, 3), "mt_rgb_factor": (13, 16)}  # mt_attr columns
+_POOL_LEAVES = ("tex_pool", "sky_pool")
+
+
+def _view(module: nn.Module, **buffers) -> nn.Module:
+    """A shallow copy of `module` whose buffers and submodules can be set
+    without touching the original; `buffers` set on it."""
+    view = copy.copy(module)
+    view._buffers = dict(module._buffers)
+    view._modules = dict(module._modules)
+    for k, t in buffers.items():
+        view._buffers[k] = t
+    return view
 
 
 class SceneTensors(nn.Module):
@@ -442,8 +459,10 @@ class SceneTensors(nn.Module):
     attributes of `ops.mesh_kernel.MeshTables` (None without a mesh), and
     `sky`, the cube map's `ops.cubemap.SkyTables` (None without one).
     `cam` is the camera row as Python floats (raygen's constants) and
-    `emitters` the emissive spheres (index, center, emissive) that
-    direct-light sampling sums over, as float32 values."""
+    `emitters` the indices of the emissive spheres that direct-light
+    sampling sums over. A mesh scene also holds the mesh's own vertex
+    tables mt_v0, mt_e1, mt_e2, which the differentiable tier's mesh hit
+    reads."""
 
     def __init__(self, scene: SceneArrays, cam, max_thres: float):
         super().__init__()
@@ -459,12 +478,57 @@ class SceneTensors(nn.Module):
                 a = np.ascontiguousarray(getattr(scene, k)[:n])
                 self.register_buffer(k, torch.from_numpy(a.astype(np.int64) if a.dtype == np.int32
                                                          else a))
+        if self.n_mesh_tris:
+            for k in _MT_TENSORS:
+                self.register_buffer(k, torch.from_numpy(np.ascontiguousarray(getattr(scene, k))))
         self.mesh = MeshTables(scene, cam, max_thres) if self.n_mesh_tris else None
         # a mesh scene's sky rides in its MeshTables: one copy on the device
         self.sky = (self.mesh.sky if self.mesh is not None
                     else SkyTables(scene) if scene.has_cubemap else None)
         self.cam = [float(v) for v in make_cam_vec(cam, max_thres).reshape(-1)]
         self.has_lens = cam.lens_r is not None
-        self.emitters = [(e, [float(v) for v in scene.sph_c[e]],
-                          [float(v) for v in scene.sph_emissive[e]])
-                         for e in range(S) if bool(scene.sph_has_em[e])]
+        self.emitters = [e for e in range(S) if bool(scene.sph_has_em[e])]
+
+    def replace(self, **leaves) -> "SceneTensors":
+        """A view of this scene whose fields named in `leaves` are the
+        given tensors, and whose other buffers are this scene's own (the
+        JAX package's `scene.replace(**diff)`): the sph_*, ft_* and
+        mt_v0 / mt_e1 / mt_e2 columns as they are; mt_const_norm (M, 3)
+        and mt_rgb_factor (M, 3) as the columns 0:3 and 13:16 of the
+        mesh's attr table, which the shading reads (the JAX package's
+        mt_const_norm / mt_rgb_factor fields are copies that its shading
+        never reads); tex_pool and sky_pool as flat (3T,) f32 RGB pools,
+        as texture.pool_to_f32_flat gives them."""
+        from ..ops.texture import POOL_F32
+
+        known = _SPH_TENSORS + _FT_TENSORS + _MT_TENSORS + tuple(_ATTR_LEAVES) + _POOL_LEAVES
+        unknown = sorted(set(leaves) - set(known))
+        if unknown:
+            raise ValueError(f"SceneTensors.replace takes none of {unknown}")
+        needs_mesh = set(leaves) & (set(_MT_TENSORS) | set(_ATTR_LEAVES) | {"tex_pool"})
+        if needs_mesh and self.mesh is None:
+            raise ValueError(f"{sorted(needs_mesh)}: the scene has no mesh")
+        if "sky_pool" in leaves and self.sky is None:
+            raise ValueError("sky_pool: the scene has no cube map")
+        view = _view(self, **{k: v for k, v in leaves.items()
+                              if k in _SPH_TENSORS + _FT_TENSORS + _MT_TENSORS})
+        if self.mesh is None:
+            if "sky_pool" in leaves:
+                view.sky = _view(self.sky, pool=leaves["sky_pool"])
+                view.sky.kind = POOL_F32
+            return view
+        mesh = view.mesh = _view(self.mesh)
+        if set(leaves) & set(_ATTR_LEAVES):
+            a = self.mesh.attr
+            cols, at = [], 0
+            for name, (lo, hi) in _ATTR_LEAVES.items():
+                cols += [a[:, at:lo], leaves.get(name, a[:, lo:hi])]
+                at = hi
+            mesh.attr = torch.cat(cols + [a[:, at:]], dim=1)
+        if "tex_pool" in leaves:
+            mesh.pool, mesh.pool_kind = leaves["tex_pool"], POOL_F32
+        if "sky_pool" in leaves:
+            mesh.sky = _view(self.sky, pool=leaves["sky_pool"])
+            mesh.sky.kind = POOL_F32
+        view.sky = mesh.sky
+        return view

@@ -70,7 +70,7 @@ from . import cubemap, raygen, rng
 from .raygen import normalize
 from .bsdf import uniform_bsdf
 from .intersect import EPS, INF, closest_sph_ft, triangle_tuv
-from .texture import pool_tensor, sample_nearest
+from .texture import pool_tensor, sample_nearest, take
 from .trace_kernel import CAM_LEN, FT_COLS, MAX_PRIMS, SPH_COLS, make_cam_vec, pack_scene_tables
 
 MAX_BRUTE_TRIS = 0  # brute route up to this many triangles: none (see the docstring)
@@ -187,10 +187,11 @@ def supports(scene, params) -> bool:
     semantics only (integrator.uses_dls; the JAX integrator.py:920), and
     the mesh kernel is the faster driver
     (tests/test_torch_mesh_renderer.py holds the two under the tile
-    gate)."""
+    gate). Not a differentiable render: the kernel has no backward."""
     return (
         params.mode == "gpu"
         and not params.debug_single_ray
+        and not params.differentiable
         and scene.n_mesh_tris > 0
         and scene.n_clusters > 0
         and scene.n_spheres <= MAX_PRIMS
@@ -409,7 +410,7 @@ def mesh_attrs(attr, desc, pool, pool_kind: int, mi, bu, bv):
     texel, metal from the blue texel channel and rough from the green.
     attr (M, 48) f32, desc (M, 9) int32; mi (N,) triangle ids; bu, bv
     barycentrics. Returns (nx, ny, nz, r, g, b, metal, rough)."""
-    a = attr[mi]
+    a = take(attr, mi)
     dsc = desc[mi]
     col = lambda j: a[:, j]
     b0 = 1.0 - bu - bv

@@ -14,9 +14,15 @@ final normalize of the direction `d + s_x*right + s_y*up + jitter`:
 
 Draw order: lens u, v (when the camera has a lens), then jitter u, v,
 from the default (`weyl`) generator. The camera is the (18,) row of
-`ops.trace_kernel.make_cam_vec`.
+`ops.trace_kernel.make_cam_vec` as Python floats, or, where gradients
+must reach it, a `CameraArrays` of tensors (the JAX renderer's
+`CameraArrays`, renderer.py:34-61), whose `row()` stands in for the
+floats and gives the same rays bit for bit.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,6 +32,40 @@ from . import rng
 # float32 constants, so that host-float promotion cannot change a rounding
 TWO_PI = float(np.float32(2.0 * np.pi))
 _TINY = float(np.float32(1e-30))
+
+
+@dataclass
+class CameraArrays:
+    """The camera as f32 tensors, the differentiable leaf set of camera
+    gradients: o, d, up, right (3,); x_cf, y_cf, x_off, y_off 0-dim;
+    lens_r 0-dim, or None for a pinhole."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    up: torch.Tensor
+    right: torch.Tensor
+    x_cf: torch.Tensor
+    y_cf: torch.Tensor
+    x_off: torch.Tensor
+    y_off: torch.Tensor
+    lens_r: Optional[torch.Tensor] = None
+
+    def row(self) -> list:
+        """The 18 entries of make_cam_vec's row as 0-dim tensors (lens_r
+        0 for a pinhole; the last, max_thres, is not raygen's and is 0)."""
+        zero = torch.zeros_like(self.x_cf)
+        return [*self.o.unbind(), *self.d.unbind(), *self.up.unbind(), *self.right.unbind(),
+                self.x_cf, self.y_cf, self.x_off, self.y_off,
+                zero if self.lens_r is None else self.lens_r, zero]
+
+
+def camera_to_arrays(cam, device="cpu") -> CameraArrays:
+    """models.camera.Camera -> CameraArrays on `device`, each value the
+    float32 of make_cam_vec's row."""
+    f32 = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
+    return CameraArrays(o=f32(cam.o), d=f32(cam.d), up=f32(cam.up), right=f32(cam.right),
+                        x_cf=f32(cam.x_cf), y_cf=f32(cam.y_cf), x_off=f32(cam.x_off),
+                        y_off=f32(cam.y_off), lens_r=None if cam.lens_r is None else f32(cam.lens_r))
 
 
 def norm3(x, y, z):
@@ -50,7 +90,8 @@ def normalize(x, y, z, eps: float = 0.0):
 
 def base_dir(x_idx, y_idx, cam):
     """Pre-jitter, pre-lens ray direction of each pixel (loop-invariant
-    over samples). cam: the 18 camera floats as a Python list."""
+    over samples). cam: the 18 camera floats as a Python list, or
+    CameraArrays.row()'s tensors."""
     x_cf, y_cf, x_off, y_off = cam[12], cam[13], cam[14], cam[15]
     s_x = x_cf * (x_idx.to(torch.float32) - x_off)
     s_y = y_cf * (y_idx.to(torch.float32) - y_off)
@@ -76,7 +117,8 @@ def _lens_jitter(state, bd, cam, has_lens: bool):
         o = (offx + ox_c, offy + oy_c, offz + oz_c)
         dx, dy, dz = dx - offx, dy - offy, dz - offz
     else:
-        o = tuple(torch.full_like(dx, c) for c in (ox_c, oy_c, oz_c))
+        one = torch.ones_like(dx)  # 1 * c: the origin's gradient reaches a tensor c
+        o = tuple(one * c for c in (ox_c, oy_c, oz_c))
     state, ju = rng.next_f32(state)
     state, jv = rng.next_f32(state)
     jx, jy = (ju - 0.5) * x_cf, (jv - 0.5) * y_cf
@@ -104,6 +146,9 @@ def generate(state, x_idx, y_idx, cam_vec, has_lens: bool):
 def generate_paths(state, x_idx, y_idx, cam, has_lens: bool):
     """The integrator's raygen (`raytrace_tpu/ops/raygen.generate`): as
     `generate`, with the sqrt-then-divide `normalize`; cam is the 18
-    camera floats as a Python list."""
+    camera floats as a Python list, or a CameraArrays (the same rays,
+    with the camera's gradients)."""
+    if isinstance(cam, CameraArrays):
+        cam = cam.row()
     state, o, d = _lens_jitter(state, base_dir(x_idx, y_idx, cam), cam, has_lens)
     return state, o, normalize(*d)

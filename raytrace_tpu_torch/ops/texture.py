@@ -34,9 +34,31 @@ def pool_tensor(pool: np.ndarray):
     raise TypeError(f"texel pool dtype {pool.dtype} (expected uint32, uint16 or float32)")
 
 
+def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] along dim 0 for any shape of idx, by index_select: its
+    backward adds each row's gradients in one order on the CPU, where
+    indexing's backward accumulates in threads, in no fixed order."""
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
+
+
 def _div(x: torch.Tensor, full_scale: float) -> torch.Tensor:
     # a tensor divisor: a scalar one may be turned into a reciprocal multiply
     return x / torch.full_like(x, full_scale)
+
+
+def pool_to_f32_flat(pool: torch.Tensor, kind: int) -> torch.Tensor:
+    """The whole pool as the flat (3T,) f32 RGB pool an all-float build
+    would store (the JAX package's models/scene.pool_to_f32_flat, :270):
+    the values `fetch_rgb` returns, bit for bit, so that a POOL_F32
+    fetch from it renders the same image and its texels take gradients.
+    Always a new tensor."""
+    if kind == POOL_U32:
+        w = pool.to(torch.int64) & 0xFFFFFFFF
+        return torch.stack([_div(((w >> s) & 0xFF).to(torch.float32), 255.0) for s in (0, 8, 16)],
+                           dim=-1).reshape(-1)
+    if kind == POOL_U16:
+        return _div((pool.to(torch.int32) & 0xFFFF).to(torch.float32), 65535.0)
+    return pool.to(torch.float32, copy=True)
 
 
 def fetch_rgb(pool: torch.Tensor, kind: int, base3: torch.Tensor):
@@ -47,7 +69,7 @@ def fetch_rgb(pool: torch.Tensor, kind: int, base3: torch.Tensor):
         w = pool[torch.clamp(base3 // 3, 0, T - 1).long()].to(torch.int64) & 0xFFFFFFFF
         return tuple(_div(((w >> s) & 0xFF).to(torch.float32), 255.0) for s in (0, 8, 16))
     start = torch.clamp(base3, 0, T - 3).long()
-    vals = [pool[start + k] for k in range(3)]
+    vals = [take(pool, start + k) for k in range(3)]
     if kind == POOL_U16:
         return tuple(_div((v.to(torch.int32) & 0xFFFF).to(torch.float32), 65535.0) for v in vals)
     return tuple(vals)

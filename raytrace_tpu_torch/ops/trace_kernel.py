@@ -132,10 +132,12 @@ def make_cam_vec(cam, max_thres: float = 0.5) -> np.ndarray:
 def supports(scene, params) -> bool:
     """gpu semantics, spheres + free triangles only, each <= 64, and no
     mesh (the JAX package's trace_kernel.supports, :704-712); with or
-    without a cube map."""
+    without a cube map. Not a differentiable render: the kernel has no
+    backward."""
     return (
         params.mode == "gpu"
         and not params.debug_single_ray
+        and not params.differentiable
         and scene.n_mesh_tris == 0
         and scene.n_spheres <= MAX_PRIMS
         and scene.n_free_tris <= MAX_PRIMS

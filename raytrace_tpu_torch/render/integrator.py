@@ -34,8 +34,24 @@ Only what is bit-identical is shared with the kernels' plain versions:
 the CPU. The cube map: a lane that misses records its direction and
 weight (`miss_d`, `miss_w`; a path misses at most once, and then ends),
 resolved once after the loop through `ops/cubemap.sample`
-(:1034-1040); debug_single_ray samples the sky in its one bounce. The
-differentiable tier's fixed-length scan is not ported yet.
+(:1034-1040); debug_single_ray samples the sky in its one bounce.
+
+The differentiable tier (`IntegratorParams.differentiable`, the JAX
+:75): torch autograd records the bounce loop as it runs, so the loop
+keeps its all-dead exit, where the JAX package scans all max_depth
+bounces (:1018-1022, reverse mode cannot pass its while_loop): a bounce
+over an all-dead pool adds nothing, to the image or to a gradient
+(tests/test_torch_diff.py holds the two bitwise). When differentiable,
+the mesh hit still comes from `mesh_hit` (the kernel on the card), and
+the winner's (t, u, v) are recomputed from the scene's own vertex tables
+`mt_v0 / mt_e1 / mt_e2` with `intersect.triangle_tuv`, the kernel's own
+arithmetic (bitwise the same values), so that the gradient reaches the
+vertices as a `min` passes it to its argmin in the JAX chunked path
+(:318-366). Every select whose unselected branch could be inf or NaN
+takes a finite stand-in there (`normalize`'s clamp, the guarded square
+roots and divides), so the backward pass's 0 x (inf or NaN) cannot reach
+a gradient. The fused kernels and the wavefront have no backward, and
+refuse a differentiable render.
 
 Draws: 8 uniforms per bounce in mesh scenes, 5 in meshless ones
 (u0, u1, u2, u3, u7; integrator.py:862-869).
@@ -51,6 +67,7 @@ from ..ops import rng
 from ..ops.intersect import EPS, INF, triangle_tuv
 from ..ops.mesh_kernel import mesh_attrs, mesh_hit
 from ..ops.raygen import TWO_PI, normalize
+from ..ops.texture import take
 
 KIND_NONE, KIND_SPHERE, KIND_FREETRI, KIND_MESHTRI = 0, 1, 2, 3
 CPU_RR_THRES = 0.4  # radiance.rs:77, hard-coded
@@ -65,8 +82,9 @@ DEAD_SEED = float("-inf")
 class IntegratorParams:
     """The JAX package's IntegratorParams (integrator.py:66-81) without
     its TPU tiling fields (`mesh_chunk`, `ray_tile`, `use_clusters`,
-    `mesh_kernel`: the mesh always goes through `mesh_hit`) and without
-    `differentiable`, which waits for the differentiable tier."""
+    `mesh_kernel`: the mesh always goes through `mesh_hit`).
+    `differentiable`: gradients reach the mesh's vertex tables (module
+    docstring)."""
 
     max_thres: float = 0.5
     assured_depth: int = 5
@@ -74,6 +92,7 @@ class IntegratorParams:
     mode: str = "gpu"
     debug_single_ray: bool = False
     dir_light_samp: bool = False
+    differentiable: bool = False
 
     def __post_init__(self):
         if self.mode not in ("gpu", "cpu"):
@@ -184,8 +203,16 @@ def closest_hit(scene, params: IntegratorParams, ro, rd, active=None):
     if scene.n_mesh_tris:
         seed = t_best if active is None else torch.where(
             active, t_best, torch.full_like(t_best, DEAD_SEED))
-        tm, gm, um, vm = mesh_hit(ro, rd, seed, scene.mesh, t_min=CPU_GUARD if cpu else EPS)
+        # mesh_hit takes no gradient (the kernel has no backward)
+        tm, gm, um, vm = mesh_hit(tuple(c.detach() for c in ro), tuple(c.detach() for c in rd),
+                                  seed.detach(), scene.mesh, t_min=CPU_GUARD if cpu else EPS)
         won = gm >= 0
+        if params.differentiable:
+            # the winner's (t, u, v) again, from the vertex tables the walk's
+            # rows copy: the same floats, with the gradient
+            g = gm.long().clamp(min=0)
+            tri = [take(getattr(scene, k), g).unbind(1) for k in ("mt_v0", "mt_e1", "mt_e2")]
+            tm, um, vm = triangle_tuv(*ro, *rd, *tri)
         t_best = torch.where(won, tm, t_best)
         kind = torch.where(won, KIND_MESHTRI, kind)
         idx = torch.where(won, gm.long(), idx)
@@ -260,7 +287,7 @@ def _shade_hit(scene, params, ro, rd, t, kind, idx, bu, bv, draws):
     diffp, n_out, n_in, metal, rough = zero, one, one, zero, zero
 
     def take3(table, i):
-        row = table[i]
+        row = take(table, i)
         return tuple(row[:, k] for k in range(3))
 
     if scene.n_spheres:
@@ -395,7 +422,8 @@ def _bounce_step(scene, params: IntegratorParams, st):
         # nearest hit IS that sphere; the emitter that made the pending
         # hit and the one this bounce hit are omitted (radiance.rs:46-52)
         pd = st["dls"]
-        for e, center, em in scene.emitters:
+        for e in scene.emitters:
+            center, em = scene.sph_c[e].unbind(), scene.sph_emissive[e].unbind()
             d_l = normalize(*(center[k] - pd["pos"][k] for k in range(3)), eps=1e-20)
             light_dot = _dot(d_l, pd["norm"])
             omit = (pd["self_idx"] == e) | ((kind == KIND_SPHERE) & (idx == e))

@@ -13,7 +13,9 @@ Port of `raytrace_tpu/render/renderer.py` (:394-427, :606-628, `render`
    spheres or free triangles), the XLA integrator over a lane pool, its
    mesh intersection through the `mesh_hit` kernel;
 4. `sample_batch` (:64-122): the plain integrator over all pixels, one
-   sample at a time; the wavefront's oracle.
+   sample at a time; the wavefront's oracle, and the one driver of a
+   differentiable render (`differentiable=True`, the JAX
+   :108-119): the fused kernels and the wavefront have no backward.
 
 A driver flag left None takes that driver when the scene supports it;
 False skips it; True demands it and raises NotImplementedError when the
@@ -33,6 +35,7 @@ versions; nothing falls back.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -76,15 +79,20 @@ def tile_order(width: int, height: int) -> np.ndarray:
 
 
 def sample_batch(scene: SceneTensors, params: IntegratorParams, xs, ys, sample_base: int,
-                 n_samples: int) -> torch.Tensor:
+                 n_samples: int, cam: Optional[raygen.CameraArrays] = None) -> torch.Tensor:
     """The plain integrator (renderer.py:64-122): per sample id s in
     sample_base .. sample_base+n_samples-1, seed every lane's stream from
     (x, y, s), raygen and `trace_paths`. xs, ys: (N,) int32 on the scene's
-    device. Returns the (N, 3) f32 radiance sums, in lane order."""
+    device; cam: the camera as tensors (raygen.CameraArrays, which takes
+    the camera's gradients), or None for the scene's own. Returns the
+    (N, 3) f32 radiance sums, in lane order; with
+    `params.differentiable` and leaves that require grad (a
+    `SceneTensors.replace` view, cam), a tensor to backpropagate from."""
+    cam = scene.cam if cam is None else cam
     acc = torch.zeros((xs.numel(), 3), dtype=torch.float32, device=xs.device)
     for s in range(n_samples):
         state = rng.init_state(xs, ys, torch.full_like(xs, sample_base + s))
-        state, ro, rd = raygen.generate_paths(state, xs, ys, scene.cam, scene.has_lens)
+        state, ro, rd = raygen.generate_paths(state, xs, ys, cam, scene.has_lens)
         L, _ = trace_paths(scene, params, ro, rd, state)
         acc = acc + torch.stack(L, dim=1)
     return acc
@@ -142,13 +150,15 @@ def _pick_driver(flags: dict, supported: dict) -> str:
 class Renderer:
     """Static-scene renderer (the reference's renderer.rs:41-63). `mode`
     overrides the scheme's semantics ("gpu" or "cpu"); use_fused,
-    use_mesh_fused and use_wavefront pick the driver (module docstring).
-    `driver` names the one taken; after a wavefront render, `stats`
-    holds its iterations and lane-bounces."""
+    use_mesh_fused and use_wavefront pick the driver (module docstring);
+    differentiable sets `params.differentiable`, which only the plain
+    driver takes. `driver` names the one taken; after a wavefront
+    render, `stats` holds its iterations and lane-bounces."""
 
     def __init__(self, scheme: Scheme, device="cuda", samples_per_launch: int = 256,
                  mode: Optional[str] = None, use_fused: Optional[bool] = None,
-                 use_mesh_fused: Optional[bool] = None, use_wavefront: Optional[bool] = None):
+                 use_mesh_fused: Optional[bool] = None, use_wavefront: Optional[bool] = None,
+                 differentiable: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for but torch.cuda.is_available() is False")
@@ -159,7 +169,8 @@ class Renderer:
         self.scheme = scheme
         info = scheme.render_info
         self.width, self.height = info.width, info.height
-        self.params = params_from_scheme(scheme, mode)
+        self.params = dataclasses.replace(params_from_scheme(scheme, mode),
+                                          differentiable=differentiable)
         self.mode = self.params.mode
         self.scene = build_scene(scheme)
         self.samples_per_launch = samples_per_launch
@@ -169,8 +180,8 @@ class Renderer:
         self.driver = _pick_driver(
             {"fused": use_fused, "mesh_fused": use_mesh_fused, "wavefront": use_wavefront},
             {"fused": tk.supports(self.scene, self.params),
-             "mesh_fused": mk.supports(self.scene, self.params), "wavefront": True,
-             "plain": True})
+             "mesh_fused": mk.supports(self.scene, self.params),
+             "wavefront": not differentiable, "plain": True})
         max_thres = self.params.max_thres
         n_pix = self.width * self.height
         # the scene is uploaded once per Renderer, not per render() call

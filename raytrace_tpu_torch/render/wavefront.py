@@ -48,7 +48,12 @@ def wavefront_batch(scene, params: IntegratorParams, xs_tab, ys_tab, sample_base
     order, e.g. 32x32 tiles) on the scene's device. Returns the (n_pix, 3)
     f32 sums indexed by the flat pixel y * width + x (with
     return_stats, also {"iterations", "lane_bounces"}: the loop's
-    iterations and the lanes active at their starts, summed)."""
+    iterations and the lanes active at their starts, summed). Raises on
+    a differentiable render, as the JAX package's wavefront.supports
+    refuses one (:57-58): that tier renders through
+    `renderer.sample_batch`."""
+    if params.differentiable:
+        raise ValueError("the wavefront does not take a differentiable render")
     dev = xs_tab.device
     n_pix = xs_tab.numel()
     n_work = n_pix * n_samples
