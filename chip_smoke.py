@@ -11,7 +11,8 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    ray for the group sweep of phase 5, all at once (timed), and prints
    ptxas's registers / shared memory / stack / spills of every kernel
    (both trace_tiles entries among them) and trace_kernel.cu's SASS
-   instruction counts (cuobjdump, into raytrace_tpu_torch/_build/sass/);
+   instruction counts (cuobjdump, into raytrace_tpu_torch/_build/sass/),
+   with the registers of each trace_tiles_kernel<kSky, kPcg>;
 3. kernel vs plain, both on the card: `trace_tiles` (the CUDA kernel) and
    its first design `trace_tiles_per_thread` (the yardstick) against
    `trace_tiles_reference` (plain torch) on the walled scene at 1200x600
@@ -137,6 +138,35 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    (within 1e-2); and, in a child process, a torch.profiler table of the
    a380-class render's forward and backward with mesh_hit's ms a launch.
 
+11. pcg, animation and the host remainder: (a) the reference's generator:
+   `trace_tiles`' pcg instantiations against the plain version under pcg
+   (the lane gate) on walled 1200x600 at samples per lane 1 (all 9
+   outputs) and 4, the mixed 64x32 scene at 1 and 4 and outdoor + sky at 1;
+   `mesh_trace`'s bitwise on the whole a380-class 1216x608 frame at 1 and
+   16, with the sky at 1, and `mesh_trace_brute`'s on the 2,097-triangle
+   cut at 16; every launch counted under its `<entry>_pcg` key alone and
+   differing from the weyl launch; each kernel's main launch timed in
+   turns weyl, pcg, pcg, weyl; pcg renders with the launch counts reset
+   just before and read just after: walled render(64), the a380-class
+   frame's render(16) in gpu semantics and (through the wavefront, mesh_hit
+   alone) in cpu semantics, the 2,097-triangle cut's on the brute route;
+   walled and the cpu-semantics frame against the CPU at a small size and
+   resumed bitwise. (b) animation through cli._render_animation in a
+   temporary working directory: walled 1200x600 with two spheres
+   keyframed through the bezier, polynomial, Step and Hold easings (8
+   frames of 64 spp) and the a380-class surface moved and turned (4
+   frames of 16 spp), each at pipeline depths 2, 1, 1, 2 in turns with
+   every frame's build (on the builder thread), wait, set-up, render and
+   PNG seconds; every frame's PNG bitwise a fresh Renderer(frame,
+   "cuda")'s; frame 0 and the last at a small size against the CPU; the
+   encode rung, its seconds and the frames read back. (c) the host
+   remainder: walled render(64) in batches of 8 with a PNG + checkpoint
+   hook, async_hook on and off in turns, the final targets bitwise equal
+   both ways and to the no-hook render; a LivePreview on 127.0.0.1 fetched
+   once, equal to the final image. The fused kernels' records gain pcg_ms,
+   pcg_weyl_ms (the weyl launch of the same turns), pcg_max_abs_err and
+   pcg_launches (the pcg render's).
+
 Each kernel's record has its bound (bound_ms, bound_by): the larger of
 its bytes over 3.35 TB/s and its FP32 work, counted from the sources,
 over 33.5 T FP32 instructions/s (see FP32_CEILING); trace_tiles' work is
@@ -211,16 +241,16 @@ def gate(tag, label, img, ref):
     assert mean_d < 2e-3 and bad_tiles < 0.02, f"{label}: the images disagree"
 
 
-def card_vs_cpu(tag, label, scheme, width, height, spp):
+def card_vs_cpu(tag, label, scheme, width, height, spp, **kw):
     """The scheme at width x height, render(spp) on the card and on the
-    CPU, under the tile gate."""
+    CPU (Renderer's keywords kw on both), under the tile gate."""
     from raytrace_tpu_torch.render.renderer import Renderer
 
     small = variant(scheme, width, height)
     t0 = time.perf_counter()
-    cpu_img = Renderer(small, device="cpu").render(samples=spp)
+    cpu_img = Renderer(small, device="cpu", **kw).render(progress=False, samples=spp)
     cpu_s = time.perf_counter() - t0
-    gpu_img = Renderer(small, device="cuda").render(samples=spp)
+    gpu_img = Renderer(small, device="cuda", **kw).render(progress=False, samples=spp)
     gate(tag, f"{label} {width}x{height}x{spp} card vs cpu ({cpu_s:.1f} s on the cpu)", gpu_img,
          cpu_img)
 
@@ -228,8 +258,8 @@ def card_vs_cpu(tag, label, scheme, width, height, spp):
 def resume_bitwise(tag, r, label, k=4):
     """Each time into a fresh target: render(2k, batch=k) on r against
     render(k) on r, a checkpoint saved, loaded into a new Renderer built
-    as r was (scheme, mode, driver, route), render(k) there; bitwise or
-    raise."""
+    as r was (scheme, mode, generator, driver, route), render(k) there;
+    bitwise or raise."""
     import numpy as np
 
     from raytrace_tpu_torch.render.renderer import Renderer
@@ -237,12 +267,12 @@ def resume_bitwise(tag, r, label, k=4):
     from raytrace_tpu_torch.utils import checkpoint as ckpt
 
     r.target = RenderTarget(r.width, r.height)
-    r.render(samples=2 * k, batch=k)
+    r.render(progress=False, samples=2 * k, batch=k)
     full = r.target.acc.copy()
     r.target = RenderTarget(r.width, r.height)
-    r.render(samples=k)
+    r.render(progress=False, samples=k)
     resumed = Renderer(r.scheme, device="cuda", samples_per_launch=r.samples_per_launch,
-                       mode=r.mode, use_fused=r.driver == "fused",
+                       mode=r.mode, generator=r.params.generator, use_fused=r.driver == "fused",
                        use_mesh_fused=r.driver == "mesh_fused",
                        use_wavefront=r.driver == "wavefront")
     if r.driver == "mesh_fused":
@@ -251,7 +281,7 @@ def resume_bitwise(tag, r, label, k=4):
         path = os.path.join(tmp, "ck.npz")
         ckpt.save(path, r.target)
         resumed.target = ckpt.load(path)
-    resumed.render(samples=k)
+    resumed.render(progress=False, samples=k)
     assert resumed.driver == r.driver and resumed.target.count == 2 * k and np.array_equal(
         resumed.target.acc, full), f"{label}: resume is not bitwise exact"
     print(f"[{tag}] resume at {k} spp: bitwise exact ({2 * k} spp, {label})", flush=True)
@@ -273,12 +303,12 @@ def warm_render(tag, label, scheme, spp, card, route=None, **kw):
     r = Renderer(scheme, device="cuda", **kw)
     if route is not None:
         r.tables.route = route
-    r.render(samples=1)  # loads the torch kernels it uses, grows the allocator
+    r.render(progress=False, samples=1)  # loads the torch kernels it uses, grows the allocator
     r.target = RenderTarget(r.width, r.height)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    img = r.render(samples=spp)  # ends in a device -> host copy
+    img = r.render(progress=False, samples=spp)  # ends in a device -> host copy
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(mk.LAUNCHES, **tk.LAUNCHES)
@@ -587,7 +617,7 @@ def mesh_phases(dev, card, variants):
               f"(host set-up)", flush=True)
         reset_launches()
         t0 = time.perf_counter()
-        img = renderer.render(samples=MESH_SPP)  # ends in a device -> host copy
+        img = renderer.render(progress=False, samples=MESH_SPP)  # ends in a device -> host copy
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches[name] = mk.LAUNCHES[name]
@@ -785,7 +815,7 @@ def in_render_pool(scheme):
 
     itg.mesh_hit = capture
     try:
-        Renderer(scheme, device="cuda").render(samples=MESH_SPP)
+        Renderer(scheme, device="cuda").render(progress=False, samples=MESH_SPP)
     finally:
         itg.mesh_hit = real
     assert pool, f"the render made fewer than {CAPTURE_ITER} mesh_hit launches"
@@ -997,11 +1027,11 @@ def profile(renderer, card, kernel, label, spp=MESH_SPP):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    renderer.render(samples=spp)  # warm, unprofiled
+    renderer.render(progress=False, samples=spp)  # warm, unprofiled
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        renderer.render(samples=spp)
+        renderer.render(progress=False, samples=spp)
         torch.cuda.synchronize()
     rows = prof.key_averages()
     # the kernels' own rows: an operator's row repeats its kernels' time
@@ -1038,6 +1068,26 @@ def profile(renderer, card, kernel, label, spp=MESH_SPP):
 
 
 SASS_DIR = os.path.join(ROOT, "raytrace_tpu_torch", "_build", "sass")
+# trace_tiles_kernel<kSky, kPcg>'s mangled template arguments -> its name
+TILES_INSTANTIATIONS = {"trace_tiles_kernelILb0ELb0E": "false, false: weyl",
+                        "trace_tiles_kernelILb1ELb0E": "true, false: weyl, sky",
+                        "trace_tiles_kernelILb0ELb1E": "false, true: pcg",
+                        "trace_tiles_kernelILb1ELb1E": "true, true: pcg, sky"}
+
+
+def ptxas_registers(log):
+    """{mangled entry: registers} from ptxas's -v lines of a build log."""
+    import re
+
+    regs, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+    return regs
 
 
 def sass(builds, out=SASS_DIR):
@@ -1871,6 +1921,395 @@ def profile_diff(card):
             "launches": count}
 
 
+# ---- 11. pcg, animation and the host remainder ----
+ANIM_DEPTHS = (2, 1, 1, 2)  # the animation pipeline's depths, in turns
+HOOK_BATCH = 8  # walled's render_batch in the hook timing (render(64): 8 batches)
+
+
+def pcg_tiles(dev, card, outdoor):
+    """Phase 11a, trace_tiles' pcg instantiations against the plain version
+    under pcg, the lane gate: walled 1200x600 at samples per lane 1 (all 9
+    outputs) and 4, the mixed 64x32 scene at 1 and 4, outdoor + sky at 1;
+    each launch counted under its <entry>_pcg key alone; then the main
+    path's launch (walled, TIMING_SPL) timed in turns weyl, pcg, pcg, weyl.
+    Returns {ms, weyl_ms, max_abs_err}."""
+    import torch
+
+    from raytrace_tpu_torch.models.camera import build_camera
+    from raytrace_tpu_torch.models.scene import build_scene
+    from raytrace_tpu_torch.models.walled import walled_scheme
+    from raytrace_tpu_torch.ops import trace_kernel as tk
+
+    def setup(scheme):
+        w, h = scheme.render_info.width, scheme.render_info.height
+        tables = tk.SceneTables(build_scene(scheme), build_camera(scheme.cam, w, h),
+                                scheme.render_info.rad_info.russ_roull_info.max_thres).to(dev)
+        flat = torch.arange(w * h, dtype=torch.int32, device=dev)
+        return tables, flat % w, flat // w
+
+    def run(fn, tables, xs, ys, samp, assured, spl, generator):
+        return fn(xs, ys, samp, tables.sph, tables.ft, tables.cam_vec, n_sph=tables.n_sph,
+                  n_ft=tables.n_ft, has_lens=tables.has_lens, assured=assured, max_bounces=24,
+                  samples_per_lane=spl, sky=tables.sky, generator=generator)
+
+    err = 0.0
+    walled, mixed = walled_scheme(W, H), mixed_scheme(64, 32)
+    for label, scheme, assured, spl in (("walled", walled, 5, 1), ("walled", walled, 5, 4),
+                                        ("mixed", mixed, 2, 1), ("mixed", mixed, 2, 4),
+                                        ("outdoor + sky", outdoor, 5, 1)):
+        tables, xs, ys = setup(scheme)
+        samp = torch.full_like(xs, 7)
+        ref = run(tk.trace_tiles_reference, tables, xs, ys, samp, assured, spl, "pcg")
+        reset_launches()
+        ours = run(tk.trace_tiles, tables, xs, ys, samp, assured, spl, "pcg")
+        torch.cuda.synchronize()
+        key = tk.launch_key("trace_tiles", tables.sky, "pcg")
+        assert tk.LAUNCHES[key] == 1 == sum(tk.LAUNCHES.values()), f"launches {tk.LAUNCHES}"
+        weyl = run(tk.trace_tiles, tables, xs, ys, samp, assured, spl, "weyl")
+        n_out = 9 if spl == 1 else 3
+        worst = 0.0
+        for k in range(n_out):
+            bad, e = lane_gate(ours[k], ref[k])
+            worst, err = max(worst, bad), max(err, e)
+            assert bad < 0.01, f"{key} {label} spl={spl} output {k}: {bad:.4f} of lanes differ"
+        differ = int((torch.stack(ours[:n_out]) != torch.stack(ref[:n_out])).any(0).sum())
+        other = int((torch.stack(ours[:3]) != torch.stack(weyl[:3])).any(0).sum())
+        print(f"[pcg] {key} {label} {xs.numel()} lanes spl={spl}: worst bad-lane fraction "
+              f"{worst:.6f} over {n_out} outputs (limit 0.01), {differ} lanes differ from the "
+              f"plain version, max|d| {err:.3e}; {other} lanes differ from the weyl launch; "
+              f"radiance mean {[round(float(o.mean()) / spl, 5) for o in ours[:3]]}", flush=True)
+        assert other > 0, f"{key}: the pcg launch equals the weyl one"
+
+    tables, xs, ys = setup(walled)
+    zero = torch.zeros_like(xs)
+
+    def timed(generator, reps=5):
+        run(tk.trace_tiles, tables, xs, ys, zero, 5, TIMING_SPL, generator)  # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run(tk.trace_tiles, tables, xs, ys, zero, 5, TIMING_SPL, generator)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    t = {}
+    for generator in ("weyl", "pcg", "pcg", "weyl"):
+        t.setdefault(generator, []).append(timed(generator))
+    ms = {k: sum(v) / len(v) for k, v in t.items()}
+    print(f"[timing] trace_tiles walled {W}x{H} spl={TIMING_SPL} in turns weyl, pcg, pcg, weyl: "
+          f"pcg {ms['pcg']:.3f} ms/launch (turns {t['pcg']}), weyl {ms['weyl']:.3f} ms (turns "
+          f"{t['weyl']}): pcg / weyl {ms['pcg'] / ms['weyl']:.3f} [{card}]", flush=True)
+    return dict(ms=ms["pcg"], weyl_ms=ms["weyl"], max_abs_err=err)
+
+
+def pcg_mesh(dev, card, a380, a380_sky, surface):
+    """Phase 11a, mesh_trace's and mesh_trace_brute's pcg instantiations
+    bitwise against the plain version under pcg on the whole frame: the
+    a380-class surface at samples per lane 1 and MESH_SPP, with the sky at
+    1, the 2,097-triangle cut (brute route) at MESH_SPP; each launch counted
+    under its <entry>_pcg key alone; each route's MESH_SPP launch timed in
+    turns weyl, pcg, pcg, weyl. Returns {name: {ms, weyl_ms, max_abs_err}}."""
+    import torch
+
+    from raytrace_tpu_torch.models.camera import build_camera
+    from raytrace_tpu_torch.models.scene import build_scene
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+
+    fx, fy = (lambda f: (f % MESH_W, f // MESH_W))(
+        torch.arange(MESH_W * MESH_H, dtype=torch.int32, device=dev))
+    zero = torch.zeros_like(fx)
+    out = {}
+    for label, scheme, name, spls in (("a380-class", a380, "mesh_trace", (1, MESH_SPP)),
+                                      ("a380-class + sky", a380_sky, "mesh_trace", (1,)),
+                                      ("surface-2097", surface, "mesh_trace_brute", (MESH_SPP,))):
+        route = MESH_KERNELS[name][0]
+        t0 = time.perf_counter()
+        tables = mk.MeshTables(build_scene(scheme), build_camera(scheme.cam, MESH_W, MESH_H),
+                               0.5).to(dev)
+        torch.cuda.synchronize()
+        print(f"[pcg] {label}: build_scene + MeshTables {time.perf_counter() - t0:.3f} s (host), "
+              f"route {route}", flush=True)
+
+        def launch(spl, generator, samp, fn=mk.mesh_trace):
+            return fn(fx, fy, samp, tables, route=route, assured=5, max_bounces=24,
+                      samples_per_lane=spl, generator=generator)
+
+        err = 0.0
+        for spl in spls:
+            samp = torch.full_like(fx, 7)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref = launch(spl, "pcg", samp, mk.mesh_trace_reference)
+            end.record()
+            end.synchronize()
+            reset_launches()
+            ours = launch(spl, "pcg", samp)
+            torch.cuda.synchronize()
+            key = mk.launch_key(name, tables.sky, "pcg")
+            assert mk.LAUNCHES[key] == 1 == sum(mk.LAUNCHES.values()), f"launches {mk.LAUNCHES}"
+            weyl = launch(spl, "weyl", samp)
+            differ = int((torch.stack(ours) != torch.stack(ref)).any(0).sum())
+            other = int((torch.stack(ours) != torch.stack(weyl)).any(0).sum())
+            err = max(err, max(lane_gate(ours[k], ref[k])[1] for k in range(3)))
+            print(f"[pcg] {key} {label} {MESH_W}x{MESH_H} spl={spl}: {differ} lanes differ from "
+                  f"the plain version; {other} lanes differ from the weyl launch; radiance mean "
+                  f"{[round(float(o.mean()) / spl, 6) for o in ours]}; plain "
+                  f"{start.elapsed_time(end):.1f} ms", flush=True)
+            assert differ == 0, f"{key} {label} spl={spl}: {differ} lanes differ"
+            assert other > 0, f"{key}: the pcg launch equals the weyl one"
+        if tables.sky is None:
+            t = {}
+            for generator in ("weyl", "pcg", "pcg", "weyl"):
+                launch(MESH_SPP, generator, zero)  # warm-up
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                for _ in range(2):
+                    launch(MESH_SPP, generator, zero)
+                end.record()
+                end.synchronize()
+                t.setdefault(generator, []).append(start.elapsed_time(end) / 2)
+            ms = {k: sum(v) / len(v) for k, v in t.items()}
+            print(f"[timing] {name} {label} {MESH_W}x{MESH_H} spl={MESH_SPP} in turns weyl, pcg, "
+                  f"pcg, weyl: pcg {ms['pcg']:.3f} ms/launch (turns {t['pcg']}), weyl "
+                  f"{ms['weyl']:.3f} ms (turns {t['weyl']}): pcg / weyl "
+                  f"{ms['pcg'] / ms['weyl']:.3f} [{card}]", flush=True)
+            out[name] = dict(ms=ms["pcg"], weyl_ms=ms["weyl"], max_abs_err=err)
+        del tables
+    return out
+
+
+def pcg_renders(dev, card, a380, surface):
+    """Phase 11a, the renders under pcg, each with the launch counts reset
+    just before and read just after: walled 1200x600 render(MAIN_SPP)
+    (trace_tiles_pcg alone), the a380-class frame's render(MESH_SPP) in gpu
+    semantics (mesh_trace_pcg alone) and in cpu semantics through the
+    wavefront (mesh_hit alone), the 2,097-triangle cut's on the brute route
+    (mesh_trace_brute_pcg alone); walled and the cpu-semantics frame on the
+    card against the CPU at a small size and resumed bitwise. Returns
+    {entry: launches}."""
+    from raytrace_tpu_torch.models.walled import walled_scheme
+
+    walled = walled_scheme(W, H)
+    launches = {}
+    cpu = variant(a380, use_gpu=False)
+    for label, scheme, spp, entry, kw in (
+            ("walled", walled, MAIN_SPP, "trace_tiles_pcg", {}),
+            ("a380-class", a380, MESH_SPP, "mesh_trace_pcg", {}),
+            ("surface-2097", surface, MESH_SPP, "mesh_trace_brute_pcg", dict(route="brute")),
+            ("a380-class cpu semantics", cpu, MESH_SPP, "mesh_hit", {})):
+        r, _, counts, _ = warm_render("pcg", f"{label} pcg", scheme, spp, card, generator="pcg",
+                                      **kw)
+        launched = {k for k, v in counts.items() if v}
+        assert launched == {entry}, f"{label}: the pcg render launched {counts}"
+        launches[entry] = counts[entry]
+        if label == "walled":
+            card_vs_cpu("pcg", "walled pcg", walled, 128, 64, 16, generator="pcg")
+            resume_bitwise("pcg", r, f"walled {W}x{H} pcg")
+        elif label.endswith("cpu semantics"):
+            card_vs_cpu("pcg", "a380-class cpu semantics pcg", cpu, 96, 48, MESH_SPP,
+                        generator="pcg")
+            resume_bitwise("pcg", r, f"a380-class {MESH_W}x{MESH_H} cpu semantics pcg")
+    return launches
+
+
+def pcg_phase(dev, card):
+    """Phase 11a: the pcg generator on every kernel and render path (see
+    the module docstring). Returns {"trace_tiles": pcg_tiles', mesh
+    entries: pcg_mesh's, "launches": pcg_renders'}."""
+    from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.models.config import ModelMember
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_sky_") as face_dir:
+        sky = procedural.sky_cubemap(face_dir)
+        outdoor = procedural.outdoor_scheme(sky, W, H, MAIN_SPP)
+        result = {"trace_tiles": pcg_tiles(dev, card, outdoor)}
+        a380 = procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP)
+        a380_sky = copy.copy(a380)
+        a380_sky.scene_members = a380.scene_members + [sky]
+        surface = procedural.a380_cam_scheme(MESH_W, MESH_H, MESH_SPP)
+        surface.scene_members.append(ModelMember(path="<2,097-triangle surface>", loaded=[
+            procedural.make_mesh(2097, n_textures=0)]))
+        result.update(pcg_mesh(dev, card, a380, a380_sky, surface))
+    result["launches"] = pcg_renders(dev, card, a380, surface)
+    print(f"[pcg] phase 11a in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return result
+
+
+def video_facts(path):
+    """(the encode_mp4 rung that wrote `path`, the frames read back from it)."""
+    if path.endswith(".avi"):  # the MJPEG-AVI rung: count idx1's 16-byte entries
+        with open(path, "rb") as f:
+            data = f.read()
+        at = data.rindex(b"idx1")
+        return "mjpeg-avi", int.from_bytes(data[at + 4:at + 8], "little") // 16
+    try:
+        import cv2
+    except ImportError:
+        import imageio
+
+        return "imageio", imageio.get_reader(path).count_frames()
+    cap = cv2.VideoCapture(path)
+    code = int(cap.get(cv2.CAP_PROP_FOURCC)).to_bytes(4, "little").decode("ascii", "replace")
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    # MPEG-4 part 2 (cv2's mp4v, read back as FMP4) or imageio's H.264
+    return ("opencv mp4v" if code.lower() in ("mp4v", "fmp4") else f"imageio ({code})"), n
+
+
+def anim_phase(dev, card):
+    """Phase 11b: animation through cli._render_animation in a temporary
+    working directory: the animated walled 1200x600 (two spheres keyframed
+    through the bezier, polynomial, Step and Hold easings) at 8 frames of
+    MAIN_SPP and the animated a380-class 1216x608 surface (translation and
+    Euler angles) at 4 frames of MESH_SPP, each at the pipeline depths
+    ANIM_DEPTHS in turns with its per-frame build, render and PNG seconds;
+    every frame's PNG bitwise a fresh Renderer(frame, "cuda")'s; frame 0
+    and the last at a small size against the CPU; the encode rung, its
+    seconds and the frames read back. Returns {label: {depth: mean seconds
+    a frame, ...}}."""
+    import argparse
+
+    import numpy as np
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.models.animation import extract_frames
+    from raytrace_tpu_torch.render.renderer import Renderer
+    from raytrace_tpu_torch.utils.image import encode_png
+
+    t_phase = time.perf_counter()
+    args = argparse.Namespace(device="cuda", mode=None, samples=None, generator="weyl")
+    cases = (("walled", procedural.animated_walled_scheme(W, H, MAIN_SPP, framerate=8), (128, 64)),
+             ("a380-class", procedural.animated_a380_scheme(MESH_W, MESH_H, MESH_SPP,
+                                                            framerate=4), (96, 48)))
+    result, cwd = {}, os.getcwd()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_anim_") as tmp:
+        os.chdir(tmp)
+        try:
+            for label, scheme, small in cases:
+                info = scheme.render_info
+                per = {}
+                for depth in ANIM_DEPTHS:
+                    info.anim_pipeline_depth = depth
+                    res = cli._render_animation(scheme, args)
+                    frames = res["frames"]
+                    for i, f in enumerate(frames):
+                        print(f"[anim] {label} {info.width}x{info.height} depth {depth} frame {i}: "
+                              + ", ".join(f"{k} {v:.4f}" for k, v in f.items()), flush=True)
+                    rung, n = video_facts(res["video"])
+                    mean = {k: float(np.mean([f[k] for f in frames])) for k in frames[0]}
+                    before = res["seconds"] - res["encode_s"]
+                    print(f"[anim] {label} depth {depth}: {len(frames)} frames in "
+                          f"{res['seconds']:.3f} s ({before / len(frames):.4f} s a frame before "
+                          f"the encode; mean s a frame "
+                          f"{ {k: round(v, 4) for k, v in mean.items()} }); encoded by {rung} "
+                          f"to {os.path.basename(res['video'])} in {res['encode_s']:.3f} s, "
+                          f"{n} frames read back [{card}]", flush=True)
+                    assert n == len(frames) == res["n_frames"], f"{label}: {n} frames read back"
+                    per.setdefault(depth, []).append(before)
+                frames = extract_frames(scheme, info.framerate)
+                for i, f in enumerate(frames):
+                    r = Renderer(f, device="cuda")
+                    r.render(progress=False)
+                    with open(os.path.join(cli.ANIM_DIR, f"{i}.png"), "rb") as fh:
+                        same = fh.read() == encode_png(r.target.to_u8_rgba())
+                    assert same, f"{label} frame {i}: the PNG is not the single-frame render's"
+                print(f"[anim] {label}: every frame's PNG ({len(frames)}) bitwise a fresh "
+                      f"Renderer(frame, 'cuda').render({info.samps_per_pix})'s", flush=True)
+                for k in (0, len(frames) - 1):
+                    card_vs_cpu("anim", f"{label} frame {k}", frames[k], *small,
+                                min(info.samps_per_pix, 16))
+                depth_s = {d: sum(v) / len(v) / len(frames) for d, v in per.items()}
+                print(f"[anim] {label}: seconds a frame before the encode, depth 2 "
+                      f"{depth_s[2]:.4f}, depth 1 {depth_s[1]:.4f} (turns {per}) [{card}]",
+                      flush=True)
+                result[label] = depth_s
+        finally:
+            os.chdir(cwd)
+    print(f"[anim] phase 11b in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return result
+
+
+def host_phase(dev, card):
+    """Phase 11c: walled 1200x600 render(MAIN_SPP) in batches of
+    HOOK_BATCH with a PNG + checkpoint hook, timed with async_hook on and
+    off in turns, the final target bitwise equal both ways and to the
+    no-hook render in the same batches; a LivePreview on 127.0.0.1 fetched
+    once, equal to the final image. Returns {async_ms, sync_ms}."""
+    import io
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from raytrace_tpu_torch.models.walled import walled_scheme
+    from raytrace_tpu_torch.render.renderer import Renderer
+    from raytrace_tpu_torch.render.target import RenderTarget
+    from raytrace_tpu_torch.utils import checkpoint as ckpt
+    from raytrace_tpu_torch.utils.image import save_png
+    from raytrace_tpu_torch.utils.preview import LivePreview
+
+    t_phase = time.perf_counter()
+    scheme = walled_scheme(W, H)
+    scheme.render_info.render_batch = HOOK_BATCH
+    r = Renderer(scheme, device="cuda")
+    r.render(progress=False, samples=1)  # warm
+    r.target = RenderTarget(W, H)
+    r.render(progress=False, samples=MAIN_SPP, batch=HOOK_BATCH)
+    plain = r.target.acc.copy()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_hook_") as tmp:
+        calls = []
+
+        def hook(target):
+            save_png(os.path.join(tmp, "out.png"), target.to_u8_rgba())
+            ckpt.save(os.path.join(tmp, "ck.npz"), target)
+            calls.append(target.count)
+
+        t, runs = {}, {}
+        for mode in ("async", "sync", "sync", "async"):
+            r.target = RenderTarget(W, H)
+            calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(samples=MAIN_SPP, update_hook=hook, async_hook=mode == "async",
+                     progress=False)
+            dt = (time.perf_counter() - t0) * 1e3
+            t.setdefault(mode, []).append(dt)
+            runs[mode] = r.target.acc.copy()
+            assert calls[-1] == MAIN_SPP and ckpt.load(os.path.join(tmp, "ck.npz")).count == \
+                MAIN_SPP, f"{mode}: the final snapshot was not delivered ({calls})"
+            print(f"[hook] walled {W}x{H} render({MAIN_SPP}) in {MAIN_SPP // HOOK_BATCH} batches, "
+                  f"PNG + checkpoint hook, {mode}: {dt:.1f} ms, the hook ran {len(calls)} times "
+                  f"(counts {calls}) [{card}]", flush=True)
+    assert np.array_equal(runs["async"], runs["sync"]) and np.array_equal(runs["sync"], plain), \
+        "the hooked renders' targets differ"
+    ms = {k: sum(v) / len(v) for k, v in t.items()}
+    print(f"[hook] async {ms['async']:.1f} ms, sync {ms['sync']:.1f} ms ({t}); final targets "
+          f"bitwise equal both ways and to the no-hook render [{card}]", flush=True)
+
+    pv = LivePreview(port=0)
+    pv.start()
+    try:
+        r.target = RenderTarget(W, H)
+        r.render(samples=MAIN_SPP, update_hook=pv.update, progress=False)
+        with urllib.request.urlopen(f"http://127.0.0.1:{pv.port}/frame", timeout=30) as resp:
+            body = resp.read()
+        got = np.asarray(Image.open(io.BytesIO(body)))
+        assert np.array_equal(got, r.target.to_u8_rgba()[::-1]), "the preview is not the image"
+        print(f"[hook] LivePreview on 127.0.0.1:{pv.port}: /frame ({len(body)} bytes PNG) equals "
+              f"the final image", flush=True)
+    finally:
+        pv.stop()
+    print(f"[hook] phase 11c in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(async_ms=ms["async"], sync_ms=ms["sync"])
+
+
 PROFILE_CHILD = "--profile"  # the argument of the child that profiles warm renders
 
 
@@ -1900,7 +2339,7 @@ def profile_child(what, card) -> int:
                     ("a380-class + sky", a380, "mesh_trace_kernel", MESH_SPP)]
         for label, scheme, kernel, spp in runs:
             renderer = Renderer(scheme, device="cuda")
-            renderer.render(samples=1)  # loads the kernel (built: the parent's cache)
+            renderer.render(progress=False, samples=1)  # loads the kernel (the parent's build)
             results[label] = profile(renderer, card, kernel,
                                      f"{label} {renderer.width}x{renderer.height}", spp=spp)
     print(json.dumps(results), flush=True)
@@ -1974,10 +2413,13 @@ def main() -> int:
                 print(f"[build] {line.strip()}", flush=True)
     groups.print_ptxas(variants)
     counts = sass({"trace_kernel": builds[0]}) or {}  # every entry's SASS, for reading
+    regs = ptxas_registers(builds[0].log)
     for fn, n in counts.get("trace_kernel", {}).items():
-        if "trace_tiles_kernelILb0" in fn:
-            print(f"[sass] trace_tiles_kernel<false> (the entry trace_tiles): {n} instructions "
-                  f"(2,120 before the kernel took the cube map)", flush=True)
+        for mangled, label in TILES_INSTANTIATIONS.items():
+            if mangled in fn:
+                print(f"[sass] trace_tiles_kernel<{label}>: {n} instructions, "
+                      f"{regs.get(fn, '?')} registers (weyl without the sky: 2,120 at 64 "
+                      f"before the generator template)", flush=True)
 
     # ---- 3. kernel vs plain on the card ----
     trace = trace_phase(dev, card)
@@ -1988,7 +2430,7 @@ def main() -> int:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    img = renderer.render(samples=MAIN_SPP)  # ends in a device -> host copy
+    img = renderer.render(progress=False, samples=MAIN_SPP)  # ends in a device -> host copy
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = tk.LAUNCHES["trace_tiles"]
@@ -2010,24 +2452,26 @@ def main() -> int:
         real, tk.trace_tiles = tk.trace_tiles, fn
         try:
             r = Renderer(scheme, device="cuda")
-            r.render(samples=1)
+            r.render(progress=False, samples=1)
             times = []
             for _ in range(RENDER_REPS):
                 r.target = RenderTarget(W, H)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                r.render(samples=MAIN_SPP)  # ends in a device -> host copy
+                r.render(progress=False, samples=MAIN_SPP)  # ends in a device -> host copy
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             return float(np.median(times))
         finally:
             tk.trace_tiles = real
 
-    def yardstick(*args, sky=None, **kw):
-        """The yardstick in trace_tiles' place: the render passes sky=None,
-        which the yardstick, without a cube map, does not take."""
-        return tk._trace_tiles_per_thread(*args, **kw) if sky is None else \
-            tk._trace_tiles_per_thread(*args, sky=sky, **kw)
+    def yardstick(*args, sky=None, generator="weyl", **kw):
+        """The yardstick in trace_tiles' place: the render passes sky=None
+        and generator="weyl", which the yardstick (weyl, without a cube
+        map) does not take; anything else it refuses."""
+        if sky is not None or generator != "weyl":
+            raise ValueError("the yardstick takes neither a cube map nor pcg")
+        return tk._trace_tiles_per_thread(*args, **kw)
 
     walls = {}
     for label, fn in (("trace_tiles", tk.trace_tiles), ("yardstick", yardstick),
@@ -2115,6 +2559,16 @@ def main() -> int:
     hit_record["diff_launches_per_render"] = diff["a380"]["launches"]
     hit_record["diff_in_render_ms"] = diff_profile["ms"] if diff_profile else None
     kernels.append(hit_record)
+
+    # ---- 11. pcg on every path, animation, the host remainder ----
+    pcg = pcg_phase(dev, card)
+    for rec in kernels:
+        if rec["name"] in pcg:
+            rec.update(pcg_ms=pcg[rec["name"]]["ms"], pcg_weyl_ms=pcg[rec["name"]]["weyl_ms"],
+                       pcg_max_abs_err=pcg[rec["name"]]["max_abs_err"],
+                       pcg_launches=pcg["launches"][f"{rec['name']}_pcg"])
+    anim_phase(dev, card)
+    host_phase(dev, card)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,17 @@ it on the same scene and the same sample ids. This package imports
 torch and never jax, flax or anything of `raytrace_tpu`.
 
 Layout:
-  models/    scheme schema, camera, numpy scene arrays (meshless subset),
-             the inline walled benchmark scheme
-  ops/       counter RNG, raygen, closest hit, BSDF, and the
-             `trace_tiles` kernel wrapper with its plain torch version
-  csrc/      the hand-written CUDA kernel (sm_90a)
+  models/    scheme schema (keyframe animation included), camera, glTF
+             loader, numpy scene arrays, keyframe easing and frame
+             extraction, the inline walled and procedural schemes
+  ops/       counter RNG (weyl, pcg), raygen, closest hit, BSDF, cube map,
+             and the kernel wrappers with their plain torch versions
+  csrc/      the hand-written CUDA kernels (sm_90a)
   kernels/   nvcc build at first use, loaded with ctypes
-  render/    Renderer driver and the f32 render target
-  utils/     PNG output and exact-resume checkpoints
+  render/    Renderer driver, integrator, wavefront and the render target
+  parallel/  the differentiable tier's train step
+  utils/     PNG in and out, checkpoints, video encode, the async update
+             hook, profiling and the live preview
   cli.py     python -m raytrace_tpu_torch.cli <scheme.yml> [no_ui]
 """
 

@@ -1,19 +1,34 @@
-"""CLI entry — the reference's main.rs analogue, for static schemes of
-spheres, free triangles, `!Model` glTF meshes and the `!DistantCubeMap`
-sky (face paths resolved against the scheme's directory).
+"""CLI entry — the reference's main.rs analogue, for schemes of spheres,
+free triangles, `!Model` glTF meshes and the `!DistantCubeMap` sky (face
+paths resolved against the scheme's directory), static or animated.
 
     python -m raytrace_tpu_torch.cli <scheme.yml> [no_ui] --device cuda \
-        [--mode gpu|cpu] --samples N --out render_out.png [--checkpoint ck.npz] \
-        [--resume ck.npz]
+        [--mode gpu|cpu] [--generator weyl|pcg] --samples N --out render_out.png \
+        [--checkpoint ck.npz] [--resume ck.npz] [--preview PORT]
 
-Renders to a PNG, rewritten (with the checkpoint, when asked) after every
-sample batch, as the reference's no-ui output loop (ui_util.rs:37-54).
-Animation schemes are not ported yet and raise.
+A static scheme renders to a PNG, rewritten (with the checkpoint, when
+asked) after every sample batch, as the reference's no-ui output loop
+(ui_util.rs:37-54); `--preview PORT` serves the image as it accumulates
+on http://127.0.0.1:PORT/ (the reference's live window,
+ui_util.rs:56-168; utils/preview.py). An animation scheme
+(`animation: true`) renders its frames to ./anim_frames/<i>.png, the
+scene of frame k+1 built on a builder thread while frame k renders
+(renderer.rs:114-167's producer / consumer, up to `anim_pipeline_depth`
+frames ahead), then encodes them to animation.mp4 (utils/video.py's
+ladder; an MJPEG-AVI beside it when no mp4 encoder is there).
+`--generator` picks the counter RNG's family (the JAX package's RTPU_RNG).
 """
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+from .ops.rng import GENERATORS
+
+ANIM_DIR = "./anim_frames"  # the reference's frame directory (main.rs:51)
 
 
 def main(argv=None):
@@ -24,11 +39,15 @@ def main(argv=None):
     ap.add_argument("--mode", choices=("gpu", "cpu"), default=None,
                     help="the reference backend's semantics to reproduce (default: the "
                          "scheme's use_gpu)")
+    ap.add_argument("--generator", choices=GENERATORS, default="weyl",
+                    help="the counter RNG's family: weyl, or the reference's pcg")
     ap.add_argument("--out", default="render_out.png")
     ap.add_argument("--samples", type=int, default=None, help="override samps_per_pix")
     ap.add_argument("--scale", type=int, default=1, help="divide width/height by this (smoke runs)")
     ap.add_argument("--checkpoint", default=None, help="save resume state here after each batch")
     ap.add_argument("--resume", default=None, help="resume from a checkpoint file")
+    ap.add_argument("--preview", type=int, default=None, metavar="PORT",
+                    help="serve a live browser preview on 127.0.0.1:PORT (0: a free port)")
     args = ap.parse_args(argv)
 
     from .models.config import load_scheme
@@ -38,13 +57,13 @@ def main(argv=None):
 
     scheme = load_scheme(args.scheme)
     info = scheme.render_info
-    if info.animation:
-        raise NotImplementedError("animation schemes are not ported yet (ROADMAP queue 1, item 6)")
     if args.scale > 1:
         info.width //= args.scale
         info.height //= args.scale
+    if info.animation:
+        return _render_animation(scheme, args)
 
-    renderer = Renderer(scheme, device=args.device, mode=args.mode)
+    renderer = Renderer(scheme, device=args.device, mode=args.mode, generator=args.generator)
     if args.resume:
         loaded = ckpt.load(args.resume)
         if (loaded.width, loaded.height) != (renderer.width, renderer.height):
@@ -53,17 +72,102 @@ def main(argv=None):
         renderer.target = loaded
         print(f"resumed at {loaded.count} spp", flush=True)
 
+    preview = None
+    if args.preview is not None:
+        from .utils.preview import LivePreview
+
+        preview = LivePreview(port=args.preview)
+        preview.start()
+        print(f"live preview: http://127.0.0.1:{preview.port}/", flush=True)
+
     def hook(target):
         save_png(args.out, target.to_u8_rgba())
         if args.checkpoint:
             ckpt.save(args.checkpoint, target)
+        if preview is not None:
+            preview.update(target)
 
     t0 = time.perf_counter()
-    renderer.render(samples=args.samples, update_hook=hook)
+    try:
+        renderer.render(samples=args.samples, update_hook=hook)
+    finally:
+        if preview is not None:
+            preview.stop()
     save_png(args.out, renderer.target.to_u8_rgba())
     print(f"saved {args.out} ({renderer.target.count} spp, {time.perf_counter() - t0:.1f}s, "
-          f"device {renderer.device}, {renderer.mode} semantics, {renderer.driver} driver)",
-          flush=True)
+          f"device {renderer.device}, {renderer.mode} semantics, {renderer.driver} driver, "
+          f"{args.generator})", flush=True)
+
+
+def _render_animation(scheme, args):
+    """The animation branch (raytrace_tpu/cli.py:98-148, the reference's
+    main.rs:40-97): the frames of `extract_frames`, each rendered into
+    ANIM_DIR/<i>.png (the directory made anew), the scene of frame k+1
+    built on one builder thread while frame k renders, up to the scheme's
+    anim_pipeline_depth (default 2) frames ahead; then the PNGs read back in
+    numeric order and encoded to animation.mp4 by utils/video.encode_mp4.
+    scheme: a parsed Scheme; args: a namespace with device, mode, samples
+    and generator, as main's parser gives them. Returns {"frames": per
+    frame {build_s (on the builder thread), wait_s (for the build),
+    setup_s (the Renderer), render_s, png_s}, "video": the path written,
+    "encode_s", "n_frames", "seconds"}."""
+    from .models.animation import extract_frames
+    from .models.scene import build_scene
+    from .render.renderer import Renderer
+    from .utils.image import load_png, save_png
+    from .utils.video import encode_mp4
+
+    info = scheme.render_info
+    framerate = info.framerate
+    if framerate is None:
+        raise SystemExit("animation: true requires framerate")
+
+    frames = extract_frames(scheme, framerate)
+    print(f"Extracting frames:\n\t Number of frames: {len(frames)}"
+          f"\n\t Time per frame {1.0 / framerate:.4f}s", flush=True)
+    if os.path.isdir(ANIM_DIR):
+        shutil.rmtree(ANIM_DIR)
+    os.makedirs(ANIM_DIR, exist_ok=True)
+    depth = info.anim_pipeline_depth or 2
+
+    def build(frame_scheme):
+        t0 = time.perf_counter()
+        scene = build_scene(frame_scheme)
+        return scene, time.perf_counter() - t0
+
+    stats = []
+    t_all = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = [pool.submit(build, frames[k]) for k in range(min(depth, len(frames)))]
+        for i, frame_scheme in enumerate(frames):
+            t0 = time.perf_counter()
+            scene, build_s = pending.pop(0).result()
+            t1 = time.perf_counter()
+            nxt = i + len(pending) + 1
+            if nxt < len(frames):
+                pending.append(pool.submit(build, frames[nxt]))
+            r = Renderer(frame_scheme, device=args.device, mode=args.mode, scene=scene,
+                         generator=args.generator)
+            t2 = time.perf_counter()
+            r.render(samples=args.samples, progress=False)
+            t3 = time.perf_counter()
+            save_png(os.path.join(ANIM_DIR, f"{i}.png"), r.target.to_u8_rgba())
+            t4 = time.perf_counter()
+            stats.append(dict(build_s=build_s, wait_s=t1 - t0, setup_s=t2 - t1, render_s=t3 - t2,
+                              png_s=t4 - t3))
+            print(f"frame {i + 1}/{len(frames)} in {t4 - t0:.1f}s", flush=True)
+
+    # numeric-sorted frame encode (main.rs:69-84)
+    names = sorted(os.listdir(ANIM_DIR), key=lambda p: int(p.split(".")[0]))
+    # video frames are top-row-first; load_png returns bottom-first
+    imgs = [load_png(os.path.join(ANIM_DIR, p))[::-1, :, :3] for p in names]
+    t0 = time.perf_counter()
+    out = encode_mp4("animation.mp4", imgs, framerate)
+    encode_s = time.perf_counter() - t0
+    total = time.perf_counter() - t_all
+    print(f"encoded {out} ({len(imgs)} frames @ {framerate} fps, total {total:.1f}s)", flush=True)
+    return {"frames": stats, "video": out, "encode_s": encode_s, "n_frames": len(imgs),
+            "seconds": total}
 
 
 if __name__ == "__main__":

@@ -672,8 +672,8 @@ struct Lanes {
 // The whole path of lane i (inactive when i >= n), its nearest mesh hits
 // found with the rest of its warp (warp_nearest); every lane of the warp
 // calls it. kSky: a lane that hits nothing adds the sky's term (s_face the
-// staged face table).
-template <bool kBrute, bool kSky>
+// staged face table); kPcg: the draws from the pcg generator, else weyl.
+template <bool kBrute, bool kSky, bool kPcg>
 __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* sph,
                                            const float* ft, const float* cam, const Mesh& m,
                                            const float4* rows, const Sky& sky,
@@ -692,7 +692,7 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
   const uint32_t samp0 = active ? static_cast<uint32_t>(L.samp[i]) : 0u;
   uint32_t state;
   Path p;
-  p.ray = start_sample(hpix, samp0, state, bdx, bdy, bdz, cam, L.has_lens);
+  p.ray = start_sample<kPcg>(hpix, samp0, state, bdx, bdy, bdz, cam, L.has_lens);
   p.lr = p.lg = p.lb = 0.f;
   p.cir = p.cig = p.cib = p.inten = 1.f;
   p.depth = 0;
@@ -713,14 +713,14 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
     const int mgid = pos < 0 ? -1 : __ldg((kBrute ? m.bgid : m.gid) + pos);
 
     // ---- the 8 draws of every bounce of a mesh scene ----
-    const float u0 = next_f32(state);
-    const float u1 = next_f32(state);
-    const float u2 = next_f32(state);
-    const float u3 = next_f32(state);  // drawn, used by sphere / free-triangle hits only
-    const float u4 = next_f32(state);
-    const float u5 = next_f32(state);
-    const float u6 = next_f32(state);
-    const float u7 = next_f32(state);
+    const float u0 = next_uniform<kPcg>(state);
+    const float u1 = next_uniform<kPcg>(state);
+    const float u2 = next_uniform<kPcg>(state);
+    const float u3 = next_uniform<kPcg>(state);  // drawn, used by sphere / free-triangle hits only
+    const float u4 = next_uniform<kPcg>(state);
+    const float u5 = next_uniform<kPcg>(state);
+    const float u6 = next_uniform<kPcg>(state);
+    const float u7 = next_uniform<kPcg>(state);
 
     bool survive = false;
     if (mgid >= 0) {
@@ -741,8 +741,8 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
       const bool regen = !alive && sk + 1 < L.spl;
       if (regen) {
         ++sk;
-        p.ray = start_sample(hpix, samp0 + static_cast<uint32_t>(sk), state, bdx, bdy, bdz, cam,
-                             L.has_lens);
+        p.ray = start_sample<kPcg>(hpix, samp0 + static_cast<uint32_t>(sk), state, bdx, bdy,
+                                   bdz, cam, L.has_lens);
         p.cir = p.cig = p.cib = p.inten = 1.f;
         p.depth = 0;
       }
@@ -764,8 +764,9 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
 // counter `work` (0 at launch) until the lanes run out, so no warp waits
 // for the others of its block. The brute route's table is resident in
 // dynamic shared memory (3 float4 a row), loaded once a block. kSky: the
-// cube map's face table is staged too (the sky entries).
-template <bool kBrute, bool kSky>
+// cube map's face table is staged too (the sky entries); kPcg: the pcg
+// generator's draws.
+template <bool kBrute, bool kSky, bool kPcg>
 __global__ void __launch_bounds__(kBrute ? kBruteThreads : kThreads, kBrute ? 1 : kTraceBlocks)
 mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* __restrict__ ft_g,
                   const float* __restrict__ cam_g, const Mesh m, int* __restrict__ work,
@@ -787,7 +788,7 @@ mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* _
     if (lane == 0) tile = atomicAdd(work, 1);
     tile = __shfl_sync(kFull, tile, 0);
     if (tile >= (L.n + 31) / 32) break;
-    trace_lane<kBrute, kSky>(tile * 32 + lane, L, sph, ft, cam, m, rows, sky, s_face);
+    trace_lane<kBrute, kSky, kPcg>(tile * 32 + lane, L, sph, ft, cam, m, rows, sky, s_face);
   }
 }
 
@@ -900,14 +901,14 @@ int fail(cudaError_t e) {
   return static_cast<int>(e);
 }
 
-// One persistent launch of mesh_trace_kernel<kBrute, kSky>: as many blocks
-// as the SMs hold with `smem` bytes of dynamic shared memory, at most one a
-// 32-lane tile.
-template <bool kBrute, bool kSky>
+// One persistent launch of mesh_trace_kernel<kBrute, kSky, kPcg>: as many
+// blocks as the SMs hold with `smem` bytes of dynamic shared memory, at most
+// one a 32-lane tile.
+template <bool kBrute, bool kSky, bool kPcg>
 int launch_persistent(const Lanes& L, const float* sph, const float* ft, const float* cam,
                       const Mesh& m, int* work, size_t smem, cudaStream_t s, const Sky& sky) {
   constexpr int threads = kBrute ? kBruteThreads : kThreads;
-  cudaError_t e = cudaFuncSetAttribute(mesh_trace_kernel<kBrute, kSky>,
+  cudaError_t e = cudaFuncSetAttribute(mesh_trace_kernel<kBrute, kSky, kPcg>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return fail(e);
@@ -916,26 +917,37 @@ int launch_persistent(const Lanes& L, const float* sph, const float* ft, const f
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
     return fail(e);
   }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mesh_trace_kernel<kBrute, kSky>,
-                                                    threads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, mesh_trace_kernel<kBrute, kSky, kPcg>, threads, smem);
   if (e != cudaSuccess) return fail(e);
   const int tiles = (L.n + 31) / 32, warps = threads / 32;
   const int resident = (per_sm > 1 ? per_sm : 1) * sms, needed = (tiles + warps - 1) / warps;
-  mesh_trace_kernel<kBrute, kSky><<<resident < needed ? resident : needed, threads, smem, s>>>(
-      L, sph, ft, cam, m, work, sky);
+  mesh_trace_kernel<kBrute, kSky, kPcg>
+      <<<resident < needed ? resident : needed, threads, smem, s>>>(L, sph, ft, cam, m, work, sky);
   return static_cast<int>(cudaGetLastError());
 }
 
+// A route entry's instantiation: kBrute's, with the sky when sky.face is set
+template <bool kBrute, bool kPcg>
+int launch_route(const Lanes& L, const float* sph, const float* ft, const float* cam,
+                 const Mesh& m, int* work, size_t smem, cudaStream_t s, const Sky& sky) {
+  return sky.face != nullptr
+             ? launch_persistent<kBrute, true, kPcg>(L, sph, ft, cam, m, work, smem, s, sky)
+             : launch_persistent<kBrute, false, kPcg>(L, sph, ft, cam, m, work, smem, s, sky);
+}
+
 // sky.face nullptr: the entries without the cube map; else the route
-// entries' sky instantiations (the yardsticks take none)
+// entries' sky instantiations; pcg: the route entries' pcg instantiations
+// (the yardsticks take neither)
 int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float* ft,
-                 const float* cam, const Mesh& m, int* work, void* stream, const Sky& sky) {
+                 const float* cam, const Mesh& m, int* work, void* stream, const Sky& sky,
+                 bool pcg) {
   if (L.n <= 0) return 0;
   const bool with_sky = sky.face != nullptr;
+  const bool route = entry == kEntryWalk || entry == kEntryBrute;
   if (L.n_sph > kMaxPrims || L.n_ft > kMaxPrims || m.n_brute % kBruteChunk ||
-      (work == nullptr && (entry == kEntryWalk || entry == kEntryBrute)) ||
-      (with_sky && (sky.pool == nullptr || sky.len < 1 ||
-                    (entry != kEntryWalk && entry != kEntryBrute)))) {
+      (work == nullptr && route) || (pcg && !route) ||
+      (with_sky && (sky.pool == nullptr || sky.len < 1 || !route))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -943,12 +955,11 @@ int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float
   const size_t brute_smem = static_cast<size_t>(m.n_brute) * 3 * sizeof(float4);
   switch (entry) {
     case kEntryWalk:
-      return with_sky ? launch_persistent<false, true>(L, sph, ft, cam, m, work, 0, s, sky)
-                      : launch_persistent<false, false>(L, sph, ft, cam, m, work, 0, s, sky);
+      return pcg ? launch_route<false, true>(L, sph, ft, cam, m, work, 0, s, sky)
+                 : launch_route<false, false>(L, sph, ft, cam, m, work, 0, s, sky);
     case kEntryBrute:
-      return with_sky
-                 ? launch_persistent<true, true>(L, sph, ft, cam, m, work, brute_smem, s, sky)
-                 : launch_persistent<true, false>(L, sph, ft, cam, m, work, brute_smem, s, sky);
+      return pcg ? launch_route<true, true>(L, sph, ft, cam, m, work, brute_smem, s, sky)
+                 : launch_route<true, false>(L, sph, ft, cam, m, work, brute_smem, s, sky);
     case kEntryPerThread:
       mesh_trace_yardstick_kernel<false><<<blocks, kThreads, 0, s>>>(L, sph, ft, cam, m);
       break;
@@ -1056,8 +1067,8 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
 // int32 the warps of mesh_trace and mesh_trace_brute take their tiles
 // from (unused by the yardsticks). The cube map's arguments are null
 // (sky_face nullptr) without one: the (6, kFaceCols) int32 face table and
-// the sky pool of sky_len elements in its dtype sky_kind; the yardsticks
-// take none.
+// the sky pool of sky_len elements in its dtype sky_kind; pcg != 0 asks for
+// the pcg generator. The yardsticks take neither.
 #define MESH_TRACE_ARGS                                                                      \
   const int32_t *xs, const int32_t *ys, const int32_t *samp, int n, const float *sph,        \
       const float *ft, const float *cam, int n_sph, int n_ft, int has_lens, int assured,     \
@@ -1066,7 +1077,7 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
       int width, const float *btri, const int *bgid, int n_brute, const float *attr,         \
       const int *desc, const void *pool, int pool_kind, long long pool_len, float *out,      \
       int *work, void *stream, const int *sky_face, const void *sky_pool, int sky_kind,      \
-      long long sky_len
+      long long sky_len, int pcg
 #define MESH_TRACE_PASS(entry)                                                               \
   launch_trace(entry, Lanes{xs, ys, samp, n, n_sph, n_ft, has_lens, assured, max_bounces,    \
                             spl, out},                                                       \
@@ -1074,7 +1085,7 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
                Mesh{sgbounds, sbounds, bounds, count, reinterpret_cast<const float4*>(tri),  \
                     gid, n_sg, width, reinterpret_cast<const float4*>(btri), bgid, n_brute,  \
                     attr, desc, pool, pool_kind, pool_len},                                  \
-               work, stream, Sky{sky_face, sky_pool, sky_kind, sky_len})
+               work, stream, Sky{sky_face, sky_pool, sky_kind, sky_len}, pcg != 0)
 
 extern "C" int mesh_trace_launch(MESH_TRACE_ARGS) { return MESH_TRACE_PASS(kEntryWalk); }
 

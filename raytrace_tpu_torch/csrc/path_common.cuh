@@ -1,5 +1,5 @@
 // Device code shared by the path-tracing kernels (trace_kernel.cu,
-// mesh_kernel.cu): the counter RNG, camera raygen, the brute-force
+// mesh_kernel.cu): the counter RNG (both generators), camera raygen, the brute-force
 // closest hit over the packed sphere / free-triangle tables and the
 // shading of such a hit (uniform-material BSDF, gpu radiance update,
 // Russian roulette). Each follows the JAX package's fused kernels
@@ -48,6 +48,25 @@ __device__ __forceinline__ float next_f32(uint32_t& s) {
   return static_cast<float>(static_cast<int>(w >> 8)) * kInv24;
 }
 
+// one uniform in [0, 1]: ops/rng.py next_f32 with the reference's `pcg`
+// generator (the LCG step, then the PCG output permutation), bit-equal
+__device__ __forceinline__ float next_f32_pcg(uint32_t& s) {
+  s = s * 747796405u + 2891336453u;
+  uint32_t w = ((s >> ((s >> 28) + 4u)) ^ s) * 277803737u;
+  w ^= w >> 22;
+  return static_cast<float>(static_cast<int>(w >> 8)) * kInv24;
+}
+
+// next_f32 of the generator kPcg names (false: weyl)
+template <bool kPcg>
+__device__ __forceinline__ float next_uniform(uint32_t& s) {
+  if constexpr (kPcg) {
+    return next_f32_pcg(s);
+  } else {
+    return next_f32(s);
+  }
+}
+
 // x * rsqrt(max(|x|^2, 1e-30)): raygen's and the sphere normal's normalize
 __device__ __forceinline__ void norm3(float& x, float& y, float& z) {
   float n2 = x * x + y * y + z * z;
@@ -61,7 +80,9 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
-// rng seed + lens + jitter for sample id `sid` (ops/raygen.py start)
+// rng seed + lens + jitter for sample id `sid` (ops/raygen.py start), the
+// draws from the generator kPcg names (false: weyl)
+template <bool kPcg = false>
 __device__ __forceinline__ Ray start_sample(uint32_t hpix, uint32_t sid, uint32_t& state,
                                             float bdx, float bdy, float bdz,
                                             const float* cam, int has_lens) {
@@ -73,8 +94,8 @@ __device__ __forceinline__ Ray start_sample(uint32_t hpix, uint32_t sid, uint32_
   const float ux = cam[6], uy = cam[7], uz = cam[8];
   const float rx = cam[9], ry = cam[10], rz = cam[11];
   if (has_lens) {
-    float u = next_f32(state);
-    float v = next_f32(state);
+    float u = next_uniform<kPcg>(state);
+    float v = next_uniform<kPcg>(state);
     float rr = sqrtf(u);
     float th = kTwoPi * v;
     float lx = (rr - 0.5f) * 2.0f * cam[16] * cosf(th);
@@ -91,8 +112,8 @@ __device__ __forceinline__ Ray start_sample(uint32_t hpix, uint32_t sid, uint32_
     r.oy = cam[1];
     r.oz = cam[2];
   }
-  float ju = next_f32(state);
-  float jv = next_f32(state);
+  float ju = next_uniform<kPcg>(state);
+  float jv = next_uniform<kPcg>(state);
   float jx = (ju - 0.5f) * cam[12], jy = (jv - 0.5f) * cam[13];
   r.dx = r.dx + rx * jx + ux * jy;
   r.dy = r.dy + ry * jx + uy * jy;

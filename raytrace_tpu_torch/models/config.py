@@ -3,8 +3,9 @@
 Mirrors `raytrace_tpu/models/config.py` (same field names, defaults and
 parsing rules) for what the port renders: render info, camera, spheres,
 free triangles, `!Model` glTF members and the `!DistantCubeMap` sky (six
-faces, each `[path, u_scale, v_scale]`, in the WGSL face order). Keyframe
-animation is not parsed (static schemes only).
+faces, each `[path, u_scale, v_scale]`, in the WGSL face order), and the
+keyframe animation of spheres and models (`Anim`, `Keyframe`; the frame
+rate and pipeline depth in `RenderInfo`).
 
 PyYAML is imported only by `load_scheme`, so building a scheme from a
 dict (`parse_scheme`) needs nothing beyond numpy.
@@ -54,6 +55,8 @@ class RenderInfo:
     render_batch: Optional[int] = None  # the scheme's gpu_render_batch
     use_gpu: bool = True
     animation: bool = False
+    framerate: Optional[float] = None
+    anim_pipeline_depth: Optional[int] = None  # frames built ahead of the render (default 2)
 
 
 DIVERT_KINDS = {"Spec": 0, "Diff": 1, "DiffSpec": 2, "Dielectric": 3}
@@ -69,11 +72,25 @@ class Material:
 
 
 @dataclass
+class Keyframe:
+    translation: np.ndarray
+    time: float
+    euler_angles: Optional[np.ndarray] = None
+    ease_type: str = "EaseInOut"  # the reference's default (builder/mod.rs:39)
+
+
+@dataclass
+class Anim:
+    keyframes: list
+
+
+@dataclass
 class SphereMember:
     c: np.ndarray
     r: float
     rgb: np.ndarray
     mat: Material
+    animation: Optional[Anim] = None
 
 
 @dataclass
@@ -110,14 +127,16 @@ class CubeMapMember:
 class ModelMember:
     """A glTF model placed by T(translation) @ S(uniform_scale) @
     R(euler_angles). `loaded` holds in-memory meshes (a list of
-    models.gltf.LoadedMesh, already in world space) that stand in for
-    the file, as the procedural a380-class scene does."""
+    models.gltf.LoadedMesh) that stand in for the file, as the procedural
+    a380-class scene does; the scene build places them by the same
+    transform (gltf.place_meshes), so they animate as a file's do."""
 
     path: str
     uniform_scale: float = 1.0
     translation: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
     euler_angles: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
     loaded: Optional[list] = None
+    animation: Optional[Anim] = None
 
 
 @dataclass
@@ -164,6 +183,17 @@ def _parse_material(m) -> Material:
     return mat
 
 
+def _parse_anim(a) -> Optional[Anim]:
+    if a is None:
+        return None
+    return Anim(keyframes=[
+        Keyframe(translation=_vec(k["translation"]), time=float(k["time"]),
+                 euler_angles=(_vec(k["euler_angles"]) if k.get("euler_angles") is not None
+                               else None),
+                 ease_type=k.get("ease_type") or "EaseInOut")
+        for k in a["keyframes"]])
+
+
 def _parse_coloring(c) -> np.ndarray:
     if isinstance(c, Tagged) and c.tag == "Solid":
         return _vec(c.value)
@@ -178,6 +208,7 @@ def parse_member(m):
         return SphereMember(
             c=_vec(v["c"]), r=float(v["r"]),
             rgb=_parse_coloring(v["coloring"]), mat=_parse_material(v.get("mat")),
+            animation=_parse_anim(v.get("animation")),
         )
     if m.tag == "FreeTriangle":
         return FreeTriangleMember(
@@ -191,11 +222,10 @@ def parse_member(m):
             faces[f] = CubeMapFace(path=p, u_scale=float(us), v_scale=float(vs))
         return CubeMapMember(**faces)
     if m.tag == "Model":
-        if v.get("animation") is not None:
-            raise NotImplementedError("animated models are not ported yet (ROADMAP queue 1, item 6)")
         return ModelMember(
             path=v["path"], uniform_scale=float(v["uniform_scale"]),
             translation=_vec(v["translation"]), euler_angles=_vec(v["euler_angles"]),
+            animation=_parse_anim(v.get("animation")),
         )
     raise ValueError(f"unknown member tag !{m.tag}")
 
@@ -257,6 +287,9 @@ def parse_scheme(raw: dict, scheme_dir: str = ".") -> Scheme:
         ),
         use_gpu=bool(ri.get("use_gpu", True)),
         animation=bool(ri.get("animation", False)),
+        framerate=(float(ri["framerate"]) if ri.get("framerate") is not None else None),
+        anim_pipeline_depth=(int(ri["anim_pipeline_depth"])
+                             if ri.get("anim_pipeline_depth") is not None else None),
     )
     c = raw["cam"]
     # cam.up is normalized at parse (the reference's builder/mod.rs:69-72)

@@ -20,6 +20,7 @@ texture once.
 from __future__ import annotations
 
 import base64
+import dataclasses
 import io
 import json
 import os
@@ -214,15 +215,12 @@ class GltfFile:
         return arr, raw3
 
 
-def load_model(path: str, translation, uniform_scale: float, euler_angles,
-               image_cache: Optional[dict] = None) -> list:
-    """The reference's model load (model.rs:19-53): root transform
-    T(translation) @ S(uniform_scale) @ R(eulers), composed with each
-    node's transform down the tree; one LoadedMesh per node with a mesh.
-    Euler convention Rz(y) @ Ry(p) @ Rx(r)."""
+def root_matrix(translation, uniform_scale: float, euler_angles) -> np.ndarray:
+    """A model's root transform T(translation) @ S(uniform_scale) @
+    R(eulers) (model.rs:19-53), f64 (4, 4); Euler convention Rz(y) @
+    Ry(p) @ Rx(r)."""
     from .camera import euler_matrix
 
-    g = GltfFile(path, image_cache)
     r, p, y = [float(v) for v in euler_angles]
     root = np.eye(4)
     root[:3, 3] = translation
@@ -230,7 +228,38 @@ def load_model(path: str, translation, uniform_scale: float, euler_angles,
     scale[0, 0] = scale[1, 1] = scale[2, 2] = uniform_scale
     rot = np.eye(4)
     rot[:3, :3] = euler_matrix(r, p, y)
-    root = root @ scale @ rot
+    return root @ scale @ rot
+
+
+def place_meshes(meshes: list, translation, uniform_scale: float, euler_angles) -> list:
+    """In-memory meshes (a ModelMember's `loaded`) placed by the model's
+    root transform, as load_model places a file's nodes: positions mapped
+    by it (in f64), normals and tangents left in the mesh's frame, the
+    transform composed into trans_mat (the normal transform's source).
+    The identity placement returns the list itself, unchanged."""
+    root = root_matrix(translation, uniform_scale, euler_angles)
+    if np.array_equal(root, np.eye(4)):
+        return meshes
+    placed = []
+    for lm in meshes:
+        prims = []
+        for prim in lm.primitives:
+            ones = np.ones((prim.poses.shape[0], 1))
+            world = (np.concatenate([prim.poses.astype(np.float64), ones], 1) @ root.T)[:, :3]
+            prims.append(dataclasses.replace(prim, poses=world.astype(np.float32)))
+        placed.append(LoadedMesh(primitives=prims,
+                                 trans_mat=(root @ lm.trans_mat).astype(np.float32)))
+    return placed
+
+
+def load_model(path: str, translation, uniform_scale: float, euler_angles,
+               image_cache: Optional[dict] = None) -> list:
+    """The reference's model load (model.rs:19-53): root transform
+    T(translation) @ S(uniform_scale) @ R(eulers) (root_matrix), composed
+    with each node's transform down the tree; one LoadedMesh per node with
+    a mesh."""
+    g = GltfFile(path, image_cache)
+    root = root_matrix(translation, uniform_scale, euler_angles)
 
     doc = g.doc
     scenes = doc.get("scenes", [{"nodes": list(range(len(doc.get("nodes", []))))}])

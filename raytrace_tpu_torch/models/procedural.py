@@ -16,6 +16,11 @@ repository): `sky_cubemap` writes six u8 PNG faces of biplane's size, in
 which a wrong face or texel shows, and `outdoor_scheme` puts spheres
 under them, open to the sky, as the offline stand-in for
 outside_spheres.yml. Both are fixtures like models/walled.py.
+
+Nor does the repository hold an animated scheme: `animated_walled_scheme`
+keyframes two of walled's spheres through the bezier, polynomial, Step and
+Hold easings, and `animated_a380_scheme` moves and turns the a380-class
+surface, each over one second (`framerate` frames).
 """
 from __future__ import annotations
 
@@ -24,8 +29,8 @@ import os
 import numpy as np
 
 from ..utils.image import save_png
-from .config import (FACE_ORDER, CubeMapFace, CubeMapMember, ModelMember, Scheme, Tagged,
-                     parse_scheme)
+from .config import (FACE_ORDER, Anim, CubeMapFace, CubeMapMember, Keyframe, ModelMember, Scheme,
+                     Tagged, parse_scheme)
 from .gltf import LoadedMesh, Primitive, TextureData
 
 N_TRIS = 127_749  # the a380 element count
@@ -195,4 +200,49 @@ def outdoor_scheme(sky: CubeMapMember, width: int = 1200, height: int = 600,
     }
     scheme = parse_scheme(raw)
     scheme.scene_members.append(sky)
+    return scheme
+
+
+def _keyframes(*rows) -> Anim:
+    """Anim of (time, translation, euler_angles or None, ease_type) rows."""
+    return Anim(keyframes=[
+        Keyframe(translation=np.asarray(t, np.float32), time=float(time),
+                 euler_angles=None if e is None else np.asarray(e, np.float32), ease_type=ease)
+        for time, t, e, ease in rows])
+
+
+def animated_walled_scheme(width: int = 1200, height: int = 600, spp: int = 64,
+                           framerate: float = 8.0) -> Scheme:
+    """The walled scheme (animation: true) with two spheres keyframed over
+    one second: the mirror sphere (member 1) through EaseInOut (the CSS
+    bezier) and then EaseInCubic, the DiffSpec sphere (member 2) through
+    Step and then Hold; framerate frames."""
+    from .walled import walled_scheme
+
+    scheme = walled_scheme(width, height)
+    info = scheme.render_info
+    info.samps_per_pix, info.animation, info.framerate = spp, True, float(framerate)
+    scheme.scene_members[1].animation = _keyframes(
+        (0.0, [-3.0, 0.0, -6.0], None, "EaseInOut"), (0.5, [-2.0, 1.0, -6.5], None, "EaseInCubic"),
+        (1.0, [-1.0, -0.5, -7.0], None, "Linear"))
+    scheme.scene_members[2].animation = _keyframes(
+        (0.0, [1.0, -1.5, -6.0], None, "Step"), (0.4, [2.0, -1.0, -6.0], None, "Hold"),
+        (1.0, [0.0, -1.5, -5.5], None, "Linear"))
+    return scheme
+
+
+def animated_a380_scheme(width: int = WIDTH, height: int = HEIGHT, spp: int = 16,
+                         framerate: float = 4.0, mesh: LoadedMesh | None = None) -> Scheme:
+    """The a380-class scene (animation: true) with the surface (`mesh`,
+    by default make_mesh()) moved and turned over one second: translation
+    and Euler angles through EaseInOutQuad and then Linear; framerate
+    frames."""
+    scheme = a380_cam_scheme(width, height, spp)
+    info = scheme.render_info
+    info.animation, info.framerate = True, float(framerate)
+    scheme.scene_members.append(ModelMember(
+        path="<procedural a380-class surface>", loaded=[make_mesh() if mesh is None else mesh],
+        animation=_keyframes((0.0, [0.0, 0.0, 0.0], [0.0, 0.0, 0.0], "EaseInOutQuad"),
+                             (0.5, [1.5, 0.5, -2.0], [0.05, 0.2, 0.0], "Linear"),
+                             (1.0, [3.0, 1.0, -4.0], [0.1, 0.4, 0.05], "Linear"))))
     return scheme

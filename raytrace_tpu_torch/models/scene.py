@@ -351,7 +351,8 @@ def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
             tris.append(m)
         elif isinstance(m, ModelMember):
             if m.loaded is not None:
-                meshes.extend(m.loaded)
+                meshes.extend(gltf.place_meshes(m.loaded, m.translation, m.uniform_scale,
+                                                m.euler_angles))
             else:
                 meshes.extend(gltf.load_model(
                     resolve_asset_path(m.path, scheme.scheme_dir), m.translation,

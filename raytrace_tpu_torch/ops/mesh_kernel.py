@@ -14,7 +14,10 @@ radiance sum. With a cube map (`MeshTables.sky`), a live lane that hits
 nothing adds (throughput * inten) * sky(direction) there, the term the
 JAX driver adds per bounce from the kernel's miss records
 (fused_mesh.py:343-353); the entries then run their sky instantiations,
-counted as `mesh_trace_sky` and `mesh_trace_brute_sky` in LAUNCHES. The
+counted as `mesh_trace_sky` and `mesh_trace_brute_sky` in LAUNCHES. With
+generator="pcg" they run their pcg instantiations (`<entry>_pcg`, with
+the sky `<entry>_sky_pcg`), whose draws are the reference's generator
+(ops/rng.py), in the same count and order. The
 pend protocol, the lane queue, fast2 and the `RTPU_*` knobs are not
 ported (ROADMAP, "Not to port").
 
@@ -71,7 +74,8 @@ from .raygen import normalize
 from .bsdf import uniform_bsdf
 from .intersect import EPS, INF, closest_sph_ft, triangle_tuv
 from .texture import pool_tensor, sample_nearest, take
-from .trace_kernel import CAM_LEN, FT_COLS, MAX_PRIMS, SPH_COLS, make_cam_vec, pack_scene_tables
+from .trace_kernel import (CAM_LEN, FT_COLS, MAX_PRIMS, SPH_COLS, launch_key, make_cam_vec,
+                           pack_scene_tables)
 
 MAX_BRUTE_TRIS = 0  # brute route up to this many triangles: none (see the docstring)
 GROUP = 16  # clusters per supercluster
@@ -88,8 +92,9 @@ _NOHIT_LO, _NOHIT_HI = 3.0e38, -3.0e38  # inverted AABB of padding clusters (the
 
 # launches of each CUDA entry point in this process (read by chip_smoke.py)
 LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_trace_sky": 0,
-            "mesh_trace_brute_sky": 0, "mesh_hit": 0, "mesh_hit_per_thread": 0,
-            "mesh_trace_per_thread": 0, "mesh_trace_brute_lockstep": 0}
+            "mesh_trace_brute_sky": 0, "mesh_trace_pcg": 0, "mesh_trace_brute_pcg": 0,
+            "mesh_trace_sky_pcg": 0, "mesh_trace_brute_sky_pcg": 0, "mesh_hit": 0,
+            "mesh_hit_per_thread": 0, "mesh_trace_per_thread": 0, "mesh_trace_brute_lockstep": 0}
 
 
 # --- host-side packing -----------------------------------------------------
@@ -187,7 +192,8 @@ def supports(scene, params) -> bool:
     semantics only (integrator.uses_dls; the JAX integrator.py:920), and
     the mesh kernel is the faster driver
     (tests/test_torch_mesh_renderer.py holds the two under the tile
-    gate). Not a differentiable render: the kernel has no backward."""
+    gate). Either generator (the kernel has an instantiation of each).
+    Not a differentiable render: the kernel has no backward."""
     return (
         params.mode == "gpu"
         and not params.debug_single_ray
@@ -439,7 +445,7 @@ def mesh_attrs(attr, desc, pool, pool_kind: int, mi, bu, bv):
 
 def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int,
                          samples_per_lane: int = 1, route: str | None = None,
-                         return_counts: bool = False):
+                         generator: str = "weyl", return_counts: bool = False):
     """Plain torch mirror of the kernel on flat lanes: masked
     `torch.where` updates and a Python loop bounded by max_bounces *
     samples_per_lane that stops once no lane is active. The mesh nearest
@@ -464,7 +470,7 @@ def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int
     bd = raygen.base_dir(xs, ys, cam)
 
     def start_sample(samp_id):
-        return raygen.start(rng.init_state(xs, ys, samp_id), bd, cam, tables.has_lens)
+        return raygen.start(rng.init_state(xs, ys, samp_id), bd, cam, tables.has_lens, generator)
 
     samp0 = rng.as_u32(samp)
     state, o, d = start_sample(samp0)
@@ -488,7 +494,7 @@ def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int
                             zip((zero, torch.full_like(samp0, -1), zero, zero), r))
         mesh = active & (gid >= 0)
         sph_ft = active & ~mesh & (h["kind"] > 0.5)
-        state, (u0, u1, u2, u3, u4, u5, u6, u7) = rng.next_f32_n(state, 8)
+        state, (u0, u1, u2, u3, u4, u5, u6, u7) = rng.next_f32_n(state, 8, generator)
         rr_kill = (depth >= float(assured)) & (u7 > max_thres)
         miss = active & ~mesh & ~(h["kind"] > 0.5)
         if return_counts:
@@ -583,7 +589,7 @@ _I32_BUFFERS = ("count", "gid", "bgid", "desc")
 
 
 def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_lane,
-            sky=None, entry=None):
+            sky=None, generator="weyl", entry=None):
     from ..kernels import build
 
     dev = xs.device
@@ -602,6 +608,8 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
         raise ValueError("tables do not have the packed column layout")
     if samples_per_lane < 1 or max_bounces < 1:
         raise ValueError("samples_per_lane and max_bounces must be >= 1")
+    if generator not in rng.GENERATORS:
+        raise ValueError(f"generator must be one of {rng.GENERATORS}, not {generator!r}")
 
     entry = entry or ROUTES[route]
     sky_args = cubemap.launch_args(sky, dev)
@@ -613,7 +621,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 3 + cubemap.ARGTYPES)
+                   + [ctypes.c_void_p] * 3 + cubemap.ARGTYPES + [ctypes.c_int])
     xs_c, ys_c, samp_c = xs.contiguous(), ys.contiguous(), samp.contiguous()
     n = xs_c.numel()
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
@@ -631,20 +639,23 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
                 tb.btri.data_ptr(), tb.bgid.data_ptr(), tb.btri.shape[0],
                 tb.attr.data_ptr(), tb.desc.data_ptr(), tb.pool.data_ptr(),
                 tb.pool_kind, tb.pool.numel(),
-                out.data_ptr(), None if work is None else work.data_ptr(), stream, *sky_args)
+                out.data_ptr(), None if work is None else work.data_ptr(), stream, *sky_args,
+                int(generator == "pcg"))
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[entry if sky is None else f"{entry}_sky"] += 1  # the kernel's instantiation
+    LAUNCHES[launch_key(entry, sky, generator)] += 1
     return tuple(out[k].view(xs.shape) for k in range(3))
 
 
 def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: int,
-               samples_per_lane: int = 1, route: str | None = None):
+               samples_per_lane: int = 1, route: str | None = None,
+               generator: str = "weyl"):
     """xs, ys, samp: int32 lane tensors of any shape; tables: a
     MeshTables on the same device; route "walk" or "brute", by default
     tables.route (the MAX_BRUTE_TRIS gate; the tests and chip_smoke.py
     pass both routes on one scene). Lane i covers sample ids samp[i] ..
-    samp[i] + samples_per_lane - 1. Returns the radiance sum (r, g, b):
+    samp[i] + samples_per_lane - 1, its draws from `generator` ("weyl" or
+    "pcg"). Returns the radiance sum (r, g, b):
     3 f32 tensors shaped like xs, with the sky's terms where tables.sky
     is set.
 
@@ -657,7 +668,7 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
     if tables.n_sph > MAX_PRIMS or tables.n_ft > MAX_PRIMS:
         raise NotImplementedError(f"mesh_trace takes <= {MAX_PRIMS} spheres and free triangles")
     kw = dict(route=route, assured=assured, max_bounces=max_bounces,
-              samples_per_lane=samples_per_lane)
+              samples_per_lane=samples_per_lane, generator=generator)
     if xs.device.type == "cuda":
         return _launch(xs, ys, samp, tables, sky=tables.sky, **kw)
     if xs.device.type == "cpu":
@@ -669,7 +680,7 @@ def _mesh_trace_yardstick(xs, ys, samp, tables: MeshTables, *, assured: int, max
                           samples_per_lane: int = 1, route: str | None = None):
     """`mesh_trace` by the route's yardstick entry (YARDSTICKS): the first
     design, which chip_smoke.py times the kernel against, without the
-    cube map. CUDA tensors only."""
+    cube map, `weyl` only. CUDA tensors only."""
     if xs.device.type != "cuda":
         raise ValueError(f"the mesh_trace yardsticks run on cuda tensors, not {xs.device}")
     route = tables.route if route is None else route

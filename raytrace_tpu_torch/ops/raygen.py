@@ -13,7 +13,8 @@ final normalize of the direction `d + s_x*right + s_y*up + jitter`:
   use it.
 
 Draw order: lens u, v (when the camera has a lens), then jitter u, v,
-from the default (`weyl`) generator. The camera is the (18,) row of
+from the generator named by `generator` (ops/rng.py: "weyl", the
+default, or the reference's "pcg"). The camera is the (18,) row of
 `ops.trace_kernel.make_cam_vec` as Python floats, or, where gradients
 must reach it, a `CameraArrays` of tensors (the JAX renderer's
 `CameraArrays`, renderer.py:34-61), whose `row()` stands in for the
@@ -59,9 +60,10 @@ class CameraArrays:
                 zero if self.lens_r is None else self.lens_r, zero]
 
 
-def camera_to_arrays(cam, device="cpu") -> CameraArrays:
-    """models.camera.Camera -> CameraArrays on `device`, each value the
-    float32 of make_cam_vec's row."""
+def camera_to_arrays(cam, device) -> CameraArrays:
+    """models.camera.Camera -> CameraArrays on `device` (required: "cuda"
+    or "cpu", as every entry point asks), each value the float32 of
+    make_cam_vec's row."""
     f32 = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
     return CameraArrays(o=f32(cam.o), d=f32(cam.d), up=f32(cam.up), right=f32(cam.right),
                         x_cf=f32(cam.x_cf), y_cf=f32(cam.y_cf), x_off=f32(cam.x_off),
@@ -98,17 +100,17 @@ def base_dir(x_idx, y_idx, cam):
     return tuple(cam[3 + k] + s_x * cam[9 + k] + s_y * cam[6 + k] for k in range(3))
 
 
-def _lens_jitter(state, bd, cam, has_lens: bool):
-    """Lens + jitter from the base direction `bd`, before the normalize.
-    Returns (state, (ox, oy, oz), (dx, dy, dz))."""
+def _lens_jitter(state, bd, cam, has_lens: bool, generator: str):
+    """Lens + jitter from the base direction `bd`, before the normalize,
+    drawn from `generator`. Returns (state, (ox, oy, oz), (dx, dy, dz))."""
     dx, dy, dz = bd
     ox_c, oy_c, oz_c = cam[0], cam[1], cam[2]
     ux, uy, uz = cam[6], cam[7], cam[8]
     rx, ry, rz = cam[9], cam[10], cam[11]
     x_cf, y_cf, lens_r = cam[12], cam[13], cam[16]
     if has_lens:
-        state, u = rng.next_f32(state)
-        state, v = rng.next_f32(state)
+        state, u = rng.next_f32(state, generator)
+        state, v = rng.next_f32(state, generator)
         r_ = torch.sqrt(u)
         th = TWO_PI * v
         lx = (r_ - 0.5) * 2.0 * lens_r * torch.cos(th)
@@ -119,8 +121,8 @@ def _lens_jitter(state, bd, cam, has_lens: bool):
     else:
         one = torch.ones_like(dx)  # 1 * c: the origin's gradient reaches a tensor c
         o = tuple(one * c for c in (ox_c, oy_c, oz_c))
-    state, ju = rng.next_f32(state)
-    state, jv = rng.next_f32(state)
+    state, ju = rng.next_f32(state, generator)
+    state, jv = rng.next_f32(state, generator)
     jx, jy = (ju - 0.5) * x_cf, (jv - 0.5) * y_cf
     dx = dx + rx * jx + ux * jy
     dy = dy + ry * jx + uy * jy
@@ -128,27 +130,27 @@ def _lens_jitter(state, bd, cam, has_lens: bool):
     return state, o, (dx, dy, dz)
 
 
-def start(state, bd, cam, has_lens: bool):
+def start(state, bd, cam, has_lens: bool, generator: str = "weyl"):
     """The fused kernels' raygen: lens + jitter + rsqrt normalize from
     the base direction `bd`. Returns (state, (ox, oy, oz), (dx, dy, dz))."""
-    state, o, d = _lens_jitter(state, bd, cam, has_lens)
+    state, o, d = _lens_jitter(state, bd, cam, has_lens, generator)
     return state, o, norm3(*d)
 
 
-def generate(state, x_idx, y_idx, cam_vec, has_lens: bool):
+def generate(state, x_idx, y_idx, cam_vec, has_lens: bool, generator: str = "weyl"):
     """state: (N,) u32-in-int64 streams; x_idx, y_idx: (N,) int pixel
     coords; cam_vec: make_cam_vec's (1, 18) row (array or tensor).
     Returns (state, ro, rd), each ray a tuple of three (N,) tensors."""
     cam = [float(v) for v in np.asarray(torch.as_tensor(cam_vec).cpu()).reshape(-1)]
-    return start(state, base_dir(x_idx, y_idx, cam), cam, has_lens)
+    return start(state, base_dir(x_idx, y_idx, cam), cam, has_lens, generator)
 
 
-def generate_paths(state, x_idx, y_idx, cam, has_lens: bool):
+def generate_paths(state, x_idx, y_idx, cam, has_lens: bool, generator: str = "weyl"):
     """The integrator's raygen (`raytrace_tpu/ops/raygen.generate`): as
     `generate`, with the sqrt-then-divide `normalize`; cam is the 18
     camera floats as a Python list, or a CameraArrays (the same rays,
     with the camera's gradients)."""
     if isinstance(cam, CameraArrays):
         cam = cam.row()
-    state, o, d = _lens_jitter(state, base_dir(x_idx, y_idx, cam), cam, has_lens)
+    state, o, d = _lens_jitter(state, base_dir(x_idx, y_idx, cam), cam, has_lens, generator)
     return state, o, normalize(*d)

@@ -18,7 +18,9 @@ per lane).
 - On a CUDA tensor, `trace_tiles` launches the hand-written kernel
   `csrc/trace_kernel.cu` (built by kernels/build.py) or raises: its
   entry `trace_tiles`, which runs the kernel's sky instantiation when
-  given a cube map (counted as `trace_tiles_sky` in LAUNCHES).
+  given a cube map (counted as `trace_tiles_sky` in LAUNCHES) and its pcg
+  instantiation for generator="pcg" (`trace_tiles_pcg`, with the sky
+  `trace_tiles_sky_pcg`).
   `_trace_tiles_per_thread` launches the kernel's
   first design, the yardstick `chip_smoke.py` times it against; no
   render launches it.
@@ -26,7 +28,9 @@ per lane).
   version of the same function, which the CPU tests hold against the
   JAX kernel and `chip_smoke.py` holds the CUDA kernel against.
 
-Draws come from the default `weyl` counter generator (ops/rng.py).
+Draws come from the counter generator named by `generator` (ops/rng.py):
+"weyl", the default, or the reference's "pcg"; the count and order are
+the same for both (2 raygen draws, 4 with a lens, 5 a bounce).
 Not ported: the TPU hardware RNG (`hw_rng`), `block_cols` and the
 (8, 128) lane tiling, and `SceneHints` (hints only delete identity
 selects; the CUDA kernel implements the permissive semantics).
@@ -47,7 +51,14 @@ MAX_PRIMS = 64  # per kind; the kernel keeps both tables in shared memory
 SPH_COLS, FT_COLS, CAM_LEN, N_OUT = 15, 23, 18, 9
 
 # launches of the CUDA kernel's render entries in this process (read by chip_smoke.py)
-LAUNCHES = {"trace_tiles": 0, "trace_tiles_sky": 0}
+LAUNCHES = {"trace_tiles": 0, "trace_tiles_sky": 0, "trace_tiles_pcg": 0,
+            "trace_tiles_sky_pcg": 0}
+
+
+def launch_key(entry: str, sky, generator: str) -> str:
+    """The LAUNCHES key of the instantiation a launch of `entry` runs:
+    <entry>, with _sky for a cube map and _pcg for the pcg generator."""
+    return entry + ("_sky" if sky is not None else "") + ("_pcg" if generator == "pcg" else "")
 
 
 # --- host-side packing (bit-equal to the JAX package's) -------------------
@@ -132,7 +143,8 @@ def make_cam_vec(cam, max_thres: float = 0.5) -> np.ndarray:
 def supports(scene, params) -> bool:
     """gpu semantics, spheres + free triangles only, each <= 64, and no
     mesh (the JAX package's trace_kernel.supports, :704-712); with or
-    without a cube map. Not a differentiable render: the kernel has no
+    without a cube map, under either generator (the kernel has an
+    instantiation of each). Not a differentiable render: the kernel has no
     backward."""
     return (
         params.mode == "gpu"
@@ -169,7 +181,7 @@ BRANCHES = ("miss", "diffuse", "mirror", "dielectric", "roulette")  # codes 0-4 
 def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
                           n_sph: int, n_ft: int, has_lens: bool, assured: int,
                           max_bounces: int, samples_per_lane: int = 1, sky=None,
-                          return_iters: bool = False):
+                          generator: str = "weyl", return_iters: bool = False):
     """Plain torch mirror of the JAX `_kernel` (:408-662) on flat lanes:
     masked `torch.where` updates and a Python loop bounded by
     max_bounces * samples_per_lane that stops once no lane is active.
@@ -197,7 +209,7 @@ def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
 
     def start_sample(samp_id):
         state = rng.init_state(xs, ys, samp_id)
-        return raygen.start(state, bd, cam, has_lens)
+        return raygen.start(state, bd, cam, has_lens, generator)
 
     samp0 = rng.as_u32(samp)
     state, o, d = start_sample(samp0)
@@ -222,7 +234,7 @@ def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
                 roots += (active & (disc > 0.0) & (dirv < 0.0)).to(roots.dtype)
         h = closest_sph_ft(sph_table, ft_table, *o, *d, n_sph=n_sph, n_ft=n_ft)
         hit = h["kind"] > 0.5
-        state, (u0, u1, u2, u3, u7) = rng.next_f32_n(state, 5)
+        state, (u0, u1, u2, u3, u7) = rng.next_f32_n(state, 5, generator)
 
         t_safe = where(hit, h["t_best"], zero)
         p = [o[k] + d[k] * t_safe for k in range(3)]
@@ -293,7 +305,8 @@ def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
 # --- the dispatcher --------------------------------------------------------
 
 def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens,
-            assured, max_bounces, samples_per_lane, sky=None, entry="trace_tiles"):
+            assured, max_bounces, samples_per_lane, sky=None, generator="weyl",
+            entry="trace_tiles"):
     from ..kernels import build
 
     dev = xs.device
@@ -311,13 +324,15 @@ def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens
         raise ValueError(f"cam_vec must be {CAM_LEN} f32 on {dev}")
     if samples_per_lane < 1 or max_bounces < 1:
         raise ValueError("samples_per_lane and max_bounces must be >= 1")
+    if generator not in rng.GENERATORS:
+        raise ValueError(f"generator must be one of {rng.GENERATORS}, not {generator!r}")
     sky_args = cubemap.launch_args(sky, dev)
 
     lib = build.build("trace_kernel").lib
     fn = getattr(lib, f"{entry}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + \
-        [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + cubemap.ARGTYPES
+        [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + cubemap.ARGTYPES + [ctypes.c_int]
 
     xs_c, ys_c, samp_c = xs.contiguous(), ys.contiguous(), samp.contiguous()
     sph_c, ft_c, cam_c = sph_table.contiguous(), ft_table.contiguous(), cam_vec.contiguous()
@@ -328,10 +343,10 @@ def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens
         rc = fn(xs_c.data_ptr(), ys_c.data_ptr(), samp_c.data_ptr(), n,
                 sph_c.data_ptr(), ft_c.data_ptr(), cam_c.data_ptr(),
                 n_sph, n_ft, int(has_lens), assured, max_bounces,
-                samples_per_lane, out.data_ptr(), stream, *sky_args)
+                samples_per_lane, out.data_ptr(), stream, *sky_args, int(generator == "pcg"))
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    key = entry if sky is None else f"{entry}_sky"  # the kernel's instantiation
+    key = launch_key(entry, sky, generator)
     if key in LAUNCHES:
         LAUNCHES[key] += 1
     return tuple(out[k].view(xs.shape) for k in range(N_OUT))
@@ -339,11 +354,12 @@ def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens
 
 def trace_tiles(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph: int, n_ft: int,
                 has_lens: bool, assured: int, max_bounces: int,
-                samples_per_lane: int = 1, sky=None):
+                samples_per_lane: int = 1, sky=None, generator: str = "weyl"):
     """xs, ys, samp: int32 lane tensors of any shape ((N,) or the JAX
     package's (R, 128)); sph_table / ft_table / cam_vec / sky from
     `SceneTables` (or pack_scene_tables / make_cam_vec / SkyTables). Lane
-    i covers sample ids samp[i] .. samp[i] + samples_per_lane - 1. Returns
+    i covers sample ids samp[i] .. samp[i] + samples_per_lane - 1, its
+    draws from `generator` ("weyl" or "pcg"). Returns
     (L rgb, miss_dir xyz, miss_w rgb): 9 f32 tensors shaped like xs; with
     a sky, L holds the sky's terms.
 
@@ -352,7 +368,8 @@ def trace_tiles(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph: int, n_ft:
     if n_sph > MAX_PRIMS or n_ft > MAX_PRIMS:
         raise NotImplementedError(f"trace_tiles takes <= {MAX_PRIMS} spheres and free triangles")
     kw = dict(n_sph=n_sph, n_ft=n_ft, has_lens=has_lens, assured=assured,
-              max_bounces=max_bounces, samples_per_lane=samples_per_lane, sky=sky)
+              max_bounces=max_bounces, samples_per_lane=samples_per_lane, sky=sky,
+              generator=generator)
     if xs.device.type == "cuda":
         return _launch(xs, ys, samp, sph_table, ft_table, cam_vec, **kw)
     if xs.device.type == "cpu":
@@ -365,7 +382,7 @@ def _trace_tiles_per_thread(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph
                             samples_per_lane: int = 1):
     """`trace_tiles` by the entry `trace_tiles_per_thread` of
     csrc/trace_kernel.cu (a thread per lane, the first design, without the
-    cube map): the yardstick chip_smoke.py times the kernel against. CUDA
+    cube map, `weyl` only): the yardstick chip_smoke.py times the kernel against. CUDA
     tensors only."""
     if xs.device.type != "cuda":
         raise ValueError(f"the per-thread trace_tiles runs on cuda tensors, not {xs.device}")

@@ -54,7 +54,9 @@ a gradient. The fused kernels and the wavefront have no backward, and
 refuse a differentiable render.
 
 Draws: 8 uniforms per bounce in mesh scenes, 5 in meshless ones
-(u0, u1, u2, u3, u7; integrator.py:862-869).
+(u0, u1, u2, u3, u7; integrator.py:862-869), from
+`IntegratorParams.generator` (ops/rng.py: "weyl" or the reference's
+"pcg"; the JAX package reads its RTPU_RNG at import instead).
 """
 from __future__ import annotations
 
@@ -84,7 +86,8 @@ class IntegratorParams:
     its TPU tiling fields (`mesh_chunk`, `ray_tile`, `use_clusters`,
     `mesh_kernel`: the mesh always goes through `mesh_hit`).
     `differentiable`: gradients reach the mesh's vertex tables (module
-    docstring)."""
+    docstring). `generator`: the counter RNG's family (ops/rng.GENERATORS)
+    of every draw, raygen's and the bounces', on every driver."""
 
     max_thres: float = 0.5
     assured_depth: int = 5
@@ -93,10 +96,13 @@ class IntegratorParams:
     debug_single_ray: bool = False
     dir_light_samp: bool = False
     differentiable: bool = False
+    generator: str = "weyl"
 
     def __post_init__(self):
         if self.mode not in ("gpu", "cpu"):
             raise ValueError(f"mode must be 'gpu' or 'cpu', not {self.mode!r}")
+        if self.generator not in rng.GENERATORS:
+            raise ValueError(f"generator must be one of {rng.GENERATORS}, not {self.generator!r}")
 
 
 def uses_dls(scene, params: IntegratorParams) -> bool:
@@ -371,10 +377,10 @@ def _bounce_step(scene, params: IntegratorParams, st):
     ro, rd, active = st["ro"], st["rd"], st["active"]
     t, kind, idx, bu, bv = closest_hit(scene, params, ro, rd, active=active)
     if scene.n_mesh_tris:
-        state, draws = rng.next_f32_n(st["rng"], 8)
+        state, draws = rng.next_f32_n(st["rng"], 8, params.generator)
         u7 = draws[7]
     else:  # meshless scenes skip the PBR scatter draws u4-u6
-        state, (u0, u1, u2, u3, u7) = rng.next_f32_n(st["rng"], 5)
+        state, (u0, u1, u2, u3, u7) = rng.next_f32_n(st["rng"], 5, params.generator)
         draws = (u0, u1, u2, u3, u1, u2, u3, u7)
     hit = kind != KIND_NONE
     sh = _shade_hit(scene, params, ro, rd, t, kind, idx, bu, bv, draws[:7])

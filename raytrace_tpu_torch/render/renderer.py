@@ -31,7 +31,15 @@ one at a time. Both integrator drivers run their lanes in the JAX
 package's 32x32-tile pixel order. Sample ids continue at `target.count`, so an
 incremental or checkpoint-resumed render is bit-exact. The device is
 explicit: a CUDA device runs the CUDA kernels, the CPU their plain torch
-versions; nothing falls back.
+versions; nothing falls back. So is the generator: `generator="pcg"`
+draws every path's numbers from the reference's generator (ops/rng.py) on
+every driver, where the JAX package reads its RTPU_RNG at import.
+
+The host remainder of the JAX `render` (:740-943) comes along: a tqdm bar
+(when tqdm imports) with `utils.profiling.Throughput`'s Mpaths/s, and the
+update hook run on a writer thread (`utils.hooks.AsyncHook`, latest-wins,
+closed at the end). Left out (ROADMAP, "Not to port"): the TPU's
+dispatch caps, `adapt_dispatch_spp` and the `RTPU_*` knobs.
 """
 from __future__ import annotations
 
@@ -43,10 +51,12 @@ import torch
 
 from ..models.camera import build_camera
 from ..models.config import Scheme
-from ..models.scene import SceneTensors, build_scene
+from ..models.scene import SceneArrays, SceneTensors, build_scene
 from ..ops import mesh_kernel as mk
 from ..ops import raygen, rng
 from ..ops import trace_kernel as tk
+from ..utils.hooks import AsyncHook
+from ..utils.profiling import Throughput
 from .integrator import IntegratorParams, trace_paths
 from .target import RenderTarget
 from .wavefront import wavefront_batch
@@ -92,7 +102,8 @@ def sample_batch(scene: SceneTensors, params: IntegratorParams, xs, ys, sample_b
     acc = torch.zeros((xs.numel(), 3), dtype=torch.float32, device=xs.device)
     for s in range(n_samples):
         state = rng.init_state(xs, ys, torch.full_like(xs, sample_base + s))
-        state, ro, rd = raygen.generate_paths(state, xs, ys, cam, scene.has_lens)
+        state, ro, rd = raygen.generate_paths(state, xs, ys, cam, scene.has_lens,
+                                              params.generator)
         L, _ = trace_paths(scene, params, ro, rd, state)
         acc = acc + torch.stack(L, dim=1)
     return acc
@@ -113,7 +124,7 @@ def sample_batch_fused(tables: tk.SceneTables, params: IntegratorParams, xs, ys,
             xs, ys, samp, tables.sph, tables.ft, tables.cam_vec,
             n_sph=tables.n_sph, n_ft=tables.n_ft, has_lens=tables.has_lens,
             assured=params.assured_depth, max_bounces=params.max_bounces,
-            samples_per_lane=spl, sky=tables.sky,
+            samples_per_lane=spl, sky=tables.sky, generator=params.generator,
         )
         acc += torch.stack((lr, lg, lb), dim=1)
     return acc
@@ -132,7 +143,8 @@ def sample_batch_mesh(tables: mk.MeshTables, params: IntegratorParams, xs, ys,
         samp = torch.full_like(xs, sample_base + s0)
         acc += torch.stack(mk.mesh_trace(
             xs, ys, samp, tables, assured=params.assured_depth,
-            max_bounces=params.max_bounces, samples_per_lane=spl), dim=1)
+            max_bounces=params.max_bounces, samples_per_lane=spl,
+            generator=params.generator), dim=1)
     return acc
 
 
@@ -152,13 +164,17 @@ class Renderer:
     overrides the scheme's semantics ("gpu" or "cpu"); use_fused,
     use_mesh_fused and use_wavefront pick the driver (module docstring);
     differentiable sets `params.differentiable`, which only the plain
-    driver takes. `driver` names the one taken; after a wavefront
-    render, `stats` holds its iterations and lane-bounces."""
+    driver takes. `scene`: a prebuilt SceneArrays of the scheme (the
+    animation pipeline builds the next frame's while this one renders),
+    else build_scene(scheme). `generator`: "weyl" or "pcg", every draw's
+    family (`params.generator`). `driver` names the one taken; after a
+    wavefront render, `stats` holds its iterations and lane-bounces."""
 
     def __init__(self, scheme: Scheme, device="cuda", samples_per_launch: int = 256,
                  mode: Optional[str] = None, use_fused: Optional[bool] = None,
                  use_mesh_fused: Optional[bool] = None, use_wavefront: Optional[bool] = None,
-                 differentiable: bool = False):
+                 differentiable: bool = False, scene: Optional[SceneArrays] = None,
+                 generator: str = "weyl"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for but torch.cuda.is_available() is False")
@@ -170,9 +186,9 @@ class Renderer:
         info = scheme.render_info
         self.width, self.height = info.width, info.height
         self.params = dataclasses.replace(params_from_scheme(scheme, mode),
-                                          differentiable=differentiable)
+                                          differentiable=differentiable, generator=generator)
         self.mode = self.params.mode
-        self.scene = build_scene(scheme)
+        self.scene = scene if scene is not None else build_scene(scheme)
         self.samples_per_launch = samples_per_launch
         self.camera = build_camera(scheme.cam, self.width, self.height)
         self.target = RenderTarget(self.width, self.height)
@@ -215,26 +231,52 @@ class Renderer:
         return acc
 
     def render(self, samples: Optional[int] = None, batch: Optional[int] = None,
-               update_hook: Optional[Callable[[RenderTarget], None]] = None) -> np.ndarray:
+               update_hook: Optional[Callable[[RenderTarget], None]] = None,
+               progress: bool = True, async_hook: bool = True) -> np.ndarray:
         """Run `samples` MORE samples (default: the scheme's samps_per_pix)
         in batches of `batch` (default: all at once, or the scheme's
         render_batch when a hook wants the intermediate images); the hook
-        runs after every batch. Returns the (H, W, 3) mean image (row 0 =
-        bottom)."""
+        runs after every batch, with `async_hook` (the default) on a
+        writer thread against a snapshot, latest-wins, the last snapshot
+        delivered and the hook's exception re-raised before this returns.
+        `progress`: a tqdm bar over the samples (when tqdm imports), its
+        postfix the Mpaths/s so far. Returns the (H, W, 3) mean image (row
+        0 = bottom)."""
         info = self.scheme.render_info
         total = samples if samples is not None else info.samps_per_pix
         b = batch or (info.render_batch if update_hook is not None else None) or total
         b = max(1, min(b, total)) if total > 0 else 1
         self.stats = {"iterations": 0, "lane_bounces": 0}
+        bar = None
+        if progress:
+            try:
+                from tqdm import tqdm
+
+                bar = tqdm(total=total, desc="samples", unit="spp")
+            except Exception:
+                bar = None
+        meter = Throughput()
+        hook = AsyncHook(update_hook) if update_hook is not None and async_hook else update_hook
+        n_pix = self.width * self.height
         rendered = 0
-        while rendered < total:
-            n = min(b, total - rendered)
-            out = self._batch(
-                self.tables, self.params, self._xs, self._ys, self.target.count, n,
-                samples_per_launch=self.samples_per_launch,
-            )
-            self.target.add(out.cpu().numpy(), n)
-            rendered += n
-            if update_hook is not None:
-                update_hook(self.target)
+        try:
+            while rendered < total:
+                n = min(b, total - rendered)
+                out = self._batch(
+                    self.tables, self.params, self._xs, self._ys, self.target.count, n,
+                    samples_per_launch=self.samples_per_launch,
+                )
+                self.target.add(out.cpu().numpy(), n)
+                rendered += n
+                meter.add(n * n_pix)
+                if bar is not None:
+                    bar.update(n)
+                    bar.set_postfix_str(f"{meter.mpaths_per_s:.1f} Mpaths/s")
+                if hook is not None:
+                    hook(self.target)
+        finally:
+            if bar is not None:
+                bar.close()
+            if isinstance(hook, AsyncHook):
+                hook.close()  # flush the final snapshot; re-raise the hook's error
         return self.target.mean_image()

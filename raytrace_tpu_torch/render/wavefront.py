@@ -82,7 +82,8 @@ def wavefront_batch(scene, params: IntegratorParams, xs_tab, ys_tab, sample_base
         pix = ids % n_pix
         x, y = xs_tab[pix], ys_tab[pix]
         state0, ro0, rd0 = raygen.generate_paths(
-            rng.init_state(x, y, sample_base + ids // n_pix), x, y, cam, has_lens)
+            rng.init_state(x, y, sample_base + ids // n_pix), x, y, cam, has_lens,
+            params.generator)
         where = torch.where
         st = dict(st, ro=tuple(where(valid, ro0[k], st["ro"][k]) for k in range(3)),
                   rd=tuple(where(valid, rd0[k], st["rd"][k]) for k in range(3)),

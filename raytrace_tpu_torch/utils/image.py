@@ -31,3 +31,12 @@ def encode_png(rgba_or_rgb: np.ndarray) -> bytes:
 def save_png(path: str, rgba_or_rgb: np.ndarray):
     with open(path, "wb") as f:
         f.write(encode_png(rgba_or_rgb))
+
+
+def load_png(path: str) -> np.ndarray:
+    """Inverse of save_png: (H, W, C) u8 with row 0 = bottom. Decoded by
+    PIL, imported here only."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im)[::-1]

@@ -197,7 +197,8 @@ def port_render(scene, js, kw, leaves=None, cam_leaves=None, differentiable=True
     replace the scene's fields, cam_leaves the camera's tensors."""
     xs, ys = (torch.from_numpy(a) for a in pixels())
     sc = scene.replace(**leaves) if leaves else scene
-    cam = dataclasses.replace(camera_to_arrays(build_camera(js.cam, W, H)), **(cam_leaves or {}))
+    cam = dataclasses.replace(camera_to_arrays(build_camera(js.cam, W, H), "cpu"),
+                              **(cam_leaves or {}))
     return sample_batch(sc, port_params(kw, differentiable), xs, ys, 0, SPP, cam=cam)
 
 
@@ -205,7 +206,7 @@ def port_grads(scene, js, kw):
     """(image, field grads, camera grads) of the port's loss."""
     diff, _ = split_diff_scene(scene)
     leaves = {k: v.requires_grad_() for k, v in diff.items()}
-    cam = camera_to_arrays(build_camera(js.cam, W, H))
+    cam = camera_to_arrays(build_camera(js.cam, W, H), "cpu")
     cam_leaves = {k: getattr(cam, k).requires_grad_() for k in CAM_FIELDS}
     out = port_render(scene, js, kw, leaves, cam_leaves)
     (out * torch.from_numpy(weights())).sum().backward()
@@ -331,7 +332,7 @@ def _loss_and_hits(run, field, index, value, monkeypatch):
     try:
         with torch.no_grad():
             if field in CAM_FIELDS:
-                cam = camera_to_arrays(build_camera(run["js"].cam, W, H))
+                cam = camera_to_arrays(build_camera(run["js"].cam, W, H), "cpu")
                 t = getattr(cam, field).clone()
                 t[index] = value
                 out = port_render(run["scene"], run["js"], run["kw"], cam_leaves={field: t})
@@ -364,7 +365,7 @@ def test_central_difference_matches_the_gradient(runs, check, monkeypatch):
     case, field, index, eps, rtol = FD[check]
     run = runs(case)
     g = (run["cam_grads"] if field in CAM_FIELDS else run["grads"])[field]
-    base = (getattr(camera_to_arrays(build_camera(run["js"].cam, W, H)), field)
+    base = (getattr(camera_to_arrays(build_camera(run["js"].cam, W, H), "cpu"), field)
             if field in CAM_FIELDS else split_diff_scene(run["scene"])[0][field])
     x = float(base[index])
     _, hits = _loss_and_hits(run, field, index, x, monkeypatch)

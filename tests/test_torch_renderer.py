@@ -166,20 +166,37 @@ def test_sky_resume_bitwise_exact(tmp_path):
     np.testing.assert_array_equal(resumed.target.acc, full.target.acc)
 
 
+@pytest.fixture(scope="module")
+def octa_scheme(tmp_path_factory):
+    from test_torch_mesh_scene import octa_schemes, write_gltf
+
+    path = write_gltf(tmp_path_factory.mktemp("octa") / "m.gltf", textured=True)
+    return octa_schemes(path, W, H)[1]
+
+
+@pytest.mark.parametrize("async_hook", [True, False], ids=["async", "sync"])
 @pytest.mark.parametrize("kw,driver", [
     ({}, "fused"), ({"use_fused": False}, "wavefront"),
     ({"use_fused": False, "use_wavefront": False}, "plain"),
     ({"mode": "cpu", "use_wavefront": False}, "plain"),
-], ids=["fused", "wavefront", "plain", "plain-cpu"])
-def test_render_exact_sample_count_all_drivers(kw, driver):
+    ({"mesh": True}, "mesh_fused"), ({"mesh": True, "use_mesh_fused": False}, "wavefront"),
+], ids=["fused", "wavefront", "plain", "plain-cpu", "mesh_fused", "mesh-wavefront"])
+def test_render_exact_sample_count_all_drivers(octa_scheme, kw, driver, async_hook):
     """render(k) adds exactly k samples on every driver
     (tests/test_render.py:334), also across launches of
-    samples_per_launch samples."""
-    r = Renderer(walled_scheme(W, H), device="cpu", samples_per_launch=2, **kw)
+    samples_per_launch samples and in batches that do not divide k, with
+    an update hook that sees every batch's count (the async one, which
+    coalesces, at least the last) and the final target."""
+    kw = dict(kw)
+    scheme = octa_scheme if kw.pop("mesh", False) else walled_scheme(W, H)
+    r = Renderer(scheme, device="cpu", samples_per_launch=2, **kw)
     assert r.driver == driver
-    r.render(samples=3)
-    assert r.target.count == 3
-    r.render(samples=2)
+    counts = []
+    r.render(samples=3, batch=2, update_hook=lambda t: counts.append(t.count),
+             async_hook=async_hook, progress=False)
+    assert r.target.count == 3 and counts[-1] == 3
+    assert set(counts) <= {2, 3} if async_hook else counts == [2, 3]
+    r.render(samples=2, progress=False)
     assert r.target.count == 5
     assert np.isfinite(r.target.acc).all() and r.target.acc.mean() > 0
 

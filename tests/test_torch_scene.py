@@ -120,14 +120,15 @@ def test_load_scheme_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("member", [
-    # glTF models are ported; animated ones are not (ROADMAP queue 1, item 6)
-    cfg.Tagged("Model", {"path": "x.gltf", "uniform_scale": 1.0,
-                         "translation": [0, 0, 0], "euler_angles": [0, 0, 0],
-                         "animation": {"keyframes": []}}),
+    # every member kind of the reference is ported (animated models too:
+    # tests/test_torch_animation.py); what neither package knows is refused
+    cfg.Tagged("Light", {"c": [0, 0, 0]}),
+    cfg.Tagged("Sphere", {"c": [0, 0, -5], "r": 1.0, "coloring": cfg.Tagged("Texture", "t.png"),
+                          "mat": {"divert_ray": "Diff"}}),
 ])
 def test_build_scene_rejects_unported_members(member):
     scheme = walled_scheme(32, 16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         scheme.scene_members.append(cfg.parse_member(member))
         build_scene(scheme)
 

@@ -68,7 +68,8 @@ def _port_step(jscene, js, n_samples):
     sc = SceneTensors(from_reference(reference_fields(jscene)), cam, 0.5)
     step = make_train_step(n_samples=n_samples, loss_scale=2.0)
     xs, ys = (torch.from_numpy(a) for a in _pixels())
-    loss, (g, gc) = step(sc, camera_to_arrays(cam), IntegratorParams(differentiable=True, **KW),
+    loss, (g, gc) = step(sc, camera_to_arrays(cam, "cpu"),
+                         IntegratorParams(differentiable=True, **KW),
                          xs, ys, 3, torch.from_numpy(_target()))
     return float(loss), g, gc
 
@@ -105,7 +106,7 @@ def test_train_step_refuses_a_forward_params(scene):
     sc = SceneTensors(from_reference(reference_fields(jscene)), cam, 0.5)
     xs, ys = (torch.from_numpy(a) for a in _pixels())
     with pytest.raises(ValueError):
-        make_train_step()(sc, camera_to_arrays(cam), IntegratorParams(**KW), xs, ys, 0,
+        make_train_step()(sc, camera_to_arrays(cam, "cpu"), IntegratorParams(**KW), xs, ys, 0,
                           torch.zeros(W * H, 3))
 
 
@@ -142,7 +143,7 @@ def test_descent_on_walled_lowers_the_loss():
     step = make_train_step()
     sc, losses = perturbed_walled(true), []
     for _ in range(5):
-        loss, (g, _) = step(sc, camera_to_arrays(cam), params, xs, ys, 0, target)
+        loss, (g, _) = step(sc, camera_to_arrays(cam, "cpu"), params, xs, ys, 0, target)
         losses.append(float(loss))
         sc = polyak_step(sc, loss, g)
     assert all(b < a for a, b in zip(losses, losses[1:])), losses
