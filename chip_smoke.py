@@ -166,6 +166,30 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    once, equal to the final image. The fused kernels' records gain pcg_ms,
    pcg_weyl_ms (the weyl launch of the same turns), pcg_max_abs_err and
    pcg_launches (the pcg render's).
+12. parallel/ under torch.distributed, in torchrun children that run this
+   script with --dist (a rank that fails fails the phase): NCCL at a
+   world of 1 (NCCL takes no two ranks on one card, and this run needs
+   one card): walled 1200x600 render(64) through the grouped
+   fused driver bitwise the ungrouped render, timed in turns; then two
+   gloo ranks on cuda:0 (gloo's all-reduce of CUDA tensors stages through
+   host memory): walled render(64) through trace_tiles and the a380-class
+   render(16) through mesh_trace, each bitwise the one-process render at
+   samples_per_launch spp / 2, and the cpu-semantics a380-class
+   render(16) through the wavefront and mesh_hit, bitwise the rank-order
+   sum of the one-process slices' renders and under the tile gate
+   against the whole one-process render; each with the tables' digests
+   all-gathered and equal, the launch counts reset just before and read
+   just after, the two ranks' targets bitwise equal, a resume bitwise and
+   render(samples=5) the sum of its slices (3 + 2); make_train_step on
+   make_mesh(tile=1, spp=2) at walled 1200x600, one sample a rank: the
+   loss bitwise the one-process two-sample step's, every gradient within
+   relative L2 1e-3 (the largest difference printed); each rank's render
+   ms beside the one-process render's on the same card, and the
+   all-reduce's ms at each image's size (8.64 MB walled, 8.87 MB
+   a380-class). Two ranks share one card's SMs: correctness and the
+   collective's cost, not scaling. The records of trace_tiles, mesh_trace
+   and mesh_hit gain dist_launches_per_rank and dist_backend, trace_tiles'
+   nccl_launches.
 
 Each kernel's record has its bound (bound_ms, bound_by): the larger of
 its bytes over 3.35 TB/s and its FP32 work, counted from the sources,
@@ -2310,6 +2334,304 @@ def host_phase(dev, card):
     return dict(async_ms=ms["async"], sync_ms=ms["sync"])
 
 
+# ---- 12. parallel/ under torch.distributed ----
+# Ranks of torchrun children that run this script in DIST_CHILD mode. The
+# run needs one card, and NCCL takes no two ranks on one card: so NCCL runs
+# at a world of 1 (a real NCCL all-reduce on the card), and the
+# two-rank runs use gloo on CUDA tensors, both ranks on cuda:0, sharing its
+# SMs: they measure correctness and the collective's cost, not scaling.
+DIST_CHILD = "--dist"  # the arguments of a rank: --dist <backend> <out dir> <card>
+DIST_REPS = 10  # all-reduces of an image's sums timed a rank
+DIST_ODD = 5  # render(samples=DIST_ODD) must add exactly that many
+DIST_WF_K = 2  # the cpu-semantics resume's k (render(2k) against k + k)
+
+
+def dist_renders():
+    """Phase 12's renders: (label, scheme, Renderer keywords, spp, samples
+    a launch of the one-process render whose launches cover the two
+    ranks' slices, or None where the driver adds per sample)."""
+    from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.models.walled import walled_scheme
+
+    a380 = procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP)
+    return [("walled", walled_scheme(W, H), {}, MAIN_SPP, MAIN_SPP // 2),
+            ("a380-class", a380, {}, MESH_SPP, MESH_SPP // 2),
+            ("a380-class cpu", a380, dict(mode="cpu"), MESH_SPP, None)]
+
+
+def tables_digest(module) -> str:
+    """sha256 over a module's buffers, by name (the replicated scene tables)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, b in sorted(module.named_buffers()):
+        h.update(name.encode())
+        h.update(b.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def all_reduce_ms(n_pix, dev, group=None):
+    """The mean ms of DIST_REPS all-reduces of an (n_pix, 3) f32 tensor on
+    dev over group (after 3 warm ones), each synchronised."""
+    import torch
+    import torch.distributed as dist
+
+    buf = torch.ones((n_pix, 3), dtype=torch.float32, device=dev)
+    for _ in range(3):
+        dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(DIST_REPS):
+        dist.all_reduce(buf, group=group)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / DIST_REPS * 1e3
+
+
+def timed_sharded(r, spp):
+    """r.render(spp) into a fresh target after a barrier, the launch counts
+    reset just before and read just after: (ms, launches)."""
+    import torch
+    import torch.distributed as dist
+
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.ops import trace_kernel as tk
+    from raytrace_tpu_torch.render.target import RenderTarget
+
+    r.target = RenderTarget(r.width, r.height)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    r.render(progress=False, samples=spp)  # ends in a device -> host copy
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, {k: v for k, v in dict(mk.LAUNCHES, **tk.LAUNCHES).items() if v}
+
+
+def dist_child(backend, out, card) -> int:
+    """One rank of phase 12 (under torchrun). nccl (a world of 1): walled
+    1200x600 render(MAIN_SPP) through the grouped fused driver against the
+    ungrouped render, bitwise, timed in turns. gloo (2 ranks, cuda:0): each
+    of dist_renders() through the Renderer over the world (the tables'
+    digests all-gathered and equal, a warm render(1), the timed render with
+    its launches, a resume, render(samples=DIST_ODD)), then make_train_step
+    on make_mesh(tile=1, spp=2) at walled 1200x600, one sample a rank.
+    Every rank: the all-reduce's ms at each image's size; its targets,
+    loss and gradients into <out>/<backend>_<rank>.npz, its numbers into
+    .json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from raytrace_tpu_torch.models.walled import walled_scheme
+    from raytrace_tpu_torch.ops.raygen import camera_to_arrays
+    from raytrace_tpu_torch.parallel import multihost
+    from raytrace_tpu_torch.parallel.distributed import make_train_step
+    from raytrace_tpu_torch.parallel.mesh import make_mesh
+    from raytrace_tpu_torch.render.renderer import Renderer
+    from raytrace_tpu_torch.render.target import RenderTarget
+
+    assert multihost.init(backend=backend, device="cuda") and dist.get_backend() == backend
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tag = f"[dist] {backend} rank {rank}/{world} on {dev}"
+    arrays, info = {}, {"rank": rank, "world": world, "backend": backend, "renders": {}}
+    if backend == "nccl":
+        scheme = walled_scheme(W, H)
+        alone, grouped = Renderer(scheme, "cuda"), Renderer(scheme, "cuda", group=dist.group.WORLD)
+        assert alone.group is None and grouped.driver == alone.driver == "fused"
+        for r in (alone, grouped):
+            r.render(progress=False, samples=1)  # warm
+        ms, counts = {}, {}
+        for label, r in (("alone", alone), ("grouped", grouped), ("grouped", grouped),
+                         ("alone", alone)):
+            t, counts[label] = timed_sharded(r, MAIN_SPP)
+            ms.setdefault(label, []).append(t)
+        launches = counts["grouped"]
+        assert launches == counts["alone"] == {"trace_tiles": 1}, counts
+        assert np.array_equal(grouped.target.acc, alone.target.acc), \
+            "nccl: the grouped render is not the ungrouped one"
+        info["renders"]["walled"] = dict(ms=ms, launches=launches)
+        print(f"{tag}: walled {W}x{H} render({MAIN_SPP}) through the grouped fused driver "
+              f"bitwise the ungrouped render; in turns grouped {ms['grouped']} ms, ungrouped "
+              f"{ms['alone']} ms; launches {launches} [{card}]", flush=True)
+    else:
+        for label, scheme, kw, spp, _ in dist_renders():
+            r = Renderer(scheme, "cuda", **kw)
+            digests = [None] * world
+            dist.all_gather_object(digests, tables_digest(r.tables))
+            assert len(set(digests)) == 1, f"{label}: the ranks' tables differ"
+            r.render(progress=False, samples=1)  # warm
+            ms, launches = timed_sharded(r, spp)
+            arrays[label] = r.target.acc.copy()
+            info["renders"][label] = dict(ms=ms, launches=launches, driver=r.driver,
+                                          stats=r.stats, digest=digests[0])
+            print(f"{tag}: {label} {r.width}x{r.height} render({spp}), driver {r.driver}, "
+                  f"sharded: {ms:.2f} ms, launches {launches}, stats {r.stats}; tables' digest "
+                  f"equal on the {world} ranks [{card}]", flush=True)
+            resume_bitwise("dist", r, f"{label} rank {rank}", k=DIST_WF_K if kw else 4)
+            r.target = RenderTarget(r.width, r.height)
+            r.render(progress=False, samples=DIST_ODD)
+            assert r.target.count == DIST_ODD, f"{label}: render({DIST_ODD}) added {r.target.count}"
+            arrays[label + " odd"] = r.target.acc.copy()
+        scene, cam, params, xs, ys, wts = diff_setup(walled_scheme(W, H), dev)
+        step = make_train_step(make_mesh(tile=1, spp=2, device_type="cuda"), n_samples=1)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        loss, (g, gc) = step(scene, camera_to_arrays(cam, dev), params, xs, ys, 0, wts)
+        torch.cuda.synchronize()
+        info["train_ms"] = (time.perf_counter() - t0) * 1e3
+        arrays["loss"] = loss.detach().cpu().numpy()
+        arrays.update({"g." + k: v.cpu().numpy() for k, v in g.items()})
+        arrays.update({"gc." + k: v.cpu().numpy() for k, v in gc.items()})
+        print(f"{tag}: make_train_step on make_mesh(tile=1, spp=2), walled {W}x{H}, one sample "
+              f"a rank: loss {float(loss):.9g}, {info['train_ms']:.1f} ms [{card}]", flush=True)
+    for label, n_pix in (("walled", W * H), ("a380-class", MESH_W * MESH_H)):
+        ms = all_reduce_ms(n_pix, dev)
+        info.setdefault("all_reduce", {})[label] = dict(ms=ms, bytes=n_pix * 12)
+        print(f"{tag}: all-reduce of the {label} sums, {n_pix * 12} bytes f32: {ms:.3f} ms "
+              f"(mean of {DIST_REPS}) [{card}]", flush=True)
+    np.savez(os.path.join(out, f"{backend}_{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"{backend}_{rank}.json"), "w") as f:
+        json.dump(info, f)
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "raytrace_tpu")]
+    assert not bad, bad
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(n, backend, out, card, timeout):
+    """torchrun --standalone --nproc-per-node n of this script in
+    DIST_CHILD mode, torchrun and its ranks in a new process group of the
+    OS (killed together at the timeout); prints its output; raises unless
+    every rank succeeded."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", os.path.abspath(__file__), DIST_CHILD, backend, out, card]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    for line in stdout.splitlines():
+        print(line, flush=True)
+    assert proc.returncode == 0, f"{backend} x{n}: rc {proc.returncode}\n{stderr[-4000:]}"
+    print(f"[dist] {backend} x{n}: torchrun in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def dist_phase(card):
+    """Phase 12: the ranks (run_ranks), then their results against one
+    process on the card: NCCL's world of 1 bitwise (in the rank); the two
+    gloo ranks' targets bitwise equal; walled and the a380-class gpu
+    render bitwise the one-process render at samples_per_launch spp / 2;
+    the cpu-semantics render bitwise the rank-order sum of the one-process
+    renders of the two slices and under the tile gate against the whole
+    one-process render; each render(samples=DIST_ODD) bitwise the sum of
+    its slices (3 + 2); the train step's loss bitwise the one-process
+    two-sample step's and every gradient within relative L2 1e-3 of it.
+    Returns {label: launches a rank of its sharded render}."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch.models.scene import build_scene
+    from raytrace_tpu_torch.parallel.distributed import make_train_step, sample_slice
+    from raytrace_tpu_torch.render.renderer import Renderer
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_dist_") as out:
+        run_ranks(1, "nccl", out, card, timeout=300)
+        run_ranks(2, "gloo", out, card, timeout=600)
+        nccl = json.load(open(os.path.join(out, "nccl_0.json")))
+        infos = [json.load(open(os.path.join(out, f"gloo_{r}.json"))) for r in range(2)]
+        ranks = [dict(np.load(os.path.join(out, f"gloo_{r}.npz"))) for r in range(2)]
+    for k in ranks[0]:
+        assert np.array_equal(ranks[0][k], ranks[1][k]), f"gloo: rank 1's {k} is not rank 0's"
+
+    def one(scheme, kw, base, n, spl=256):
+        r = Renderer(scheme, "cuda", samples_per_launch=spl, scene=scenes[id(scheme)], **kw)
+        r.target.count = base
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render(progress=False, samples=n)
+        torch.cuda.synchronize()
+        return r.target.acc, (time.perf_counter() - t0) * 1e3
+
+    def slices(scheme, kw, n):
+        parts = [one(scheme, kw, off, cnt)[0] for off, cnt in
+                 (sample_slice(n, 2, r) for r in range(2))]
+        return parts[0] + parts[1]
+
+    launches, renders = {}, dist_renders()
+    scenes = {id(scheme): build_scene(scheme) for _, scheme, *_ in renders}
+    for label, scheme, kw, spp, half in renders:
+        got = ranks[0][label]
+        one(scheme, kw, 0, 1)  # warm
+        whole, whole_ms = one(scheme, kw, 0, spp, half or 256)
+        if half:
+            assert np.array_equal(got, whole), \
+                f"{label}: 2 ranks are not the 1-process render at {half} samples a launch"
+            how = f"bitwise the 1-process render at samples_per_launch {half}"
+        else:
+            assert np.array_equal(got, slices(scheme, kw, spp)), \
+                f"{label}: 2 ranks are not the rank-order sum of the slices"
+            w, h = scheme.render_info.width, scheme.render_info.height
+            gate("dist", f"{label} 2 ranks against the 1-process render({spp})",
+                 got.reshape(h, w, 3) / spp, whole.reshape(h, w, 3) / spp)
+            how = "bitwise the rank-order sum of the 1-process slices"
+        assert np.array_equal(ranks[0][label + " odd"], slices(scheme, kw, DIST_ODD)), \
+            f"{label}: render({DIST_ODD}) is not the sum of its slices"
+        rec = [info["renders"][label] for info in infos]
+        assert rec[0]["launches"] == rec[1]["launches"] and rec[0]["launches"], rec
+        launches[label] = rec[0]["launches"]
+        print(f"[dist] {label} render({spp}) over 2 gloo ranks on one card: {how}; both ranks' "
+              f"targets equal; render({DIST_ODD}) the sum of its slices; sharded "
+              f"{rec[0]['ms']:.2f} / {rec[1]['ms']:.2f} ms (ranks 0 / 1) against the 1-process "
+              f"render's {whole_ms:.2f} ms (two ranks share the card's SMs: not scaling); launches "
+              f"a rank {launches[label]} [{card}]", flush=True)
+
+    # the train step: one process, two samples, the same target
+    from raytrace_tpu_torch.models.walled import walled_scheme
+    from raytrace_tpu_torch.ops.raygen import camera_to_arrays
+
+    scene, cam, params, xs, ys, wts = diff_setup(walled_scheme(W, H), torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, (g, gc) = make_train_step(n_samples=2)(scene, camera_to_arrays(cam, "cuda"), params,
+                                                  xs, ys, 0, wts)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    ref = {"loss": loss.detach().cpu().numpy(), **{"g." + k: v.cpu().numpy() for k, v in g.items()},
+           **{"gc." + k: v.cpu().numpy() for k, v in gc.items()}}
+    assert np.array_equal(ranks[0]["loss"], ref["loss"]), \
+        f"train: loss {ranks[0]['loss']} against the 1-process {ref['loss']}"
+    grads = {k: v for k, v in ref.items() if k != "loss" and v.size}
+    errs = {k: rel_l2(torch.from_numpy(ranks[0][k]), torch.from_numpy(v))
+            for k, v in grads.items()}
+    worst = max(errs, key=errs.get)
+    print(f"[dist] make_train_step on make_mesh(tile=1, spp=2): loss {float(ref['loss']):.9g} "
+          f"bitwise the 1-process two-sample step's; gradients' relative L2 at most "
+          f"{errs[worst]:.3e} ({worst}; gate 1e-3), max |d| "
+          f"{max(float(np.abs(ranks[0][k] - v).max()) for k, v in grads.items()):.3e}; "
+          f"{infos[0]['train_ms']:.1f} / {infos[1]['train_ms']:.1f} ms (ranks) against "
+          f"{one_ms:.1f} ms [{card}]", flush=True)
+    assert errs[worst] <= 1e-3, f"train: {worst} relative L2 {errs[worst]:.3e}"
+    for label in ("walled", "a380-class"):
+        ar = [info["all_reduce"][label] for info in (nccl, *infos)]
+        print(f"[dist] all-reduce of the {label} sums ({ar[0]['bytes']} bytes f32): NCCL world 1 "
+              f"{ar[0]['ms']:.3f} ms, gloo 2 ranks on CUDA tensors {ar[1]['ms']:.3f} / "
+              f"{ar[2]['ms']:.3f} ms [{card}]", flush=True)
+    print(f"[dist] phase 12 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches, nccl=nccl["renders"]["walled"]["launches"])
+
+
 PROFILE_CHILD = "--profile"  # the argument of the child that profiles warm renders
 
 
@@ -2370,6 +2692,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == [PROFILE_CHILD]:
         return profile_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == [DIST_CHILD]:
+        return dist_child(*sys.argv[2:5])
     import numpy as np
 
     from raytrace_tpu_torch.kernels import build
@@ -2569,6 +2893,16 @@ def main() -> int:
                        pcg_launches=pcg["launches"][f"{rec['name']}_pcg"])
     anim_phase(dev, card)
     host_phase(dev, card)
+
+    # ---- 12. parallel/ under torch.distributed ----
+    dist = dist_phase(card)
+    for rec in kernels:
+        label, key = {"trace_tiles": ("walled", "trace_tiles"),
+                      "mesh_trace": ("a380-class", "mesh_trace"),
+                      "mesh_hit": ("a380-class cpu", "mesh_hit")}.get(rec["name"], (None, None))
+        if label:
+            rec.update(dist_launches_per_rank=dist[label][key], dist_backend="gloo")
+    kernels[0]["nccl_launches"] = dist["nccl"]["trace_tiles"]
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,8 @@ Layout:
   csrc/      the hand-written CUDA kernels (sm_90a)
   kernels/   nvcc build at first use, loaded with ctypes
   render/    Renderer driver, integrator, wavefront and the render target
-  parallel/  the differentiable tier's train step
+  parallel/  torch.distributed: torchrun init, the (tile, spp) mesh, the
+             sharded render steps and the train step's gradient all-reduce
   utils/     PNG in and out, checkpoints, video encode, the async update
              hook, profiling and the live preview
   cli.py     python -m raytrace_tpu_torch.cli <scheme.yml> [no_ui]

@@ -17,6 +17,14 @@ scene of frame k+1 built on a builder thread while frame k renders
 frames ahead), then encodes them to animation.mp4 (utils/video.py's
 ladder; an MJPEG-AVI beside it when no mp4 encoder is there).
 `--generator` picks the counter RNG's family (the JAX package's RTPU_RNG).
+
+Under torchrun (`torchrun --nproc-per-node N -m raytrace_tpu_torch.cli
+scheme.yml no_ui`) every rank joins the process group first
+(parallel/multihost.init: NCCL on the card, gloo with `--device cpu`)
+and renders with the world group, each rank its slice of every batch's
+sample ids; every rank reads `--resume`, and rank 0 alone writes the
+PNG, the checkpoint, the preview, the animation frames and the video.
+Without torchrun's environment nothing of this happens.
 """
 from __future__ import annotations
 
@@ -26,7 +34,10 @@ import shutil
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import torch
+
 from .ops.rng import GENERATORS
+from .parallel import multihost
 
 ANIM_DIR = "./anim_frames"  # the reference's frame directory (main.rs:51)
 
@@ -49,7 +60,21 @@ def main(argv=None):
     ap.add_argument("--preview", type=int, default=None, metavar="PORT",
                     help="serve a live browser preview on 127.0.0.1:PORT (0: a free port)")
     args = ap.parse_args(argv)
+    joined = multihost.init(device=torch.device(args.device).type)
+    try:
+        return _main(args)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
+
+def _rank() -> int:
+    """This process's rank in the world, 0 without a process group."""
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _main(args):
     from .models.config import load_scheme
     from .render.renderer import Renderer
     from .utils import checkpoint as ckpt
@@ -72,8 +97,9 @@ def main(argv=None):
         renderer.target = loaded
         print(f"resumed at {loaded.count} spp", flush=True)
 
+    writer = _rank() == 0
     preview = None
-    if args.preview is not None:
+    if args.preview is not None and writer:
         from .utils.preview import LivePreview
 
         preview = LivePreview(port=args.preview)
@@ -81,6 +107,9 @@ def main(argv=None):
         print(f"live preview: http://127.0.0.1:{preview.port}/", flush=True)
 
     def hook(target):
+        # every rank passes the hook, so that every rank takes the same batches
+        if not writer:
+            return
         save_png(args.out, target.to_u8_rgba())
         if args.checkpoint:
             ckpt.save(args.checkpoint, target)
@@ -89,14 +118,18 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     try:
-        renderer.render(samples=args.samples, update_hook=hook)
+        renderer.render(samples=args.samples, update_hook=hook, progress=writer)
     finally:
         if preview is not None:
             preview.stop()
+    if not writer:
+        return
     save_png(args.out, renderer.target.to_u8_rgba())
+    ranks = "" if renderer.group is None else \
+        f", {torch.distributed.get_world_size(renderer.group)} ranks"
     print(f"saved {args.out} ({renderer.target.count} spp, {time.perf_counter() - t0:.1f}s, "
           f"device {renderer.device}, {renderer.mode} semantics, {renderer.driver} driver, "
-          f"{args.generator})", flush=True)
+          f"{args.generator}{ranks})", flush=True)
 
 
 def _render_animation(scheme, args):
@@ -110,7 +143,9 @@ def _render_animation(scheme, args):
     and generator, as main's parser gives them. Returns {"frames": per
     frame {build_s (on the builder thread), wait_s (for the build),
     setup_s (the Renderer), render_s, png_s}, "video": the path written,
-    "encode_s", "n_frames", "seconds"}."""
+    "encode_s", "n_frames", "seconds"}. Under a process group every rank
+    renders every frame with the world group and rank 0 alone writes the
+    frames and the video (the other ranks return "video": None)."""
     from .models.animation import extract_frames
     from .models.scene import build_scene
     from .render.renderer import Renderer
@@ -123,11 +158,13 @@ def _render_animation(scheme, args):
         raise SystemExit("animation: true requires framerate")
 
     frames = extract_frames(scheme, framerate)
-    print(f"Extracting frames:\n\t Number of frames: {len(frames)}"
-          f"\n\t Time per frame {1.0 / framerate:.4f}s", flush=True)
-    if os.path.isdir(ANIM_DIR):
-        shutil.rmtree(ANIM_DIR)
-    os.makedirs(ANIM_DIR, exist_ok=True)
+    writer = _rank() == 0
+    if writer:
+        print(f"Extracting frames:\n\t Number of frames: {len(frames)}"
+              f"\n\t Time per frame {1.0 / framerate:.4f}s", flush=True)
+        if os.path.isdir(ANIM_DIR):
+            shutil.rmtree(ANIM_DIR)
+        os.makedirs(ANIM_DIR, exist_ok=True)
     depth = info.anim_pipeline_depth or 2
 
     def build(frame_scheme):
@@ -151,11 +188,17 @@ def _render_animation(scheme, args):
             t2 = time.perf_counter()
             r.render(samples=args.samples, progress=False)
             t3 = time.perf_counter()
-            save_png(os.path.join(ANIM_DIR, f"{i}.png"), r.target.to_u8_rgba())
+            if writer:
+                save_png(os.path.join(ANIM_DIR, f"{i}.png"), r.target.to_u8_rgba())
             t4 = time.perf_counter()
             stats.append(dict(build_s=build_s, wait_s=t1 - t0, setup_s=t2 - t1, render_s=t3 - t2,
                               png_s=t4 - t3))
-            print(f"frame {i + 1}/{len(frames)} in {t4 - t0:.1f}s", flush=True)
+            if writer:
+                print(f"frame {i + 1}/{len(frames)} in {t4 - t0:.1f}s", flush=True)
+
+    if not writer:
+        return {"frames": stats, "video": None, "encode_s": 0.0, "n_frames": len(frames),
+                "seconds": time.perf_counter() - t_all}
 
     # numeric-sorted frame encode (main.rs:69-84)
     names = sorted(os.listdir(ANIM_DIR), key=lambda p: int(p.split(".")[0]))

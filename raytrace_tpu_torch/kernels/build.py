@@ -21,11 +21,15 @@ contraction it equals its plain version bitwise, at 8% (walk) and 9%
 (brute) more time per 1216x608 launch of 16 samples per lane.
 trace_kernel keeps contraction: it passes the gate with it (0.44% of
 lanes at worst), and without it its walled launch takes 14% longer.
-A failed build raises; nothing falls back to another path.
+A failed build raises; nothing falls back to another path. Processes
+that build at once (the ranks of a torchrun job) take turns under a file
+lock, `_build/<name>.lock`, so the first runs nvcc and the others load
+its library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -75,17 +79,27 @@ def build(name: str) -> Built:
     seconds = 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, so)
+        with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if not so.exists():  # another process may have built it meanwhile
+                seconds = _nvcc(name, flags, src, so, log_path)
     built = Built(path=so, log=log_path.read_text() if log_path.exists() else "",
                   seconds=seconds, lib=ctypes.CDLL(str(so)))
     _LOADED[name] = built
     return built
+
+
+def _nvcc(name: str, flags: list, src: Path, so: Path, log_path: Path) -> float:
+    """Compile src into so (through a temporary file: a library is never
+    seen half written) and write nvcc's log; returns the seconds taken."""
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, so)
+    return seconds

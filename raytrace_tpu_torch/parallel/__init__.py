@@ -1,1 +1,1 @@
-"""Training steps over the renderer (the JAX package's parallel/)."""
+"""Distribution over torch.distributed (the JAX package's parallel/)."""

@@ -35,6 +35,23 @@ versions; nothing falls back. So is the generator: `generator="pcg"`
 draws every path's numbers from the reference's generator (ops/rng.py) on
 every driver, where the JAX package reads its RTPU_RNG at import.
 
+Under torch.distributed (the JAX `devices=`, :354-391, :630-738,
+:835-925) a Renderer shards every driver by sample id over its process
+group: `group=`, by default the world when torch.distributed is
+initialised with more than one process (the JAX default of all attached
+devices). Each batch of n samples is split into contiguous slices, the
+first n % size ranks taking one more (`parallel.distributed.sample_slice`;
+the JAX package runs a remainder below the device count on one device
+instead); each rank renders its slice through its own driver on its own
+device, one all-reduce sums the (n_pix, 3) f32 batch sums on the device,
+and every rank adds the same sums into its target. So every sample id of
+a batch is rendered once, `render(samples=k)` adds exactly k, ids
+continue at `target.count` (a resume is bitwise), and the targets are
+bitwise equal on every rank. The fused drivers sum each lane's samples in order inside
+a launch, so a render over two ranks equals the one-process render whose
+launches cover the same slices; the plain driver and the wavefront add
+per sample, so it equals the rank-order sum of the slices' renders.
+
 The host remainder of the JAX `render` (:740-943) comes along: a tqdm bar
 (when tqdm imports) with `utils.profiling.Throughput`'s Mpaths/s, and the
 update hook run on a writer thread (`utils.hooks.AsyncHook`, latest-wins,
@@ -168,13 +185,18 @@ class Renderer:
     animation pipeline builds the next frame's while this one renders),
     else build_scene(scheme). `generator`: "weyl" or "pcg", every draw's
     family (`params.generator`). `driver` names the one taken; after a
-    wavefront render, `stats` holds its iterations and lane-bounces."""
+    wavefront render, `stats` holds its iterations and lane-bounces
+    (summed over the ranks). `group`: the torch.distributed process group
+    to shard samples over (module docstring; default the world when it
+    has more than one process); a differentiable Renderer takes none of
+    more than one process (the distributed differentiable path is
+    parallel.distributed.make_train_step)."""
 
     def __init__(self, scheme: Scheme, device="cuda", samples_per_launch: int = 256,
                  mode: Optional[str] = None, use_fused: Optional[bool] = None,
                  use_mesh_fused: Optional[bool] = None, use_wavefront: Optional[bool] = None,
                  differentiable: bool = False, scene: Optional[SceneArrays] = None,
-                 generator: str = "weyl"):
+                 generator: str = "weyl", group=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for but torch.cuda.is_available() is False")
@@ -182,6 +204,15 @@ class Renderer:
             raise ValueError(f"unsupported device {self.device} (cuda or cpu)")
         if samples_per_launch < 1:
             raise ValueError("samples_per_launch must be >= 1")
+        dist = torch.distributed
+        if group is None and dist.is_available() and dist.is_initialized() and \
+                dist.get_world_size() > 1:
+            group = dist.group.WORLD
+        self.group = group
+        if group is not None and differentiable and dist.get_world_size(group) > 1:
+            raise NotImplementedError(
+                "a differentiable Renderer runs in one process; the distributed "
+                "differentiable path is parallel.distributed.make_train_step")
         self.scheme = scheme
         info = scheme.render_info
         self.width, self.height = info.width, info.height
@@ -214,6 +245,11 @@ class Renderer:
             self.pool = min(POOL_CAP, -(-n_pix // 1024) * 1024)
         self._xs = torch.from_numpy((flat % self.width).astype(np.int32)).to(self.device)
         self._ys = torch.from_numpy((flat // self.width).astype(np.int32)).to(self.device)
+        self._step = self._batch
+        if group is not None:
+            from ..parallel.distributed import make_spp_sharded_step
+
+            self._step, _ = make_spp_sharded_step(group, self._batch)
 
     def _plain(self, tables, params, xs, ys, sample_base, n_samples, *, samples_per_launch):
         out = sample_batch(tables, params, xs, ys, sample_base, n_samples)
@@ -228,7 +264,7 @@ class Renderer:
             for k in st:
                 self.stats[k] += st[k]
             acc = img if acc is None else acc + img
-        return acc
+        return acc if acc is not None else torch.zeros((xs.numel(), 3), device=xs.device)
 
     def render(self, samples: Optional[int] = None, batch: Optional[int] = None,
                update_hook: Optional[Callable[[RenderTarget], None]] = None,
@@ -262,9 +298,9 @@ class Renderer:
         try:
             while rendered < total:
                 n = min(b, total - rendered)
-                out = self._batch(
-                    self.tables, self.params, self._xs, self._ys, self.target.count, n,
-                    samples_per_launch=self.samples_per_launch,
+                out = self._step(
+                    self.tables, self.params, self._xs, self._ys, sample_base=self.target.count,
+                    n_samples=n, samples_per_launch=self.samples_per_launch,
                 )
                 self.target.add(out.cpu().numpy(), n)
                 rendered += n
@@ -279,4 +315,8 @@ class Renderer:
                 bar.close()
             if isinstance(hook, AsyncHook):
                 hook.close()  # flush the final snapshot; re-raise the hook's error
+        if self.group is not None and self.driver == "wavefront":
+            st = torch.tensor([self.stats[k] for k in self.stats], device=self.device)
+            torch.distributed.all_reduce(st, group=self.group)
+            self.stats = dict(zip(self.stats, st.tolist()))
         return self.target.mean_image()

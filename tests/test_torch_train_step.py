@@ -6,10 +6,11 @@ seed, gpu semantics, max_bounces 4 (test_parallel.py's train step), at 1
 sample and at 2 (the step's two-pass path: a second sample re-rendered
 with its tape). Gate: the loss within 1e-5 relative, each gradient
 within relative L2 1e-3 (exactly 0 where the JAX gradient is). Also the
-refusals (a world size above 1, a params without `differentiable`) and
-five steps of gradient descent on a small walled frame from a perturbed
-scene back toward the true scene's image, the loss falling at every
-step (chip_smoke.py's phase 10 takes them at 1200x600)."""
+refusal of a params without `differentiable`, and five steps of gradient
+descent on a small walled frame from a perturbed scene back toward the
+true scene's image, the loss falling at every step (chip_smoke.py's
+phase 10 takes them at 1200x600). The step over a mesh of processes is in
+test_torch_parallel.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -90,14 +91,6 @@ def test_train_step_matches_jax(scene, n_samples):
         else:
             assert not np.abs(ours).max(), k
     assert np.abs(jg["sph_emissive"]).max() > 0 and np.abs(jg["ft_rgb"]).max() > 0
-
-
-def test_train_step_refuses_more_than_one_process(monkeypatch):
-    """In a torch.distributed group of two (faked here: one process)."""
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError):
-        make_train_step()
 
 
 def test_train_step_refuses_a_forward_params(scene):
