@@ -12,7 +12,10 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    ptxas's registers / shared memory / stack / spills of every kernel
    (both trace_tiles entries among them) and trace_kernel.cu's SASS
    instruction counts (cuobjdump, into raytrace_tpu_torch/_build/sass/),
-   with the registers of each trace_tiles_kernel<kSky, kPcg>;
+   with the registers of each trace_tiles_kernel<kSky, kPcg>, and
+   mesh_kernel.cu's, with the registers of each mesh_trace_kernel<kBrute,
+   kInst, kSky, kPcg> (scripts/torch_mesh_sass.py puts them beside another
+   checkout's);
 3. kernel vs plain, both on the card: `trace_tiles` (the CUDA kernel) and
    its first design `trace_tiles_per_thread` (the yardstick) against
    `trace_tiles_reference` (plain torch) on the walled scene at 1200x600
@@ -190,6 +193,24 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    collective's cost, not scaling. The records of trace_tiles, mesh_trace
    and mesh_hit gain dist_launches_per_rank and dist_backend, trace_tiles'
    nccl_launches.
+13. two-level instancing on the fleet (procedural.fleet_scheme: 17
+   instances of a 7,300-triangle cut, 124,100 triangles, four u8
+   1024x1024 textures, the a380 camera at 1216x608): n_inst, inst_tris,
+   build_scene's and the instanced build's host seconds and the flattened
+   and asset-local kernel tables' bytes; `mesh_trace_instanced` and its
+   sky (the procedural faces) and pcg instantiations bitwise against the
+   plain version (route "instanced") on the whole frame at samples per
+   lane 1, 4 and 16, each launch counted under its key alone, the lanes
+   that differ printed (none allowed); the 16-spl launch in turns
+   instanced, walk, sky, pcg, pcg, sky, walk, instanced; renders with the
+   launch counts reset just before and read just after: the default route
+   (MeshTables.route, INSTANCED_ROUTE), the instanced and walk routes'
+   images under the tile gate, a resume bitwise, a 96x48 frame card
+   against CPU, render(16) on both routes in turns, and the sky and pcg
+   renders; the least walk a ray of each route on the fleet frame's rays
+   (instanced_walk_work, walk_work) and the three records' bounds; in a
+   child process, a torch.profiler table of a warm instanced render(16).
+   Prints the phase's seconds.
 
 Each kernel's record has its bound (bound_ms, bound_by): the larger of
 its bytes over 3.35 TB/s and its FP32 work, counted from the sources,
@@ -202,7 +223,9 @@ the plain version's counts of the sky launch, plus SKY_INSTR a fetch and
 the distinct 32-byte sectors of the sky pool its fetches read) and
 sky_launches_per_render; the mesh_hit record its launches a
 differentiable a380-class render (diff_launches_per_render) and its ms a
-launch there (diff_in_render_ms, phase 10's profiler table).
+launch there (diff_in_render_ms, phase 10's profiler table). Phase 13
+adds the records mesh_trace_instanced, mesh_trace_instanced_sky and
+mesh_trace_instanced_pcg; every record carries `share`, bound_ms / ms.
 
 Any failure raises (exit code != 0). The line before the last is the
 kernels' JSON record; the last line is the device JSON object. Without a
@@ -2632,6 +2655,293 @@ def dist_phase(card):
     return dict(launches, nccl=nccl["renders"]["walled"]["launches"])
 
 
+# ---- 13. two-level instancing: the fleet ----
+# group_instances' transform of a ray into an instance's frame, in FP32
+# instructions under -fmad=false: o - T 3 FADD, A (o - T) and A d 15 each (9
+# FMUL, 6 FADD), and the local walk's three reciprocals of the clamped d' (3
+# compares, 3 divides): 39. Its slab test of the instance's world AABB is a
+# SLAB_OPS box test.
+TRANSFORM_OPS = 39
+FLEET_TURNS = 2  # launches a turn in the fleet's timing, after a warm-up
+FLEET_KERNELS = {  # record -> (generator, with the sky)
+    "mesh_trace_instanced": ("weyl", False),
+    "mesh_trace_instanced_sky": ("weyl", True),
+    "mesh_trace_instanced_pcg": ("pcg", False),
+}
+FLEET_REPLACES = "raytrace_tpu/ops/pallas/mesh_bounce_kernel.py:500"  # bounce_tiles' inst_body
+
+
+def fleet_scheme(face_dir=None):
+    """procedural.fleet_scheme at the a380-class cell's size, under the
+    procedural sky written into face_dir when one is given."""
+    from raytrace_tpu_torch.models import procedural
+
+    scheme = procedural.fleet_scheme(MESH_W, MESH_H, MESH_SPP)
+    if face_dir is not None:
+        scheme.scene_members.append(procedural.sky_cubemap(face_dir))
+    return scheme
+
+
+def fleet_build(dev, card, scheme, label):
+    """build_scene (the instanced build's share timed) and MeshTables on the
+    card; prints the counts and the kernel tables' bytes. Returns (scene,
+    tables)."""
+    import torch
+
+    from raytrace_tpu_torch.models import scene as scene_mod
+    from raytrace_tpu_torch.models.camera import build_camera
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+
+    real, took = scene_mod._try_build_instancing, []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return real(*args)
+        finally:
+            took.append(time.perf_counter() - t0)
+
+    scene_mod._try_build_instancing = timed
+    try:
+        t0 = time.perf_counter()
+        scene = scene_mod.build_scene(scheme)
+        t1 = time.perf_counter()
+    finally:
+        scene_mod._try_build_instancing = real
+    tables = mk.MeshTables(scene, build_camera(scheme.cam, MESH_W, MESH_H), 0.5).to(dev)
+    torch.cuda.synchronize()
+    flat = tensor_bytes(getattr(tables, k) for k in HIT_TABLES)
+    local = tensor_bytes(tables.asset.buffers())
+    print(f"[fleet] {label}: n_inst {scene.n_inst}, inst_tris {scene.inst_tris}, "
+          f"{scene.n_mesh_tris} triangles, {scene.n_clusters} clusters flattened and "
+          f"{scene.inst_cl_idx.shape[0]} asset-local; build_scene {t1 - t0:.3f} s, of which the "
+          f"instanced build {took[0]:.3f} s; MeshTables {time.perf_counter() - t1:.3f} s (host); "
+          f"kernel tables: flattened {flat} B, asset-local {local} B + the instance table "
+          f"{tensor_bytes([tables.inst])} B; texel pool {scene.tex_pool.dtype} x "
+          f"{scene.tex_pool.size}; route {tables.route}", flush=True)
+    assert scene.n_inst == 17 and scene.inst_tris * 17 == scene.n_mesh_tris == 124100
+    assert scene.tex_pool.size == 4 * 1024 * 1024, "the texel pool does not hold 4 textures once"
+    return scene, tables
+
+
+def fleet_ops(dev, scheme, tables):
+    """FP32 operations a ray of the least walk each route needs on the
+    fleet frame's rays (frame_rays: primary and one bounce's secondary,
+    gpu semantics' t_min), beside the counts: ((instanced ops, counts),
+    (flattened ops, counts))."""
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.ops.intersect import EPS
+
+    _, o, d, seed, _, _ = frame_rays(dev, scheme)
+    t = mk.mesh_hit_walk(o, d, seed, tables, t_min=EPS)[0]
+    inst = mk.instanced_walk_work(o, d, t, tables, t_min=EPS)
+    flat = mk.walk_work(o, d, t, tables, t_min=EPS)
+    inst_ops = ((inst["inst_slab"] + sum(inst["slab"])) * SLAB_OPS
+                + inst["transforms"] * TRANSFORM_OPS + inst["tri"] * TRI_OPS)
+    flat_ops = sum(flat["slab"]) * SLAB_OPS + flat["tri"] * TRI_OPS
+    return (inst_ops / inst["rays"], inst), (flat_ops / flat["rays"], flat)
+
+
+def fleet_parity(dev, card, tables, sky):
+    """mesh_trace_instanced and its sky and pcg instantiations against the
+    plain version (route instanced) on the whole frame at samples per lane
+    1, 4 and MESH_SPP, bitwise; each launch counted under its key alone.
+    Returns {record: {plain_ms, max_abs_err, lane_bounces, misses,
+    sky_bytes}} of the MESH_SPP launches."""
+    import torch
+
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+
+    fx, fy = (lambda f: (f % MESH_W, f // MESH_W))(
+        torch.arange(MESH_W * MESH_H, dtype=torch.int32, device=dev))
+    out = {}
+    for name, (generator, with_sky) in FLEET_KERNELS.items():
+        err = 0.0
+        for spl in (1, 4, MESH_SPP):
+            samp = torch.full_like(fx, 7)
+            kw = dict(route="instanced", assured=5, max_bounces=24, samples_per_lane=spl,
+                      generator=generator)
+            tables.sky, sky_counts = sky_sectors(sky) if with_sky else (None, lambda: (0, 0))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref, (iters, misses) = mk.mesh_trace_reference(fx, fy, samp, tables,
+                                                           return_counts=True, **kw)
+            end.record()
+            end.synchronize()
+            tables.sky = sky if with_sky else None
+            reset_launches()
+            ours = mk.mesh_trace(fx, fy, samp, tables, **kw)
+            torch.cuda.synchronize()
+            assert mk.LAUNCHES[name] == 1 == sum(mk.LAUNCHES.values()), f"launches {mk.LAUNCHES}"
+            ours, ref = torch.stack(ours), torch.stack(ref)
+            bad = (ours != ref).any(0).nonzero()[:, 0]
+            err = max(err, float((ours - ref).abs().max()))
+            print(f"[fleet] {name} {MESH_W}x{MESH_H} spl={spl}: {bad.numel()} lanes differ from "
+                  f"the plain version{' ' + str(bad[:8].tolist()) if bad.numel() else ''}; "
+                  f"{int(misses.sum())} of {int(iters.sum())} lane-bounces miss; radiance mean "
+                  f"{(ours.mean(1) / spl).tolist()}; plain {start.elapsed_time(end):.1f} ms",
+                  flush=True)
+            assert bad.numel() == 0, f"{name} spl={spl}: {bad.numel()} lanes differ"
+        fetches, sky_bytes = sky_counts()
+        assert fetches == (int(misses.sum()) if with_sky else 0)
+        out[name] = dict(plain_ms=start.elapsed_time(end), max_abs_err=err,
+                         lane_bounces=float(iters.sum()), misses=float(misses.sum()),
+                         sky_bytes=sky_bytes)
+    tables.sky = None
+    return out
+
+
+def fleet_timing(dev, card, tables, sky):
+    """The MESH_SPP launch of the whole frame in turns: instanced, walk,
+    the instanced sky and pcg instantiations, and back. Returns the mean ms
+    a launch of each."""
+    import torch
+
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+
+    fx, fy = (lambda f: (f % MESH_W, f // MESH_W))(
+        torch.arange(MESH_W * MESH_H, dtype=torch.int32, device=dev))
+    zero = torch.zeros_like(fx)
+    runs = {"mesh_trace_instanced": ("instanced", "weyl", None), "walk": ("walk", "weyl", None),
+            "mesh_trace_instanced_sky": ("instanced", "weyl", sky),
+            "mesh_trace_instanced_pcg": ("instanced", "pcg", None)}
+    order = list(runs) + list(reversed(runs))
+    t = {}
+    for key in order:
+        route, generator, with_sky = runs[key]
+        tables.sky = with_sky
+
+        def launch():
+            return mk.mesh_trace(fx, fy, zero, tables, route=route, assured=5, max_bounces=24,
+                                 samples_per_lane=MESH_SPP, generator=generator)
+
+        launch()  # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(FLEET_TURNS):
+            launch()
+        end.record()
+        end.synchronize()
+        t.setdefault(key, []).append(start.elapsed_time(end) / FLEET_TURNS)
+    tables.sky = None
+    ms = {k: sum(v) / len(v) for k, v in t.items()}
+    print(f"[timing] fleet {MESH_W}x{MESH_H} spl={MESH_SPP} in turns {order}: "
+          + ", ".join(f"{k} {ms[k]:.3f} ms/launch (turns {t[k]})" for k in runs)
+          + f"; instanced / walk {ms['mesh_trace_instanced'] / ms['walk']:.3f} [{card}]",
+          flush=True)
+    return ms
+
+
+def fleet_renders(card, scheme, sky_scheme):
+    """Renders of the fleet, each with the launch counts reset just before
+    and read just after: render(MESH_SPP) on the default route
+    (MeshTables.route), the instanced and walk routes' images under the tile
+    gate, a resume, card against CPU, the two routes' render(MESH_SPP) in
+    turns (each the median of RENDER_REPS warm renders), and the sky and
+    pcg renders. Returns ({record: launches}, render ms of each route)."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.render.target import RenderTarget
+
+    renders = {}
+    r, img, counts, _ = warm_render("fleet", "fleet", scheme, MESH_SPP, card)
+    assert r.tables.route == ("instanced" if mk.INSTANCED_ROUTE else "walk")
+    renders[r.tables.route] = (r, img, counts)
+    for route in ("instanced", "walk"):
+        if route not in renders:
+            renders[route] = warm_render("fleet", f"fleet {route}", scheme, MESH_SPP, card,
+                                         route=route)[:3]
+    r, img, counts = renders["instanced"]
+    launches = {"mesh_trace_instanced": counts["mesh_trace_instanced"]}
+    assert launches["mesh_trace_instanced"] > 0 and sum(counts.values()) == \
+        launches["mesh_trace_instanced"], f"the instanced render launched {counts}"
+    _, walk_img, walk_counts = renders["walk"]
+    assert walk_counts["mesh_trace"] > 0 and not walk_counts["mesh_trace_instanced"]
+    gate("fleet", f"fleet {MESH_W}x{MESH_H}x{MESH_SPP} instanced vs walk", img, walk_img)
+    resume_bitwise("fleet", r, f"fleet {MESH_W}x{MESH_H}")
+    card_vs_cpu("fleet", "fleet", scheme, 96, 48, MESH_SPP)
+
+    walls = {}
+    for route in ("instanced", "walk", "walk", "instanced"):
+        r.tables.route = route
+        times = []
+        for _ in range(RENDER_REPS):
+            r.target = RenderTarget(r.width, r.height)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(progress=False, samples=MESH_SPP)  # ends in a device -> host copy
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        walls.setdefault(route, []).append(float(np.median(times)))
+    render_ms = {k: sum(v) / 2 for k, v in walls.items()}
+    paths = MESH_W * MESH_H * MESH_SPP
+    print(f"[fleet] render({MESH_SPP}) in turns, each the median of {RENDER_REPS} warm renders: "
+          + ", ".join(f"{k} {render_ms[k]:.3f} ms ({paths / render_ms[k] / 1e3:.1f} Mpaths/s; "
+                      f"turns {v})" for k, v in walls.items()) + f" [{card}]", flush=True)
+
+    for name, kw, s in (("mesh_trace_instanced_sky", {}, sky_scheme),
+                        ("mesh_trace_instanced_pcg", dict(generator="pcg"), scheme)):
+        _, _, counts, _ = warm_render("fleet", name, s, MESH_SPP, card, route="instanced", **kw)
+        launches[name] = counts[name]
+        assert counts[name] > 0 and sum(counts.values()) == counts[name], \
+            f"the {name} render launched {counts}"
+    return launches, render_ms
+
+
+def fleet_phase(dev, card):
+    """Phase 13: two-level instancing on the fleet (module docstring).
+    Returns the JSON records of mesh_trace_instanced and its sky and pcg
+    instantiations."""
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_fleet_") as face_dir:
+        scheme, sky_scheme = fleet_scheme(), fleet_scheme(face_dir)
+        scene, tables = fleet_build(dev, card, scheme, "fleet")
+        _, sky_tables = fleet_build(dev, card, sky_scheme, "fleet + sky")
+        sky = sky_tables.sky
+        parity = fleet_parity(dev, card, tables, sky)
+        ms = fleet_timing(dev, card, tables, sky)
+        (inst_ops, inst_work), (flat_ops, flat_work) = fleet_ops(dev, scheme, tables)
+        launches, render_ms = fleet_renders(card, scheme, sky_scheme)
+    print(f"[bound] fleet least walks a ray (frame rays, gpu semantics): instanced {inst_ops:.1f} "
+          f"FP32 instructions ({inst_work}: live rays, instance boxes, transforms, local slab "
+          f"tests a level, triangle tests), flattened {flat_ops:.1f} ({flat_work})", flush=True)
+    # the buffers an instanced launch reads (the flattened walk tables it does not)
+    read = ("sph", "ft", "cam_vec", "inst", "attr", "desc", "pool")
+    nbytes = (tensor_bytes(getattr(tables, k) for k in read) + tensor_bytes(tables.asset.buffers())
+              + MESH_W * MESH_H * (3 * 4 + 3 * 4))
+    per_bounce = (tables.n_sph * SPH_OPS + tables.n_ft * (TRI_OPS - 2) + SHADE_MESH_OPS
+                  + inst_ops)
+    records = []
+    for name, p in parity.items():
+        ops = p["lane_bounces"] * per_bounce + p["misses"] * (SKY_INSTR if FLEET_KERNELS[name][1]
+                                                              else 0)
+        b_ms, b_by = bound(ops, nbytes + p["sky_bytes"], "mesh_trace")
+        rec = {"name": name, "route": "cuda", "source": "raytrace_tpu_torch/csrc/mesh_kernel.cu",
+               "replaces": FLEET_REPLACES, "launches": launches[name],
+               "max_abs_err": p["max_abs_err"], "ms": ms[name], "plain_ms": p["plain_ms"],
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "launches_per_render": launches[name]}
+        if name == "mesh_trace_instanced":
+            rec.update(walk_ms=ms["walk"], render_ms=render_ms["instanced"],
+                       walk_render_ms=render_ms["walk"], default_route=tables.route)
+        records.append(rec)
+        fetches = f" + {p['misses']:.4g} sky fetches" if FLEET_KERNELS[name][1] else ""
+        print(f"[bound] {name}: {p['lane_bounces']:.4g} lane-bounces x {per_bounce:.1f} FP32 "
+              f"instructions{fetches} ({ops / FP32_SINGLE * 1e3:.4f} ms at 33.5 T/s), "
+              f"{nbytes + p['sky_bytes']:.4g} bytes: "
+              f"bound {b_ms:.4f} ms by {b_by}; kernel {ms[name]:.4f} ms ({b_ms / ms[name]:.2%} of "
+              f"the bound reached); plain {p['plain_ms']:.1f} ms [{card}]", flush=True)
+    print(f"[fleet] MeshTables.route on the fleet: {tables.route} (INSTANCED_ROUTE "
+          f"{mk.INSTANCED_ROUTE}); measured instanced {ms['mesh_trace_instanced']:.3f} ms, walk "
+          f"{ms['walk']:.3f} ms a launch [{card}]", flush=True)
+    print(f"[fleet] phase 13 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records
+
+
 PROFILE_CHILD = "--profile"  # the argument of the child that profiles warm renders
 
 
@@ -2639,7 +2949,8 @@ def profile_child(what, card) -> int:
     """Profiler tables in a process of its own: "walled", phase 4's warm
     walled 1200x600 render(64); "sky", phase 9's warm outdoor + sky
     render(64) and a380-class + sky render(16) (the faces written anew);
-    "diff", phase 10's differentiable a380-class render (profile_diff).
+    "diff", phase 10's differentiable a380-class render (profile_diff);
+    "fleet", phase 13's warm fleet render(16) on the instanced route.
     Prints {label: profile's result} as the last line."""
     from raytrace_tpu_torch.models import procedural
     from raytrace_tpu_torch.models.walled import walled_scheme
@@ -2647,6 +2958,13 @@ def profile_child(what, card) -> int:
 
     if what == "diff":
         print(json.dumps({"a380-class differentiable": profile_diff(card)}), flush=True)
+        return 0
+    if what == "fleet":
+        renderer = Renderer(fleet_scheme(), device="cuda")
+        renderer.tables.route = "instanced"  # whatever MeshTables.route says
+        renderer.render(progress=False, samples=1)  # loads the kernel (the parent's build)
+        print(json.dumps({"fleet": profile(renderer, card, "mesh_trace_kernel",
+                                           f"fleet instanced {MESH_W}x{MESH_H}")}), flush=True)
         return 0
     results = {}
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_sky_") as face_dir:
@@ -2736,7 +3054,13 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
                 print(f"[build] {line.strip()}", flush=True)
     groups.print_ptxas(variants)
-    counts = sass({"trace_kernel": builds[0]}) or {}  # every entry's SASS, for reading
+    counts = sass(dict(zip(names, builds))) or {}  # every entry's SASS, for reading
+    mesh_regs = ptxas_registers(builds[1].log)
+    from torch_mesh_sass import label as mesh_label
+
+    for fn, n in counts.get("mesh_kernel", {}).items():
+        print(f"[sass] {mesh_label(fn)}: {n} instructions, {mesh_regs.get(fn, '?')} registers",
+              flush=True)
     regs = ptxas_registers(builds[0].log)
     for fn, n in counts.get("trace_kernel", {}).items():
         for mangled, label in TILES_INSTANTIATIONS.items():
@@ -2903,6 +3227,15 @@ def main() -> int:
         if label:
             rec.update(dist_launches_per_rank=dist[label][key], dist_backend="gloo")
     kernels[0]["nccl_launches"] = dist["nccl"]["trace_tiles"]
+
+    # ---- 13. two-level instancing: the fleet ----
+    fleet = fleet_phase(dev, card)
+    fleet_profile = profile_in_child("fleet", card)["fleet"]
+    if fleet_profile:
+        fleet[0]["in_render_ms"] = fleet_profile["ms"]
+    kernels += fleet
+    for rec in kernels:
+        rec["share"] = rec["bound_ms"] / rec["ms"]  # of the bound reached
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

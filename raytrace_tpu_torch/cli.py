@@ -4,7 +4,7 @@ paths resolved against the scheme's directory), static or animated.
 
     python -m raytrace_tpu_torch.cli <scheme.yml> [no_ui] --device cuda \
         [--mode gpu|cpu] [--generator weyl|pcg] --samples N --out render_out.png \
-        [--checkpoint ck.npz] [--resume ck.npz] [--preview PORT]
+        [--checkpoint ck.npz] [--resume ck.npz] [--preview PORT] [--backend nccl|gloo]
 
 A static scheme renders to a PNG, rewritten (with the checkpoint, when
 asked) after every sample batch, as the reference's no-ui output loop
@@ -20,8 +20,9 @@ ladder; an MJPEG-AVI beside it when no mp4 encoder is there).
 
 Under torchrun (`torchrun --nproc-per-node N -m raytrace_tpu_torch.cli
 scheme.yml no_ui`) every rank joins the process group first
-(parallel/multihost.init: NCCL on the card, gloo with `--device cpu`)
-and renders with the world group, each rank its slice of every batch's
+(parallel/multihost.init: NCCL on the card, gloo with `--device cpu`;
+`--backend gloo` puts more ranks than cards on the cards, which NCCL
+refuses) and renders with the world group, each rank its slice of every batch's
 sample ids; every rank reads `--resume`, and rank 0 alone writes the
 PNG, the checkpoint, the preview, the animation frames and the video.
 Without torchrun's environment nothing of this happens.
@@ -59,8 +60,11 @@ def main(argv=None):
     ap.add_argument("--resume", default=None, help="resume from a checkpoint file")
     ap.add_argument("--preview", type=int, default=None, metavar="PORT",
                     help="serve a live browser preview on 127.0.0.1:PORT (0: a free port)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="torch.distributed backend under torchrun (default: nccl on cuda, gloo "
+                         "on cpu; NCCL takes one rank a card, gloo more)")
     args = ap.parse_args(argv)
-    joined = multihost.init(device=torch.device(args.device).type)
+    joined = multihost.init(args.backend, device=torch.device(args.device).type)
     try:
         return _main(args)
     finally:

@@ -1,6 +1,6 @@
 // Mesh kernels (Hopper, sm_90a): the path-tracing kernel of mesh scenes
-// (two entry points and their two yardsticks) and the integrator's
-// nearest mesh hit (a third entry point and its yardstick).
+// (three entry points and two yardsticks) and the integrator's nearest
+// mesh hit (a fourth entry point and its yardstick).
 //
 // Replaces raytrace_tpu/ops/pallas/mesh_bounce_kernel.py::bounce_tiles
 // (the body `_kernel`, its cluster walk `mesh_walk`) and the in-kernel MXU
@@ -25,7 +25,7 @@
 // lanes and takes their rays 32 / G at a time: group k of G threads takes
 // the k-th live lane's ray and seed by shuffle, finds its least (t,
 // position), and hands (t, position, u, v) back to the owner by shuffle.
-// Draws, shading and regeneration stay per thread. The two routes:
+// Draws, shading and regeneration stay per thread. The three routes:
 //   mesh_trace        replaces bounce_tiles' walk (`mesh_walk`). G =
 //                     kTraceGroup = 8 threads a ray run the group walk of
 //                     mesh_hit below (`group_walk`): the 3-level slab walk
@@ -74,11 +74,51 @@
 //                     mesh measured, so MeshTables gives it no scene
 //                     (ops/mesh_kernel.MAX_BRUTE_TRIS = 0); a caller asks
 //                     for it by route.
+//   mesh_trace_instanced replaces bounce_tiles' two-level instancing
+//                     (mesh_bounce_kernel.py:500-544, `inst_body` around
+//                     `mesh_walk`): a scene of n copies of one asset, its
+//                     asset-local walk tables and an (n, 24) instance table
+//                     (models/scene.py). The group of mesh_trace (G =
+//                     kTraceGroup) slab-tests the instances' world AABBs
+//                     under its running best, one a thread, and takes the
+//                     reached ones nearest entry first (`group_instances`):
+//                     the ray moved into the instance frame (o' = A (o - T),
+//                     d' = A d; d' is not normalized, so a local t is the
+//                     world t), the group walk of the asset's tables seeded
+//                     with the running best, the instance's gid base added
+//                     to the winner. Bound: operations, as the walk's: what
+//                     an exact instanced walk must test (ops/mesh_kernel.
+//                     instanced_walk_work: every instance box a live ray, a
+//                     transform and the local walk's slab and triangle
+//                     tests for each box it reaches under its final t) plus
+//                     the shade, in FP32 instructions at 33.5 T/s; what
+//                     holds it above that is, as for the walk, the latency
+//                     of dependent loads. The instance loop's state on top
+//                     of the walk's does not fit mesh_trace's 64 registers:
+//                     there (4 blocks a SM) ptxas spilled 636 B a thread and
+//                     the fleet's launch took 2.1x its time at kInstBlocks =
+//                     2 (115 registers, no spill, half the resident warps),
+//                     at 80 registers (3 blocks) 380 B and 1.7x
+//                     (scripts/torch_instanced_variants.py, H100 80GB HBM3
+//                     at 700 W). The instances are visited by entry, not in
+//                     table order, so that on a secondary ray a near
+//                     instance's hit prunes the far ones.
+//                     The asset's tables are 1/n the flattened size (0.43
+//                     MB on the fleet, against 6.9 MB) and stay in L2. The
+//                     instance table is read with __ldg, not staged: 96 B a
+//                     row, the group's threads read different rows of one
+//                     chunk at once, the table (1.6 KB on the fleet) stays
+//                     in L1, and staging it would add a barrier and shared
+//                     memory sized by n. Pallas' mesh_resident VMEM copy
+//                     (:433-437) has no counterpart: L1 and L2 cache the
+//                     asset's rows.
 // Exactness: each thread keeps its least (t, position) under strict-<
 // updates in its own ascending order, and the group takes the
 // lexicographic least by a butterfly: among the least t, the least
 // position, as the plain versions' `min` (first index) and the scan-order
-// resolve keep it. Both entries equal mesh_trace_reference bitwise.
+// resolve keep it; across instances a later one wins only at a smaller t,
+// so the earlier instance keeps an exact-t tie. The entries equal
+// mesh_trace_reference bitwise.
 // The yardsticks, which nothing on a render path launches, are the first
 // designs: mesh_trace_per_thread (each thread walks its own ray in the
 // camera's scan order, `walk`) and mesh_trace_brute_lockstep (the block
@@ -86,11 +126,14 @@
 // keeps one bounce loop in step, `brute`).
 //
 // ptxas (sm_90a, -fmad=false; chip_smoke.py's build phase prints it):
-//   mesh_trace_kernel<false>     64 registers, 120 B stack, 9,808 B smem:
-//   (mesh_trace)                 4 blocks, 32 resident warps a SM
-//   mesh_trace_kernel<true>      64 registers, 64 B stack, 9,808 B smem +
+//   mesh_trace_kernel<kBrute, kInst, ...> (the weyl, no-sky instantiations)
+//   <false, false> mesh_trace    64 registers, 120 B stack, 9,808 B smem:
+//                                4 blocks, 32 resident warps a SM
+//   <true, false>                64 registers, 64 B stack, 9,808 B smem +
 //   (mesh_trace_brute)           the table (48 B a row, 101,376 B at
 //                                2,097 triangles): 1 block, 32 warps a SM
+//   <false, true>                115 registers, 32 B stack, no spill,
+//   (mesh_trace_instanced)       9,808 B smem: 2 blocks, 16 warps a SM
 //   mesh_hit_kernel              48 registers, 24 B stack: 5 blocks, 40
 //                                warps a SM
 //   mesh_trace_yardstick_kernel  64 (walk, 48 B stack; 32 warps a SM) and
@@ -148,6 +191,8 @@ constexpr int kTraceGroup = 8;   // mesh_trace: threads per ray of the group wal
 constexpr int kTraceBlocks = 4;  // mesh_trace: resident blocks an SM asked of ptxas
 constexpr int kBruteGroup = 32;  // mesh_trace_brute: threads per ray of the scan
 constexpr int kBruteThreads = 1024;  // mesh_trace_brute: one persistent block per SM
+constexpr int kInstBlocks = 2;   // mesh_trace_instanced: resident blocks an SM asked of ptxas
+constexpr int kInstChunk = 32;   // mesh_trace_instanced: instances ordered together
 
 struct Mesh {
   const float* sgbounds;  // (n_sg, 8)  [lo xyz, hi xyz, 0, 0]
@@ -165,6 +210,14 @@ struct Mesh {
   const void* pool;
   int pool_kind;
   long long pool_len;
+};
+
+// an instanced scene's instance table and the asset's walk tables (the
+// walk's fields of a Mesh); rows null and n 0 elsewhere
+struct Inst {
+  const float4* rows;  // (n, 6) float4: A (9) | T (3) | AABB lo xyz, hi xyz | gid base | 0
+  int n;
+  Mesh asset;
 };
 
 __device__ __forceinline__ float slab_dir(float d) {
@@ -595,18 +648,86 @@ __device__ __forceinline__ void group_brute(const Group<G>& g, const float4* row
   group_least(g, ct, cpos, cu, cv);
 }
 
+// The nearest hit of ray r (the same on every thread of the group) over
+// the instances of an instanced scene, hits below t_seed: (t, global gid,
+// u, v) on every thread of the group; gid -1 and t = t_seed, u = v = 0
+// without one. The group slab-tests the world AABBs of kInstChunk
+// instances at once (one a thread, as test_level) and visits the reached
+// ones nearest entry first, each re-tested against the running best (as
+// the walk visits its boxes): the ray moved into the instance frame (the
+// JAX order of terms, mesh_bounce_kernel.py:532-540), the group walk of the
+// asset's tables seeded with the running best, the instance's gid base
+// added to the local id. The result is the plain version's, which takes
+// the instances in table order with strict <: the least (t, table row,
+// scan position), since an instance of an earlier row than the winning
+// instance's walks with its seed one ulp above the best, so it takes an
+// exact-t tie (a t equal to the seed t_seed itself stays out, as there).
+template <int G>
+__device__ __forceinline__ void group_instances(const Inst& in, const Group<G>& g, const Ray& r,
+                                                float t_seed, float& ct, int& gid, float& cu,
+                                                float& cv) {
+  const float fx = 1.f / slab_dir(r.dx);
+  const float fy = 1.f / slab_dir(r.dy);
+  const float fz = 1.f / slab_dir(r.dz);
+  ct = t_seed;
+  gid = -1;
+  cu = cv = 0.f;
+  int crow = -1;  // the winning instance's table row; -1: none (the seed stands)
+  for (int base = 0; base < in.n; base += kInstChunk) {
+    Slots<G, kInstChunk> s;
+    const float reach_t = nextafterf(ct, CUDART_INF_F);  // entry <= the best
+#pragma unroll
+    for (int k = 0; k < Slots<G, kInstChunk>::K; ++k) {
+      const int j = k * G + g.rank;
+      float e = CUDART_INF_F;
+      if (base + j < in.n) {
+        const float4* row = in.rows + 6 * (base + j);
+        float entry, exit_;
+        slab_span(__ldg(row + 3), __ldg(row + 4), r, fx, fy, fz, entry, exit_);
+        if (entry <= exit_ && exit_ >= 0.f && entry < reach_t) e = entry;
+      }
+      s.e[k] = e;
+    }
+    for (int j; (j = pop_nearest(s, g, nextafterf(ct, CUDART_INF_F))) >= 0;) {
+      const int k = base + j;
+      const float4* row = in.rows + 6 * k;
+      const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);  // A 0:9, T c.yzw
+      const float rx = r.ox - c.y, ry = r.oy - c.z, rz = r.oz - c.w;
+      const Ray q{a.x * rx + a.y * ry + a.z * rz,
+                  a.w * rx + b.x * ry + b.y * rz,
+                  b.z * rx + b.w * ry + c.x * rz,
+                  a.x * r.dx + a.y * r.dy + a.z * r.dz,
+                  a.w * r.dx + b.x * r.dy + b.y * r.dz,
+                  b.z * r.dx + b.w * r.dy + c.x * r.dz};
+      float t, u, v;
+      int pos;
+      const bool earlier = crow >= 0 && k < crow;  // takes an exact-t tie from the winner
+      group_walk(in.asset, g, q, earlier ? nextafterf(ct, CUDART_INF_F) : ct, kEps, t, pos, u, v);
+      if (pos >= 0) {  // below the seed: the same on every thread of the group
+        ct = t;
+        crow = k;
+        gid = __ldg(in.asset.gid + pos) + static_cast<int>(__ldg(row + 4).z);
+        cu = u;
+        cv = v;
+      }
+    }
+  }
+}
+
 // The nearest mesh hits of the warp's live rays (bit k of `live`: lane
 // k's ray r, seeded with tm), G threads a ray and 32 / G rays a round:
 // group k of the warp takes the k-th lowest live lane left, its ray and
 // seed by shuffle, and rank 0 of the group hands (t, position, u, v)
 // back to the owner by shuffle. Every lane of the warp calls it; on
 // return each live lane holds its own in (tm, pos, bu, bv), position -1
-// without a hit. kBrute: the resident table `rows` (n_rows); else the
-// walk of m, t_min EPS.
-template <int G, bool kBrute>
+// without a hit. kBrute: the resident table `rows` (n_rows); kInst: the
+// instances of `inst`, pos then the global gid; else the walk of m, t_min
+// EPS.
+template <int G, bool kBrute, bool kInst>
 __device__ __forceinline__ void warp_nearest(unsigned live, const Ray& r, const Mesh& m,
-                                             const float4* rows, int n_rows, float& tm, int& pos,
-                                             float& bu, float& bv) {
+                                             const float4* rows, int n_rows, const Inst& inst,
+                                             float& tm, int& pos, float& bu, float& bv) {
+  static_assert(!(kBrute && kInst), "the brute route and instancing exclude each other");
   const Group<G> g = lane_group<G>();
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int slot = lane / G;
@@ -632,6 +753,8 @@ __device__ __forceinline__ void warp_nearest(unsigned live, const Ray& r, const 
     if (owner >= 0 && seed > kEps) {  // a seed at or below EPS leaves no t to find
       if constexpr (kBrute) {
         group_brute(g, rows, n_rows, q, ct, cpos, cu, cv);
+      } else if constexpr (kInst) {
+        group_instances(inst, g, q, seed, ct, cpos, cu, cv);
       } else {
         group_walk(m, g, q, seed, kEps, ct, cpos, cu, cv);
       }
@@ -671,12 +794,13 @@ struct Lanes {
 
 // The whole path of lane i (inactive when i >= n), its nearest mesh hits
 // found with the rest of its warp (warp_nearest); every lane of the warp
-// calls it. kSky: a lane that hits nothing adds the sky's term (s_face the
-// staged face table); kPcg: the draws from the pcg generator, else weyl.
-template <bool kBrute, bool kSky, bool kPcg>
+// calls it. kInst: the nearest mesh hit over the instances of `inst`;
+// kSky: a lane that hits nothing adds the sky's term (s_face the staged
+// face table); kPcg: the draws from the pcg generator, else weyl.
+template <bool kBrute, bool kInst, bool kSky, bool kPcg>
 __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* sph,
                                            const float* ft, const float* cam, const Mesh& m,
-                                           const float4* rows, const Sky& sky,
+                                           const float4* rows, const Inst& inst, const Sky& sky,
                                            const int* s_face) {
   bool active = i < L.n;
   const int xi = active ? L.xs[i] : 0, yi = active ? L.ys[i] : 0;
@@ -707,10 +831,11 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
     if (active) closest_sph_ft(p.ray, sph, L.n_sph, ft, L.n_ft, t_best, kind, best);
     float tm = t_best, bu = 0.f, bv = 0.f;
     int pos = -1;
-    warp_nearest<kBrute ? kBruteGroup : kTraceGroup, kBrute>(live, p.ray, m, rows, m.n_brute, tm,
-                                                              pos, bu, bv);
+    warp_nearest<kBrute ? kBruteGroup : kTraceGroup, kBrute, kInst>(live, p.ray, m, rows,
+                                                                     m.n_brute, inst, tm, pos,
+                                                                     bu, bv);
     if (!active) continue;
-    const int mgid = pos < 0 ? -1 : __ldg((kBrute ? m.bgid : m.gid) + pos);
+    const int mgid = kInst ? pos : pos < 0 ? -1 : __ldg((kBrute ? m.bgid : m.gid) + pos);
 
     // ---- the 8 draws of every bounce of a mesh scene ----
     const float u0 = next_uniform<kPcg>(state);
@@ -763,14 +888,17 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
 // blocks, as many as the SMs hold, whose warps take 32-lane tiles from the
 // counter `work` (0 at launch) until the lanes run out, so no warp waits
 // for the others of its block. The brute route's table is resident in
-// dynamic shared memory (3 float4 a row), loaded once a block. kSky: the
-// cube map's face table is staged too (the sky entries); kPcg: the pcg
-// generator's draws.
-template <bool kBrute, bool kSky, bool kPcg>
-__global__ void __launch_bounds__(kBrute ? kBruteThreads : kThreads, kBrute ? 1 : kTraceBlocks)
+// dynamic shared memory (3 float4 a row), loaded once a block. kInst: the
+// instanced route (mesh_trace_instanced, the walk's launch shape); kSky:
+// the cube map's face table is staged too (the sky entries); kPcg: the pcg
+// generator's draws. `inst` is the last parameter, so the other
+// instantiations keep their parameters' offsets.
+template <bool kBrute, bool kInst, bool kSky, bool kPcg>
+__global__ void __launch_bounds__(kBrute ? kBruteThreads : kThreads,
+                                  kBrute ? 1 : kInst ? kInstBlocks : kTraceBlocks)
 mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* __restrict__ ft_g,
                   const float* __restrict__ cam_g, const Mesh m, int* __restrict__ work,
-                  const Sky sky) {
+                  const Sky sky, const Inst inst) {
   extern __shared__ float4 rows[];
   __shared__ float sph[kMaxPrims * kSphCols];
   __shared__ float ft[kMaxPrims * kFtCols];
@@ -788,11 +916,12 @@ mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* _
     if (lane == 0) tile = atomicAdd(work, 1);
     tile = __shfl_sync(kFull, tile, 0);
     if (tile >= (L.n + 31) / 32) break;
-    trace_lane<kBrute, kSky, kPcg>(tile * 32 + lane, L, sph, ft, cam, m, rows, sky, s_face);
+    trace_lane<kBrute, kInst, kSky, kPcg>(tile * 32 + lane, L, sph, ft, cam, m, rows, inst, sky,
+                                          s_face);
   }
 }
 
-// The yardsticks mesh_trace_kernel<false> and <true> are timed
+// The yardsticks mesh_trace_kernel<false, false> and <true, false> are timed
 // against: the first designs of the two entries (a thread per lane, its
 // own walk in the camera's scan order, or the block in lockstep over
 // staged 64-row chunks). Nothing on a render path launches them.
@@ -892,7 +1021,7 @@ mesh_trace_yardstick_kernel(const Lanes L, const float* __restrict__ sph_g,
   }
 }
 
-enum TraceEntry { kEntryWalk, kEntryBrute, kEntryPerThread, kEntryLockstep };
+enum TraceEntry { kEntryWalk, kEntryBrute, kEntryInstanced, kEntryPerThread, kEntryLockstep };
 
 // A CUDA error as the C interface's return code; the sticky "last error"
 // is cleared so that it is not reported again by a later launch.
@@ -901,14 +1030,15 @@ int fail(cudaError_t e) {
   return static_cast<int>(e);
 }
 
-// One persistent launch of mesh_trace_kernel<kBrute, kSky, kPcg>: as many
-// blocks as the SMs hold with `smem` bytes of dynamic shared memory, at most
-// one a 32-lane tile.
-template <bool kBrute, bool kSky, bool kPcg>
+// One persistent launch of mesh_trace_kernel<kBrute, kInst, kSky, kPcg>: as
+// many blocks as the SMs hold with `smem` bytes of dynamic shared memory, at
+// most one a 32-lane tile.
+template <bool kBrute, bool kInst, bool kSky, bool kPcg>
 int launch_persistent(const Lanes& L, const float* sph, const float* ft, const float* cam,
-                      const Mesh& m, int* work, size_t smem, cudaStream_t s, const Sky& sky) {
+                      const Mesh& m, int* work, size_t smem, cudaStream_t s, const Sky& sky,
+                      const Inst& inst) {
   constexpr int threads = kBrute ? kBruteThreads : kThreads;
-  cudaError_t e = cudaFuncSetAttribute(mesh_trace_kernel<kBrute, kSky, kPcg>,
+  cudaError_t e = cudaFuncSetAttribute(mesh_trace_kernel<kBrute, kInst, kSky, kPcg>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return fail(e);
@@ -918,36 +1048,48 @@ int launch_persistent(const Lanes& L, const float* sph, const float* ft, const f
     return fail(e);
   }
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mesh_trace_kernel<kBrute, kSky, kPcg>, threads, smem);
+      &per_sm, mesh_trace_kernel<kBrute, kInst, kSky, kPcg>, threads, smem);
   if (e != cudaSuccess) return fail(e);
   const int tiles = (L.n + 31) / 32, warps = threads / 32;
   const int resident = (per_sm > 1 ? per_sm : 1) * sms, needed = (tiles + warps - 1) / warps;
-  mesh_trace_kernel<kBrute, kSky, kPcg>
-      <<<resident < needed ? resident : needed, threads, smem, s>>>(L, sph, ft, cam, m, work, sky);
+  mesh_trace_kernel<kBrute, kInst, kSky, kPcg>
+      <<<resident < needed ? resident : needed, threads, smem, s>>>(L, sph, ft, cam, m, work, sky,
+                                                                    inst);
   return static_cast<int>(cudaGetLastError());
 }
 
-// A route entry's instantiation: kBrute's, with the sky when sky.face is set
-template <bool kBrute, bool kPcg>
+// A route entry's instantiation: kBrute's or kInst's, with the sky when
+// sky.face is set
+template <bool kBrute, bool kInst, bool kPcg>
 int launch_route(const Lanes& L, const float* sph, const float* ft, const float* cam,
-                 const Mesh& m, int* work, size_t smem, cudaStream_t s, const Sky& sky) {
+                 const Mesh& m, int* work, size_t smem, cudaStream_t s, const Sky& sky,
+                 const Inst& inst) {
+  static_assert(!(kBrute && kInst), "the brute route and instancing exclude each other");
   return sky.face != nullptr
-             ? launch_persistent<kBrute, true, kPcg>(L, sph, ft, cam, m, work, smem, s, sky)
-             : launch_persistent<kBrute, false, kPcg>(L, sph, ft, cam, m, work, smem, s, sky);
+             ? launch_persistent<kBrute, kInst, true, kPcg>(L, sph, ft, cam, m, work, smem, s,
+                                                            sky, inst)
+             : launch_persistent<kBrute, kInst, false, kPcg>(L, sph, ft, cam, m, work, smem, s,
+                                                             sky, inst);
 }
 
 // sky.face nullptr: the entries without the cube map; else the route
 // entries' sky instantiations; pcg: the route entries' pcg instantiations
-// (the yardsticks take neither)
+// (the yardsticks take neither); inst: the instanced entry's tables
+// (refused when missing)
 int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float* ft,
                  const float* cam, const Mesh& m, int* work, void* stream, const Sky& sky,
-                 bool pcg) {
+                 bool pcg, const Inst& inst) {
   if (L.n <= 0) return 0;
   const bool with_sky = sky.face != nullptr;
-  const bool route = entry == kEntryWalk || entry == kEntryBrute;
+  const bool route = entry == kEntryWalk || entry == kEntryBrute || entry == kEntryInstanced;
+  const Mesh& a = inst.asset;
   if (L.n_sph > kMaxPrims || L.n_ft > kMaxPrims || m.n_brute % kBruteChunk ||
       (work == nullptr && route) || (pcg && !route) ||
-      (with_sky && (sky.pool == nullptr || sky.len < 1 || !route))) {
+      (with_sky && (sky.pool == nullptr || sky.len < 1 || !route)) ||
+      (entry == kEntryInstanced &&
+       (inst.rows == nullptr || inst.n < 1 || a.sgbounds == nullptr || a.sbounds == nullptr ||
+        a.bounds == nullptr || a.count == nullptr || a.tri == nullptr || a.gid == nullptr ||
+        a.n_sg < 1 || a.width < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -955,11 +1097,16 @@ int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float
   const size_t brute_smem = static_cast<size_t>(m.n_brute) * 3 * sizeof(float4);
   switch (entry) {
     case kEntryWalk:
-      return pcg ? launch_route<false, true>(L, sph, ft, cam, m, work, 0, s, sky)
-                 : launch_route<false, false>(L, sph, ft, cam, m, work, 0, s, sky);
+      return pcg ? launch_route<false, false, true>(L, sph, ft, cam, m, work, 0, s, sky, inst)
+                 : launch_route<false, false, false>(L, sph, ft, cam, m, work, 0, s, sky, inst);
     case kEntryBrute:
-      return pcg ? launch_route<true, true>(L, sph, ft, cam, m, work, brute_smem, s, sky)
-                 : launch_route<true, false>(L, sph, ft, cam, m, work, brute_smem, s, sky);
+      return pcg ? launch_route<true, false, true>(L, sph, ft, cam, m, work, brute_smem, s, sky,
+                                                   inst)
+                 : launch_route<true, false, false>(L, sph, ft, cam, m, work, brute_smem, s, sky,
+                                                    inst);
+    case kEntryInstanced:
+      return pcg ? launch_route<false, true, true>(L, sph, ft, cam, m, work, 0, s, sky, inst)
+                 : launch_route<false, true, false>(L, sph, ft, cam, m, work, 0, s, sky, inst);
     case kEntryPerThread:
       mesh_trace_yardstick_kernel<false><<<blocks, kThreads, 0, s>>>(L, sph, ft, cam, m);
       break;
@@ -1063,12 +1210,14 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
   return launch_hit(mesh_hit_per_thread_kernel, 1, MESH_HIT_PASS);
 }
 
-// The four mesh_trace entries share one C signature; `work` is a zeroed
-// int32 the warps of mesh_trace and mesh_trace_brute take their tiles
-// from (unused by the yardsticks). The cube map's arguments are null
-// (sky_face nullptr) without one: the (6, kFaceCols) int32 face table and
-// the sky pool of sky_len elements in its dtype sky_kind; pcg != 0 asks for
-// the pcg generator. The yardsticks take neither.
+// The five mesh_trace entries share one C signature; `work` is a zeroed
+// int32 the warps of the route entries take their tiles from (unused by
+// the yardsticks). The cube map's arguments are null (sky_face nullptr)
+// without one: the (6, kFaceCols) int32 face table and the sky pool of
+// sky_len elements in its dtype sky_kind; pcg != 0 asks for the pcg
+// generator. The yardsticks take neither. The last ten are the instanced
+// entry's (null and 0 for the others): the (n_inst, 24) f32 instance
+// table and the asset's walk tables (l_*, the layout of the walk's).
 #define MESH_TRACE_ARGS                                                                      \
   const int32_t *xs, const int32_t *ys, const int32_t *samp, int n, const float *sph,        \
       const float *ft, const float *cam, int n_sph, int n_ft, int has_lens, int assured,     \
@@ -1077,7 +1226,9 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
       int width, const float *btri, const int *bgid, int n_brute, const float *attr,         \
       const int *desc, const void *pool, int pool_kind, long long pool_len, float *out,      \
       int *work, void *stream, const int *sky_face, const void *sky_pool, int sky_kind,      \
-      long long sky_len, int pcg
+      long long sky_len, int pcg, const float *inst, int n_inst, const float *l_sgbounds,    \
+      const float *l_sbounds, const float *l_bounds, const int *l_count, const float *l_tri, \
+      const int *l_gid, int l_n_sg, int l_width
 #define MESH_TRACE_PASS(entry)                                                               \
   launch_trace(entry, Lanes{xs, ys, samp, n, n_sph, n_ft, has_lens, assured, max_bounces,    \
                             spl, out},                                                       \
@@ -1085,11 +1236,19 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
                Mesh{sgbounds, sbounds, bounds, count, reinterpret_cast<const float4*>(tri),  \
                     gid, n_sg, width, reinterpret_cast<const float4*>(btri), bgid, n_brute,  \
                     attr, desc, pool, pool_kind, pool_len},                                  \
-               work, stream, Sky{sky_face, sky_pool, sky_kind, sky_len}, pcg != 0)
+               work, stream, Sky{sky_face, sky_pool, sky_kind, sky_len}, pcg != 0,          \
+               Inst{reinterpret_cast<const float4*>(inst), n_inst,                           \
+                    Mesh{l_sgbounds, l_sbounds, l_bounds, l_count,                           \
+                         reinterpret_cast<const float4*>(l_tri), l_gid, l_n_sg, l_width,     \
+                         nullptr, nullptr, 0, nullptr, nullptr, nullptr, 0, 0}})
 
 extern "C" int mesh_trace_launch(MESH_TRACE_ARGS) { return MESH_TRACE_PASS(kEntryWalk); }
 
 extern "C" int mesh_trace_brute_launch(MESH_TRACE_ARGS) { return MESH_TRACE_PASS(kEntryBrute); }
+
+extern "C" int mesh_trace_instanced_launch(MESH_TRACE_ARGS) {
+  return MESH_TRACE_PASS(kEntryInstanced);
+}
 
 extern "C" int mesh_trace_per_thread_launch(MESH_TRACE_ARGS) {
   return MESH_TRACE_PASS(kEntryPerThread);

@@ -17,6 +17,15 @@ which a wrong face or texel shows, and `outdoor_scheme` puts spheres
 under them, open to the sky, as the offline stand-in for
 outside_spheres.yml. Both are fixtures like models/walled.py.
 
+Nor does it hold a scene of many copies of one asset, the case of the JAX
+package's two-level instancing (README.md:405-415: a composite of 17
+biplane instances, 124k triangles): `fleet_scheme` places 17 copies of a
+7,300-triangle cut of the surface (`make_mesh(7300, 4)`, one LoadedMesh
+shared by every member, so its four textures enter the texel pool once)
+under the a380 camera and sun, each with its own seeded translation,
+scale in 0.8-1.2 and non-zero Euler angles, in three rows facing the
+camera that cover about 97% of the frame.
+
 Nor does the repository hold an animated scheme: `animated_walled_scheme`
 keyframes two of walled's spheres through the bezier, polynomial, Step and
 Hold easings, and `animated_a380_scheme` moves and turns the a380-class
@@ -136,6 +145,42 @@ def a380_scheme(width: int = WIDTH, height: int = HEIGHT, spp: int = 16) -> Sche
     scheme = a380_cam_scheme(width, height, spp)
     scheme.scene_members.append(ModelMember(path="<procedural a380-class surface>",
                                             loaded=[make_mesh()]))
+    return scheme
+
+
+FLEET_INSTANCES = 17
+FLEET_TRIS = 7300  # 17 x 7,300 = 124,100 triangles
+FLEET_ROWS = (6, 6, 5)  # instances a row, bottom to top
+FLEET_DEPTH, FLEET_COL, FLEET_ROW = 110.0, 34.0, 30.0  # along the view, apart across it
+FLEET_SEED = 17  # the draws of each instance's placement
+
+
+def fleet_scheme(width: int = WIDTH, height: int = HEIGHT, spp: int = 16) -> Scheme:
+    """FLEET_INSTANCES copies of make_mesh(FLEET_TRIS, n_textures=4) under
+    the a380 camera and sun: rows of FLEET_ROWS instances about
+    FLEET_DEPTH along the camera's view, FLEET_COL and FLEET_ROW apart
+    across it, each rolled to face the camera (its flat side, the
+    surface's y axis, toward it) and turned, scaled (0.8-1.2) and moved
+    by draws from FLEET_SEED. The members share one `loaded` list and one
+    `path`, so build_scene builds the instancing tables."""
+    from .camera import build_camera
+
+    scheme = a380_cam_scheme(width, height, spp)
+    cam = build_camera(scheme.cam, width, height)
+    fwd = cam.d / np.linalg.norm(cam.d)
+    loaded = [make_mesh(FLEET_TRIS, n_textures=4)]
+    g = np.random.default_rng(FLEET_SEED)
+    for row, n in enumerate(FLEET_ROWS):
+        for col in range(n):
+            across = (col - (n - 1) / 2) * FLEET_COL + g.uniform(-3, 3)
+            rise = (row - 1) * FLEET_ROW + g.uniform(-3, 3)
+            pos = cam.o + (FLEET_DEPTH + g.uniform(-12, 12)) * fwd + across * cam.right \
+                + rise * cam.up
+            euler = [-2.17 + g.uniform(-0.25, 0.25), g.uniform(-0.3, 0.3), g.uniform(-0.3, 0.3)]
+            scheme.scene_members.append(ModelMember(
+                path="<procedural fleet asset>", loaded=loaded,
+                uniform_scale=float(g.uniform(0.8, 1.2)),
+                translation=pos.astype(np.float32), euler_angles=np.array(euler, np.float32)))
     return scheme
 
 

@@ -7,11 +7,17 @@ field names, padding (spheres and free triangles to a multiple of 8 rows) and
 values, so `ops.trace_kernel.pack_scene_tables` and
 `ops.mesh_kernel.pack_mesh_tables` pack the same tables as the JAX
 package. Mesh fields are left unpadded (the JAX package pads them to a
-multiple of 2,048 for its TPU chunking); `mt_tri12`, the MXU Woop table
-and the asset-local instancing tables are not built (see
-ops/mesh_kernel.py). The cube map's six faces go into a texel pool of
-their own, `sky_pool` (:525-545), with the face tables cm_offsets,
-cm_dims and cm_uv_scales in the WGSL face order (config.FACE_ORDER).
+multiple of 2,048 for its TPU chunking); `mt_tri12` and the MXU Woop
+table are not built (see ops/mesh_kernel.py). A scene of >= 4 copies of
+one glTF asset also gets the two-level instancing tables of
+`_try_build_instancing` (:404-493): the (I, 24) instance table mk_inst
+and the asset's own clusters in its local frame (inst_cl_*), beside the
+flattened world-space fields, which stay as they are (shading, mesh_hit,
+the differentiable tier and the flattened routes read them). The JAX
+package's RTPU_INSTANCING switch is not ported. The cube map's six faces
+go into a texel pool of their own, `sky_pool` (:525-545), with the face
+tables cm_offsets, cm_dims and cm_uv_scales in the WGSL face order
+(config.FACE_ORDER).
 
 `SceneTensors` is the scene on the device for the integrator and the
 wavefront driver (render/integrator.py): the JAX Renderer's one
@@ -83,6 +89,20 @@ class SceneArrays:
     cl_idx: np.ndarray = _zeros(0, 8, dtype=np.int32)  # (C, W) mesh-tri id, -1 pad
     cl_lo: np.ndarray = _zeros(0, 3)  # (C, 3) cluster AABB
     cl_hi: np.ndarray = _zeros(0, 3)
+    # --- two-level instancing (n_inst >= 4 copies of one asset): the JAX
+    # package's (max(n_inst, 1), 24) f32 instance table, zeros without
+    # instancing, rows [A = (1/s) R^T row-major (9) | T (3) | world AABB lo
+    # (3) hi (3) | gid base i * inst_tris (1) | 0 (5)] sorted front to back
+    # from the camera; and the port's own: the asset's clusters in its
+    # local frame (instance 0's triangles mapped by its A, T), local
+    # triangle ids in inst_cl_idx, empty without instancing ---
+    mk_inst: np.ndarray = _zeros(1, 24)
+    inst_cl_v0: np.ndarray = _zeros(0, 8, 3)
+    inst_cl_e1: np.ndarray = _zeros(0, 8, 3)
+    inst_cl_e2: np.ndarray = _zeros(0, 8, 3)
+    inst_cl_idx: np.ndarray = _zeros(0, 8, dtype=np.int32)
+    inst_cl_lo: np.ndarray = _zeros(0, 3)
+    inst_cl_hi: np.ndarray = _zeros(0, 3)
     # --- cube map faces, in config.FACE_ORDER (JAX defaults without one) ---
     cm_offsets: np.ndarray = _zeros(6, dtype=np.int32)  # R offset of each face in sky_pool
     cm_dims: np.ndarray = _zeros(6, 2, dtype=np.int32)  # (w, h)
@@ -97,6 +117,8 @@ class SceneArrays:
     n_mesh_tris: int = 0
     n_clusters: int = 0
     has_cubemap: bool = False
+    n_inst: int = 0  # instances (0: no instancing tables)
+    inst_tris: int = 0  # triangles of the asset, the gid base's stride
 
 
 _ARRAY_FIELDS = tuple(f.name for f in fields(SceneArrays) if f.name.startswith(("sph_", "ft_")))
@@ -312,6 +334,67 @@ def _mesh_fields(mt: dict) -> dict:
     )
 
 
+def _asset_clusters(lv0, lv1, lv2) -> dict:
+    """The asset's local triangles (f64) -> its inst_cl_* fields: f32
+    vertices and edges, clusters by accel/builder.py over their bounds
+    (scene.py:448-455 of the JAX package)."""
+    from ..accel.builder import build_clusters_bvh
+
+    l0 = lv0.astype(np.float32)
+    e1 = (lv1 - lv0).astype(np.float32)
+    e2 = (lv2 - lv0).astype(np.float32)
+    lo3 = np.minimum(np.minimum(l0, l0 + e1), l0 + e2)
+    hi3 = np.maximum(np.maximum(l0, l0 + e1), l0 + e2)
+    cp, cl_lo, cl_hi = build_clusters_bvh(lo3, hi3, leaf_target=64)
+    safe = np.maximum(cp, 0)
+    return dict(inst_cl_v0=l0[safe], inst_cl_e1=e1[safe], inst_cl_e2=e2[safe],
+                inst_cl_idx=cp.astype(np.int32), inst_cl_lo=cl_lo, inst_cl_hi=cl_hi)
+
+
+def _try_build_instancing(model_members: list, mt: dict, cam_o) -> Optional[dict]:
+    """The JAX package's `_try_build_instancing` (scene.py:404-493): a
+    scene of I >= 4 Model members of one asset (one resolved path, or for
+    in-memory members one `path` string) that together own all M mesh
+    triangles in member order, M % I == 0, and whose instances all map to
+    instance 0's local geometry within 1e-3 of the asset's scale on a
+    64-row probe. Returns the instancing fields (mk_inst sorted by the
+    camera's distance to each instance's AABB centre, n_inst, inst_tris,
+    the asset's local clusters), or None when any rule fails."""
+    from .camera import euler_matrix
+
+    if len(model_members) < 4 or len({p for p, _ in model_members}) != 1:
+        return None
+    I, M = len(model_members), mt["v0"].shape[0]
+    if M % I:
+        return None
+    Ml = M // I
+    v0, v1, v2 = (mt[k].astype(np.float64) for k in ("v0", "v1", "v2"))
+    # inverse transforms A_i = (1/s) R^T, T_i (the placement p_w = s R p + T)
+    As, Ts = [], []
+    for _, m in model_members:
+        R = euler_matrix(*(float(v) for v in m.euler_angles))
+        As.append(R.T / float(m.uniform_scale))
+        Ts.append(np.asarray(m.translation, np.float64))
+    lv0, lv1, lv2 = ((v[:Ml] - Ts[0]) @ As[0].T for v in (v0, v1, v2))
+    scale = max(np.abs(lv0).max(), 1e-6)
+    probe = np.linspace(0, Ml - 1, num=min(64, Ml), dtype=np.int64)
+    for i in range(1, I):
+        if np.abs((v0[i * Ml + probe] - Ts[i]) @ As[i].T - lv0[probe]).max() > 1e-3 * scale:
+            return None
+    inst = np.zeros((I, 24), np.float32)
+    for i in range(I):
+        w = slice(i * Ml, (i + 1) * Ml)
+        inst[i, 0:9] = As[i].reshape(9)
+        inst[i, 9:12] = Ts[i]
+        inst[i, 12:15] = np.minimum(np.minimum(v0[w], v1[w]), v2[w]).min(axis=0)
+        inst[i, 15:18] = np.maximum(np.maximum(v0[w], v1[w]), v2[w]).max(axis=0)
+        inst[i, 18] = i * Ml  # the gid base rides the row through the sort
+    # front to back: a near instance's hit prunes the later instances' walks
+    centers = (inst[:, 12:15] + inst[:, 15:18]) / 2.0
+    order = np.argsort(np.linalg.norm(centers - np.asarray(cam_o, np.float64), axis=1))
+    return dict(mk_inst=inst[order], n_inst=I, inst_tris=Ml, **_asset_clusters(lv0, lv1, lv2))
+
+
 def _sky_fields(cubemap: CubeMapMember, scheme_dir: str) -> dict:
     """The cube map's faces -> the SceneArrays sky fields (scene.py:525-545
     of the JAX package): each face decoded once per resolved path with
@@ -341,7 +424,7 @@ def _sky_fields(cubemap: CubeMapMember, scheme_dir: str) -> dict:
 def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
     """Members -> SceneArrays (spheres, free triangles, glTF meshes, the
     cube map: the last one, as the reference keeps only one)."""
-    spheres, tris, meshes = [], [], []
+    spheres, tris, meshes, model_members = [], [], [], []
     cubemap = None
     image_cache: dict = {}  # one decode per (file, image) across instances
     for m in scheme.scene_members:
@@ -351,12 +434,14 @@ def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
             tris.append(m)
         elif isinstance(m, ModelMember):
             if m.loaded is not None:
+                model_members.append((m.path, m))
                 meshes.extend(gltf.place_meshes(m.loaded, m.translation, m.uniform_scale,
                                                 m.euler_angles))
             else:
-                meshes.extend(gltf.load_model(
-                    resolve_asset_path(m.path, scheme.scheme_dir), m.translation,
-                    m.uniform_scale, m.euler_angles, image_cache=image_cache))
+                path = resolve_asset_path(m.path, scheme.scheme_dir)
+                model_members.append((path, m))
+                meshes.extend(gltf.load_model(path, m.translation, m.uniform_scale,
+                                              m.euler_angles, image_cache=image_cache))
         elif isinstance(m, CubeMapMember):
             cubemap = m
         else:
@@ -383,6 +468,8 @@ def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
     pool = _TexPool()
     mt = _mesh_triangle_arrays(meshes, pool)
     mesh = _mesh_fields(mt) if mt else {}
+    if mt:
+        mesh.update(_try_build_instancing(model_members, mt, scheme.cam.o) or {})
     sky = _sky_fields(cubemap, scheme.scheme_dir) if cubemap is not None else {}
     return SceneArrays(
         sph_c=f32(sph_c, Sp), sph_r=_pad(sph_r, Sp), sph_rgb=f32(sph_rgb, Sp),
@@ -408,9 +495,11 @@ def from_reference(ref_fields: Mapping) -> SceneArrays:
     package's SceneArrays, mesh fields included: the JAX package's
     padded mesh rows are dropped and mt_attr's bitcast descriptor
     columns zeroed, and the cube map's face tables and sky pool with
-    has_cubemap. Its asset-local instancing and Woop tables are not
-    carried: the port packs its kernel tables from the flattened cl_*
-    fields."""
+    has_cubemap. The instance table mk_inst, n_inst and inst_tris are
+    carried; the asset's local clusters are rebuilt here from the JAX
+    scene's instance 0 (the row of gid base 0) and its world triangles,
+    and its packed kernel and Woop tables are not carried: the port packs
+    its kernel tables from the cl_* and inst_cl_* fields."""
     kw = {k: np.array(ref_fields[k]) for k in _ARRAY_FIELDS + _SKY_FIELDS}
     M = int(ref_fields.get("n_mesh_tris", 0))
     if M:
@@ -421,6 +510,16 @@ def from_reference(ref_fields: Mapping) -> SceneArrays:
             kw[k] = kw[k][:M]
         kw["mt_attr"][:, 37:] = 0.0
         kw["n_clusters"] = int(ref_fields["n_clusters"])
+        I = int(ref_fields.get("n_inst", 0))
+        kw["mk_inst"] = np.array(ref_fields.get("mk_inst", np.zeros((1, 24), np.float32)))
+        if I:
+            inst = np.array(ref_fields["mk_inst"], np.float32)
+            Ml = int(ref_fields["inst_tris"])
+            row = inst[int(np.argmin(inst[:I, 18]))]
+            A, T = row[0:9].reshape(3, 3).astype(np.float64), row[9:12].astype(np.float64)
+            v0 = kw["mt_v0"][:Ml].astype(np.float64)
+            lv = [(v - T) @ A.T for v in (v0, v0 + kw["mt_e1"][:Ml], v0 + kw["mt_e2"][:Ml])]
+            kw.update(mk_inst=inst, n_inst=I, inst_tris=Ml, **_asset_clusters(*lv))
     return SceneArrays(
         **kw,
         n_spheres=int(ref_fields["n_spheres"]),

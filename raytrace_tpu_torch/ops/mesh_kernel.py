@@ -32,7 +32,21 @@ nearest hits of a warp's live rays are found by groups of its threads:
   woop.py:268): every triangle of the brute table, in f32
   Moller-Trumbore, ties to the least row, the table resident in shared
   memory. MeshTables takes it for meshes of at most MAX_BRUTE_TRIS
-  triangles.
+  triangles;
+- "instanced" (`mesh_trace_instanced`, replacing bounce_tiles'
+  two-level instancing, `inst_body` :500-544): for a scene of n_inst
+  copies of one asset (models/scene.py builds the instance table and the
+  asset's local clusters), each instance of the table in its front-to-back
+  order: its world AABB's slab test under the running best, the ray moved
+  into the instance's frame (o' = A (o - T), d' = A d, d' not normalized,
+  so a local t is the world t), the walk over the asset's local tables
+  seeded with the running best, the instance's gid base added. Exact-t
+  ties go to the least scan position inside an instance and to the
+  earlier instance across instances (the kernel visits the reached
+  instances nearest entry first and keeps that result). Brute and instanced exclude each
+  other, as in the JAX package: route "brute" on an instanced scene takes
+  the flattened brute table. MeshTables takes it for every instanced
+  scene when INSTANCED_ROUTE is set.
 
 The gate, MAX_BRUTE_TRIS, is measured on the card, not copied from the
 JAX package's 2,560 (woop.MAX_TRIS, where the MXU made the brute pass
@@ -78,11 +92,18 @@ from .trace_kernel import (CAM_LEN, FT_COLS, MAX_PRIMS, SPH_COLS, launch_key, ma
                            pack_scene_tables)
 
 MAX_BRUTE_TRIS = 0  # brute route up to this many triangles: none (see the docstring)
+# Instanced scenes take the per-instance walk when set. It measured slower
+# than the flattened walk on the fleet (procedural.fleet_scheme, 1216x608,
+# 16 spl; chip_smoke.py phase 13 on an NVIDIA H100 80GB HBM3 at 700 W):
+# 132.5 ms a launch instanced against 118.4 for the walk, in turns. So
+# instanced scenes keep the walk, and route="instanced" asks for the other.
+INSTANCED_ROUTE = False
 GROUP = 16  # clusters per supercluster
 SGROUP = 8  # superclusters per supergroup
 TRI_COLS = 12  # v0 xyz | e1 xyz | e2 xyz | 3 zero: three float4 loads a triangle
 BRUTE_CHUNK = 64  # the brute table's rows are padded to a multiple of this
-ROUTES = {"walk": "mesh_trace", "brute": "mesh_trace_brute"}
+ROUTES = {"walk": "mesh_trace", "brute": "mesh_trace_brute", "instanced": "mesh_trace_instanced"}
+INST_COLS = 24  # the instance table's row: A (9) | T (3) | world AABB lo, hi (6) | gid base | 0
 # the first design of each route's entry, kept as the yardstick chip_smoke.py
 # times it against (a thread walks its own ray in the camera's scan order;
 # the block stages 64-row chunks in lockstep); no render launches them
@@ -93,8 +114,10 @@ _NOHIT_LO, _NOHIT_HI = 3.0e38, -3.0e38  # inverted AABB of padding clusters (the
 # launches of each CUDA entry point in this process (read by chip_smoke.py)
 LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_trace_sky": 0,
             "mesh_trace_brute_sky": 0, "mesh_trace_pcg": 0, "mesh_trace_brute_pcg": 0,
-            "mesh_trace_sky_pcg": 0, "mesh_trace_brute_sky_pcg": 0, "mesh_hit": 0,
-            "mesh_hit_per_thread": 0, "mesh_trace_per_thread": 0, "mesh_trace_brute_lockstep": 0}
+            "mesh_trace_sky_pcg": 0, "mesh_trace_brute_sky_pcg": 0, "mesh_trace_instanced": 0,
+            "mesh_trace_instanced_sky": 0, "mesh_trace_instanced_pcg": 0,
+            "mesh_trace_instanced_sky_pcg": 0, "mesh_hit": 0, "mesh_hit_per_thread": 0,
+            "mesh_trace_per_thread": 0, "mesh_trace_brute_lockstep": 0}
 
 
 # --- host-side packing -----------------------------------------------------
@@ -205,11 +228,26 @@ def supports(scene, params) -> bool:
     )
 
 
+class WalkTables(nn.Module):
+    """The walk's tables of `pack_mesh_tables` as buffers: sgbounds,
+    sbounds, bounds, tri, gid, count."""
+
+    def __init__(self, packed: dict):
+        super().__init__()
+        for k in ("sgbounds", "sbounds", "bounds", "tri", "gid", "count"):
+            self.register_buffer(k, torch.from_numpy(np.ascontiguousarray(packed[k])))
+
+
 class MeshTables(nn.Module):
     """A mesh scene's packed tables and camera as buffers, moved with
     `.to(device)`; `sky` the cube map's SkyTables (None without one).
-    `route` is the nearest-hit route the scene takes: brute up to
-    MAX_BRUTE_TRIS triangles, the walk above."""
+    An instanced scene (scene.n_inst > 0) also has `inst`, its (n_inst,
+    24) instance table ((0, 24) otherwise), and `asset`, the WalkTables
+    of the asset's local clusters, packed in the camera's order as seen
+    from instance 0's frame (None otherwise); the flattened tables stay
+    beside them. `route` is the nearest-hit route the scene takes:
+    instanced for an instanced scene (INSTANCED_ROUTE), else brute up to
+    MAX_BRUTE_TRIS triangles and the walk above."""
 
     def __init__(self, scene, cam, max_thres: float):
         super().__init__()
@@ -223,14 +261,26 @@ class MeshTables(nn.Module):
         pool, self.pool_kind = pool_tensor(scene.tex_pool)
         arrays = dict(sph=sph, ft=ft, cam_vec=make_cam_vec(cam, max_thres), **walk,
                       btri=btri, bgid=bgid, attr=scene.mt_attr, desc=scene.mt_desc)
-        for k, a in arrays.items():
+        self.n_inst = int(scene.n_inst)
+        inst = np.asarray(scene.mk_inst, np.float32)[:self.n_inst]
+        for k, a in dict(arrays, inst=inst.reshape(-1, INST_COLS)).items():
             self.register_buffer(k, torch.from_numpy(np.ascontiguousarray(a)))
         self.register_buffer("pool", pool)
+        self.asset = None
+        if self.n_inst:
+            # the camera in instance 0's frame (the row of gid base 0), so that
+            # the local scan order is the camera's (scene.py:459-463)
+            row = inst[int(np.argmin(inst[:, 18]))].astype(np.float64)
+            cam_l = (np.asarray(cam.o, np.float64) - row[9:12]) @ row[0:9].reshape(3, 3).T
+            self.asset = WalkTables(pack_mesh_tables(
+                scene.inst_cl_idx, scene.inst_cl_lo, scene.inst_cl_hi, scene.inst_cl_v0,
+                scene.inst_cl_e1, scene.inst_cl_e2, cam_o=cam_l.astype(np.float32)))
         self.n_sph = int(scene.n_spheres)
         self.n_ft = int(scene.n_free_tris)
         self.n_tris = int(scene.n_mesh_tris)
         self.has_lens = cam.lens_r is not None
-        self.route = "brute" if self.n_tris <= MAX_BRUTE_TRIS else "walk"
+        self.route = ("instanced" if self.n_inst and INSTANCED_ROUTE
+                      else "brute" if self.n_tris <= MAX_BRUTE_TRIS else "walk")
 
 
 # --- the plain torch version -----------------------------------------------
@@ -383,6 +433,93 @@ def walk_work(o, d, t_best, tables, t_min: float = EPS):
     return dict(rays=live.numel(), slab=slab, tri=int(tables.count[node].sum()))
 
 
+def _instance_spans(o, d, inst):
+    """The world slab test of every ray against every instance's AABB (the
+    (I, 24) table's columns 12:18), as `_reach` computes it: (entry (N, I),
+    entry <= exit & exit >= 0 (N, I)); the pruning by a best t is left to
+    the caller."""
+    f = [1.0 / _slab_clamp(dk) for dk in d]
+    t0 = [(inst[None, :, 12 + k] - o[k][:, None]) * f[k][:, None] for k in range(3)]
+    t1 = [(inst[None, :, 15 + k] - o[k][:, None]) * f[k][:, None] for k in range(3)]
+    mn = [torch.minimum(a, b) for a, b in zip(t0, t1)]
+    mx = [torch.maximum(a, b) for a, b in zip(t0, t1)]
+    entry = torch.maximum(torch.maximum(mn[0], mn[1]), mn[2])
+    exit_ = torch.minimum(torch.minimum(mx[0], mx[1]), mx[2])
+    return entry, (entry <= exit_) & (exit_ >= 0.0)
+
+
+def _instance_rays(o, d, lane, row):
+    """The rays of the lanes `lane` in the frame of the instance of table
+    row `row`: o' = A (o - T), d' = A d, in f32 and the JAX package's order
+    of terms (mesh_bounce_kernel.py:532-540). Returns (o', d')."""
+    r = [o[k][lane] - row[9 + k] for k in range(3)]
+    dl = [d[k][lane] for k in range(3)]
+    ol = tuple(row[3 * j] * r[0] + row[3 * j + 1] * r[1] + row[3 * j + 2] * r[2] for j in range(3))
+    dd = tuple(row[3 * j] * dl[0] + row[3 * j + 1] * dl[1] + row[3 * j + 2] * dl[2]
+               for j in range(3))
+    return ol, dd
+
+
+def mesh_hit_instanced(o, d, t_seed, tables, t_min: float = EPS):
+    """Nearest mesh hit of an instanced scene (bounce_tiles' `inst_body`,
+    mesh_bounce_kernel.py:500-544): for each row of tables.inst in table
+    order, the lanes whose world slab test reaches the instance's AABB
+    under the running best t (`_instance_spans`, entry < the best), their
+    rays moved into the instance's frame (`_instance_rays`), `mesh_hit_walk`
+    over the asset's local tables (tables.asset) seeded with the running
+    best, and the instance's gid base added to the local id. A later
+    instance replaces a hit only at a smaller t (strict <), so an exact-t
+    tie goes to the earlier instance; inside an instance, to the least scan
+    position. Same arguments and returns as mesh_hit_walk (gid global: the
+    flattened tables' id)."""
+    if tables.asset is None:
+        raise ValueError("the instanced route needs a scene with instancing tables (n_inst > 0)")
+    n, dev = t_seed.numel(), t_seed.device
+    t_out = t_seed.clone()
+    gid_out = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    u_out, v_out = torch.zeros_like(t_seed), torch.zeros_like(t_seed)
+    entry, ok = _instance_spans(o, d, tables.inst)
+    ok &= entry < t_seed[:, None]  # the running best only falls from the seed
+    bases = tables.inst[:, 18].long().tolist()
+    for k in (ok.any(0).nonzero()[:, 0]).tolist():  # the instances some ray may reach
+        lane = (ok[:, k] & (entry[:, k] < t_out)).nonzero()[:, 0]
+        if not lane.numel():
+            continue
+        ol, dl = _instance_rays(o, d, lane, tables.inst[k])
+        t, gid, u, v = mesh_hit_walk(ol, dl, t_out[lane], tables.asset, t_min=t_min)
+        hit = gid >= 0
+        won = lane[hit]
+        t_out[won], gid_out[won] = t[hit], gid[hit] + bases[k]
+        u_out[won], v_out[won] = u[hit], v[hit]
+    return t_out, gid_out, u_out, v_out
+
+
+def instanced_walk_work(o, d, t_best, tables, t_min: float = EPS):
+    """The tests an exact instanced walk of these rays must make, as
+    `walk_work` counts them, with t_best the rays' final nearest t: every
+    live ray tests every instance's AABB; an instance whose AABB it
+    reaches with entry <= t_best (a box of larger entry holds no hit that
+    beats the nearest) costs a transform and walk_work's tests on the
+    asset's local tables with the ray in its frame.
+
+    Returns a dict of ints: rays (the live ones), inst_slab (the instance
+    AABB tests), transforms, slab (the local slab tests at the supergroup,
+    supercluster and cluster levels), tri (the triangle tests)."""
+    live = t_best >= t_min
+    bound = torch.nextafter(t_best, torch.full_like(t_best, math.inf))  # entry < bound: <= t_best
+    entry, ok = _instance_spans(o, d, tables.inst)
+    ok &= live[:, None] & (entry < bound[:, None])
+    out = dict(rays=int(live.sum()), inst_slab=int(live.sum()) * tables.n_inst,
+               transforms=int(ok.sum()), slab=[0, 0, 0], tri=0)
+    for k, row in enumerate(tables.inst):
+        lane = ok[:, k].nonzero()[:, 0]
+        work = walk_work(*_instance_rays(o, d, lane, row), t_best[lane], tables.asset,
+                         t_min=t_min)
+        out["slab"] = [a + b for a, b in zip(out["slab"], work["slab"])]
+        out["tri"] += work["tri"]
+    return out
+
+
 def mesh_hit_brute(o, d, t_seed, tables):
     """Nearest mesh hit over every triangle of the brute table, in its
     row order (the function `woop.mxu_mesh_hit` computes, in plain f32
@@ -460,7 +597,8 @@ def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int
     route = tables.route if route is None else route
     if route not in ROUTES:
         raise ValueError(f"route must be one of {tuple(ROUTES)}, not {route!r}")
-    nearest = mesh_hit_walk if route == "walk" else mesh_hit_brute
+    nearest = {"walk": mesh_hit_walk, "brute": mesh_hit_brute,
+               "instanced": mesh_hit_instanced}[route]
     shape = xs.shape
     xs, ys, samp = xs.reshape(-1), ys.reshape(-1), samp.reshape(-1)
     spl = samples_per_lane
@@ -584,8 +722,39 @@ def mesh_trace_reference(xs, ys, samp, tables, *, assured: int, max_bounces: int
 
 # --- the dispatcher --------------------------------------------------------
 
-_F32_BUFFERS = ("sph", "ft", "cam_vec", "sgbounds", "sbounds", "bounds", "tri", "btri", "attr")
+_F32_BUFFERS = ("sph", "ft", "cam_vec", "sgbounds", "sbounds", "bounds", "tri", "btri", "attr",
+                "inst")
 _I32_BUFFERS = ("count", "gid", "bgid", "desc")
+_WALK_BUFFERS = (("sgbounds", "sbounds", "bounds", "tri"), torch.float32), \
+    (("count", "gid"), torch.int32)
+
+
+def _check_walk(tables, dev, prefix="tables"):
+    """The walk's buffers of `tables` contiguous, of their dtypes, on dev."""
+    for names, dtype in _WALK_BUFFERS:
+        for name in names:
+            t = getattr(tables, name)
+            if t.dtype != dtype or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"{prefix}.{name} must be contiguous {dtype} on {dev}")
+    if tables.tri.shape[2] != TRI_COLS:
+        raise ValueError(f"{prefix} do not have the packed column layout")
+
+
+def _asset_args(tables, dev, instanced: bool):
+    """The C entries' last ten arguments: the instance table, its rows and
+    the asset's walk tables (instanced), or nulls."""
+    if not instanced:
+        return [None, 0] + [None] * 6 + [0, 0]
+    if tables.asset is None or tables.n_inst < 1:
+        raise ValueError("the instanced route needs a scene with instancing tables (n_inst > 0)")
+    if tables.inst.shape != (tables.n_inst, INST_COLS):
+        raise ValueError(f"tables.inst must be ({tables.n_inst}, {INST_COLS})")
+    a = tables.asset
+    _check_walk(a, dev, "tables.asset")
+    return [tables.inst.data_ptr(), tables.n_inst,
+            *(getattr(a, k).data_ptr() for k in ("sgbounds", "sbounds", "bounds", "count",
+                                                  "tri", "gid")),
+            a.sgbounds.shape[0], a.tri.shape[1]]
 
 
 def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_lane,
@@ -613,6 +782,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
 
     entry = entry or ROUTES[route]
     sky_args = cubemap.launch_args(sky, dev)
+    asset_args = _asset_args(tables, dev, entry == ROUTES["instanced"])
     lib = build.build("mesh_kernel").lib
     fn = getattr(lib, f"{entry}_launch")
     fn.restype = ctypes.c_int
@@ -621,7 +791,8 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 3 + cubemap.ARGTYPES + [ctypes.c_int])
+                   + [ctypes.c_void_p] * 3 + cubemap.ARGTYPES + [ctypes.c_int]
+                   + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2)
     xs_c, ys_c, samp_c = xs.contiguous(), ys.contiguous(), samp.contiguous()
     n = xs_c.numel()
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
@@ -640,7 +811,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
                 tb.attr.data_ptr(), tb.desc.data_ptr(), tb.pool.data_ptr(),
                 tb.pool_kind, tb.pool.numel(),
                 out.data_ptr(), None if work is None else work.data_ptr(), stream, *sky_args,
-                int(generator == "pcg"))
+                int(generator == "pcg"), *asset_args)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     LAUNCHES[launch_key(entry, sky, generator)] += 1
@@ -651,9 +822,10 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
                samples_per_lane: int = 1, route: str | None = None,
                generator: str = "weyl"):
     """xs, ys, samp: int32 lane tensors of any shape; tables: a
-    MeshTables on the same device; route "walk" or "brute", by default
-    tables.route (the MAX_BRUTE_TRIS gate; the tests and chip_smoke.py
-    pass both routes on one scene). Lane i covers sample ids samp[i] ..
+    MeshTables on the same device; route "walk", "brute" or "instanced"
+    (a scene with instancing tables only), by default tables.route
+    (INSTANCED_ROUTE and the MAX_BRUTE_TRIS gate; the tests and
+    chip_smoke.py pass every route on one scene). Lane i covers sample ids samp[i] ..
     samp[i] + samples_per_lane - 1, its draws from `generator` ("weyl" or
     "pcg"). Returns the radiance sum (r, g, b):
     3 f32 tensors shaped like xs, with the sky's terms where tables.sky
@@ -700,14 +872,7 @@ def _launch_hit(o, d, t_seed, tables, t_min, entry="mesh_hit"):
     for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t_seed"), rays):
         if t.dtype != torch.float32 or t.device != dev or t.shape != (n,):
             raise ValueError(f"{name} must be ({n},) float32 on {dev}")
-    for names, dtype in ((("sgbounds", "sbounds", "bounds", "tri"), torch.float32),
-                         (("count", "gid"), torch.int32)):
-        for name in names:
-            t = getattr(tables, name)
-            if t.dtype != dtype or t.device != dev or not t.is_contiguous():
-                raise ValueError(f"tables.{name} must be contiguous {dtype} on {dev}")
-    if tables.tri.shape[2] != TRI_COLS:
-        raise ValueError("tables do not have the packed column layout")
+    _check_walk(tables, dev)
 
     fn = getattr(build.build("mesh_kernel").lib, f"{entry}_launch")
     fn.restype = ctypes.c_int

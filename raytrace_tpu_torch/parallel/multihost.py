@@ -29,17 +29,27 @@ def init(backend: Optional[str] = None, device: str = "cuda") -> bool:
     device "cuda" and "gloo" for "cpu" (nothing tries one and then
     another); on "cuda" the process's device is cuda:(LOCAL_RANK mod the
     visible device count). Returns True. A process group already
-    initialised is left as it is (False: this call initialised nothing)."""
+    initialised is left as it is (False: this call initialised nothing).
+    NCCL takes no two ranks on one card: with NCCL and more local ranks
+    (LOCAL_WORLD_SIZE) than visible cards it raises ValueError before
+    anything is initialised, and leaves the choice of gloo to the caller."""
     if "WORLD_SIZE" not in os.environ or dist.is_initialized():
         return False
     if device not in BACKENDS:
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    backend = backend or BACKENDS[device]
     if device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for but torch.cuda.is_available() is False")
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+        if backend == "nccl" and local > torch.cuda.device_count():
+            raise ValueError(
+                f"NCCL takes one rank a card: {local} local ranks (LOCAL_WORLD_SIZE) on "
+                f"{torch.cuda.device_count()} visible CUDA devices; gloo takes two ranks on one "
+                f"card (backend='gloo', the CLI's --backend gloo)")
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
         torch.cuda.init()
-    dist.init_process_group(backend or BACKENDS[device], init_method="env://",
+    dist.init_process_group(backend, init_method="env://",
                             rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
     return True

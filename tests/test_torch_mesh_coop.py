@@ -290,6 +290,6 @@ def test_reference_routes_agree(tmp_path_factory, name):
     out = {r: torch.stack(mk.mesh_trace_reference(xs, ys, torch.full_like(xs, 3), tables,
                                                   route=r, assured=assured, max_bounces=8,
                                                   samples_per_lane=2))
-           for r in mk.ROUTES}
+           for r in ("walk", "brute")}  # the routes of every mesh scene
     assert float(out["walk"].mean()) > 0.0
     assert torch.equal(out["walk"], out["brute"])
