@@ -195,22 +195,34 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    nccl_launches.
 13. two-level instancing on the fleet (procedural.fleet_scheme: 17
    instances of a 7,300-triangle cut, 124,100 triangles, four u8
-   1024x1024 textures, the a380 camera at 1216x608): n_inst, inst_tris,
-   build_scene's and the instanced build's host seconds and the flattened
-   and asset-local kernel tables' bytes; `mesh_trace_instanced` and its
-   sky (the procedural faces) and pcg instantiations bitwise against the
-   plain version (route "instanced") on the whole frame at samples per
-   lane 1, 4 and 16, each launch counted under its key alone, the lanes
-   that differ printed (none allowed); the 16-spl launch in turns
-   instanced, walk, sky, pcg, pcg, sky, walk, instanced; renders with the
-   launch counts reset just before and read just after: the default route
-   (MeshTables.route, INSTANCED_ROUTE), the instanced and walk routes'
-   images under the tile gate, a resume bitwise, a 96x48 frame card
-   against CPU, render(16) on both routes in turns, and the sky and pcg
-   renders; the least walk a ray of each route on the fleet frame's rays
-   (instanced_walk_work, walk_work) and the three records' bounds; in a
-   child process, a torch.profiler table of a warm instanced render(16).
-   Prints the phase's seconds.
+   1024x1024 textures, the a380 camera at 1216x608): ptxas' registers,
+   stack, spills and shared memory of every instanced kernel (4 blocks of
+   256 a SM by registers and at most INST_SPILL_MAX bytes of spill for
+   mesh_trace_instanced); n_inst, inst_tris, build_scene's and the
+   instanced build's host seconds, the flattened and asset-local kernel
+   tables' bytes and the route's reason;
+   `mesh_trace_instanced` and its sky (the procedural faces) and pcg
+   instantiations bitwise against the plain version (route "instanced")
+   on the whole frame at samples per lane 1, 4 and 16, each launch counted
+   under its key alone, the lanes that differ printed (none allowed), and
+   at 1 the batched plain version bitwise the table-order loop
+   (tests/torch_instanced_loop.py); the 16-spl launch in turns instanced,
+   its first design (mesh_trace_instanced_first), walk, sky, pcg, and
+   back; renders with the launch counts reset just before and read just
+   after: the default route (MeshTables.route, whose launches must be its
+   entry's alone), the instanced and walk routes' images under the tile
+   gate, a resume bitwise, a 96x48 frame card against CPU, render(16) on
+   both routes in turns, and the sky and pcg renders; the share of the
+   frame's primary rays that hit, the least walk a ray of each route on
+   the fleet frame's rays (instanced_walk_work, walk_work) and the bounds
+   of the three records and of the first design; in a child process, a
+   torch.profiler table of a warm render(16) on the default route. Then
+   the large fleet (FLEET_LARGE_ROWS: 144 instances, 1,051,200 triangles,
+   flattened tables over the 50 MB L2): its build and bytes, the instanced
+   entry bitwise against the plain version on a 1216x32 strip at 1, 4 and
+   16 and on the whole frame at 16, the three entries in turns with their
+   bounds, the two routes' images under the tile gate. Prints the phase's
+   seconds.
 
 Each kernel's record has its bound (bound_ms, bound_by): the larger of
 its bytes over 3.35 TB/s and its FP32 work, counted from the sources,
@@ -225,7 +237,8 @@ sky_launches_per_render; the mesh_hit record its launches a
 differentiable a380-class render (diff_launches_per_render) and its ms a
 launch there (diff_in_render_ms, phase 10's profiler table). Phase 13
 adds the records mesh_trace_instanced, mesh_trace_instanced_sky and
-mesh_trace_instanced_pcg; every record carries `share`, bound_ms / ms.
+mesh_trace_instanced_pcg, the first with its yardstick's ms and share and
+the large fleet's ms; every record carries `share`, bound_ms / ms.
 
 Any failure raises (exit code != 0). The line before the last is the
 kernels' JSON record; the last line is the device JSON object. Without a
@@ -799,8 +812,9 @@ def hit_work(o, d, t, tables, t_min):
     return ops, moved, work
 
 
-def frame_rays(dev, a380):
-    """The a380-class scene on the card and the rays of phase 7's frame pool:
+def frame_rays(dev, a380, built=None):
+    """The a380-class scene on the card (built: its build_scene, when the
+    caller has it) and the rays of phase 7's frame pool:
     the primary rays of the whole 1216x608 frame in the wavefront's tile
     order, then the secondary rays of one cpu-semantics bounce (lanes whose
     path ended keep their primary ray), every fourth lane dead (seeded
@@ -814,7 +828,7 @@ def frame_rays(dev, a380):
     from raytrace_tpu_torch.render import integrator as itg
     from raytrace_tpu_torch.render.renderer import tile_order
 
-    scene = SceneTensors(build_scene(a380), build_camera(a380.cam, MESH_W, MESH_H),
+    scene = SceneTensors(built or build_scene(a380), build_camera(a380.cam, MESH_W, MESH_H),
                          a380.render_info.rad_info.russ_roull_info.max_thres).to(dev)
     order = torch.from_numpy(tile_order(MESH_W, MESH_H)).to(dev)
     xs, ys = (order % MESH_W).int(), (order // MESH_W).int()
@@ -1135,6 +1149,37 @@ def ptxas_registers(log):
         if m and fn:
             regs[fn] = int(m.group(1))
     return regs
+
+
+def ptxas_info(log):
+    """{mangled entry: {registers, stack, spill_stores, spill_loads, smem}}
+    (bytes but the registers) from ptxas's -v lines of a build log."""
+    import re
+
+    info, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            info[fn] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            info[fn].update(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and fn:
+            info[fn].update(registers=int(m.group(1)), smem=int(m.group(2) or 0))
+    return info
+
+
+def inst_ptxas(log):
+    """ptxas' {readable name: info} of the instanced kernels of a
+    mesh_kernel build: every mesh_trace_kernel<kInst true> instantiation
+    and mesh_trace_instanced_first_kernel."""
+    from torch_mesh_sass import label
+
+    return {label(fn): v for fn, v in ptxas_info(log).items()
+            if "mesh_trace_instanced_first_kernel" in fn or "inst=1" in label(fn)}
 
 
 def sass(builds, out=SASS_DIR):
@@ -2671,12 +2716,13 @@ FLEET_KERNELS = {  # record -> (generator, with the sky)
 FLEET_REPLACES = "raytrace_tpu/ops/pallas/mesh_bounce_kernel.py:500"  # bounce_tiles' inst_body
 
 
-def fleet_scheme(face_dir=None):
-    """procedural.fleet_scheme at the a380-class cell's size, under the
-    procedural sky written into face_dir when one is given."""
+def fleet_scheme(face_dir=None, rows=None):
+    """procedural.fleet_scheme at the a380-class cell's size (`rows`: its
+    rows, by default the fleet's), under the procedural sky written into
+    face_dir when one is given."""
     from raytrace_tpu_torch.models import procedural
 
-    scheme = procedural.fleet_scheme(MESH_W, MESH_H, MESH_SPP)
+    scheme = procedural.fleet_scheme(MESH_W, MESH_H, MESH_SPP, rows=rows or procedural.FLEET_ROWS)
     if face_dir is not None:
         scheme.scene_members.append(procedural.sky_cubemap(face_dir))
     return scheme
@@ -2690,6 +2736,7 @@ def fleet_build(dev, card, scheme, label):
 
     from raytrace_tpu_torch.models import scene as scene_mod
     from raytrace_tpu_torch.models.camera import build_camera
+    from raytrace_tpu_torch.models.config import ModelMember
     from raytrace_tpu_torch.ops import mesh_kernel as mk
 
     real, took = scene_mod._try_build_instancing, []
@@ -2719,23 +2766,30 @@ def fleet_build(dev, card, scheme, label):
           f"kernel tables: flattened {flat} B, asset-local {local} B + the instance table "
           f"{tensor_bytes([tables.inst])} B; texel pool {scene.tex_pool.dtype} x "
           f"{scene.tex_pool.size}; route {tables.route}", flush=True)
-    assert scene.n_inst == 17 and scene.inst_tris * 17 == scene.n_mesh_tris == 124100
+    n_inst = sum(isinstance(m, ModelMember) for m in scheme.scene_members)
+    assert scene.n_inst == n_inst and scene.inst_tris * n_inst == scene.n_mesh_tris
+    assert scene.inst_tris == 7300, "the fleet's asset is the 7,300-triangle cut"
     assert scene.tex_pool.size == 4 * 1024 * 1024, "the texel pool does not hold 4 textures once"
     return scene, tables
 
 
-def fleet_ops(dev, scheme, tables):
+def fleet_ops(dev, scheme, scene, tables):
     """FP32 operations a ray of the least walk each route needs on the
     fleet frame's rays (frame_rays: primary and one bounce's secondary,
     gpu semantics' t_min), beside the counts: ((instanced ops, counts),
-    (flattened ops, counts))."""
+    (flattened ops, counts)). scene: the scheme's build_scene. Prints the
+    share of the frame's live primary rays that hit the mesh."""
     from raytrace_tpu_torch.ops import mesh_kernel as mk
-    from raytrace_tpu_torch.ops.intersect import EPS
+    from raytrace_tpu_torch.ops.intersect import EPS, INF
 
-    _, o, d, seed, _, _ = frame_rays(dev, scheme)
+    _, o, d, seed, dead, n = frame_rays(dev, scheme, scene)
     t = mk.mesh_hit_walk(o, d, seed, tables, t_min=EPS)[0]
     inst = mk.instanced_walk_work(o, d, t, tables, t_min=EPS)
     flat = mk.walk_work(o, d, t, tables, t_min=EPS)
+    live = ~dead[:n]
+    print(f"[fleet] {tables.n_inst} instances: {float((t[:n] < INF)[live].float().mean()):.2%} of "
+          f"the frame's live primary rays hit the mesh; {inst['transforms'] / inst['rays']:.3f} "
+          f"instances reached a live ray (primary and secondary)", flush=True)
     inst_ops = ((inst["inst_slab"] + sum(inst["slab"])) * SLAB_OPS
                 + inst["transforms"] * TRANSFORM_OPS + inst["tri"] * TRI_OPS)
     flat_ops = sum(flat["slab"]) * SLAB_OPS + flat["tri"] * TRI_OPS
@@ -2768,6 +2822,8 @@ def fleet_parity(dev, card, tables, sky):
                                                            return_counts=True, **kw)
             end.record()
             end.synchronize()
+            if name == "mesh_trace_instanced" and spl == 1:
+                loop_check(fx, fy, samp, tables, kw, ref, start.elapsed_time(end))
             tables.sky = sky if with_sky else None
             reset_launches()
             ours = mk.mesh_trace(fx, fy, samp, tables, **kw)
@@ -2791,20 +2847,43 @@ def fleet_parity(dev, card, tables, sky):
     return out
 
 
-def fleet_timing(dev, card, tables, sky):
-    """The MESH_SPP launch of the whole frame in turns: instanced, walk,
-    the instanced sky and pcg instantiations, and back. Returns the mean ms
-    a launch of each."""
+def loop_check(xs, ys, samp, tables, kw, batched, batched_ms):
+    """The instanced plain version with the table-order loop
+    (tests/torch_instanced_loop.py) in the batched mesh_hit_instanced's
+    place: its radiance bitwise `batched`'s; prints both ms."""
     import torch
 
     from raytrace_tpu_torch.ops import mesh_kernel as mk
 
-    fx, fy = (lambda f: (f % MESH_W, f // MESH_W))(
-        torch.arange(MESH_W * MESH_H, dtype=torch.int32, device=dev))
-    zero = torch.zeros_like(fx)
-    runs = {"mesh_trace_instanced": ("instanced", "weyl", None), "walk": ("walk", "weyl", None),
-            "mesh_trace_instanced_sky": ("instanced", "weyl", sky),
-            "mesh_trace_instanced_pcg": ("instanced", "pcg", None)}
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_instanced_loop import mesh_hit_instanced_loop
+
+    real, mk.mesh_hit_instanced = mk.mesh_hit_instanced, mesh_hit_instanced_loop
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = torch.stack(mk.mesh_trace_reference(xs, ys, samp, tables, **kw))
+        end.record()
+        end.synchronize()
+    finally:
+        mk.mesh_hit_instanced = real
+    bad = int((ref != torch.stack(batched)).any(0).sum())
+    print(f"[fleet] plain version spl={kw['samples_per_lane']}: the batched mesh_hit_instanced "
+          f"against the table-order loop: {bad} lanes differ; {batched_ms:.1f} ms against "
+          f"{start.elapsed_time(end):.1f} ms", flush=True)
+    assert bad == 0, f"the batched plain version differs from the loop on {bad} lanes"
+
+
+def trace_turns(label, tables, xs, ys, runs, card):
+    """The MESH_SPP launch of xs, ys by each of `runs` ({key: (route,
+    generator, sky)}; route "first" the instanced yardstick) in turns,
+    forward then back, FLEET_TURNS launches a turn after a warm-up. Returns
+    the mean ms a launch of each."""
+    import torch
+
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+
+    zero = torch.zeros_like(xs)
     order = list(runs) + list(reversed(runs))
     t = {}
     for key in order:
@@ -2812,8 +2891,10 @@ def fleet_timing(dev, card, tables, sky):
         tables.sky = with_sky
 
         def launch():
-            return mk.mesh_trace(fx, fy, zero, tables, route=route, assured=5, max_bounces=24,
-                                 samples_per_lane=MESH_SPP, generator=generator)
+            kw = dict(assured=5, max_bounces=24, samples_per_lane=MESH_SPP)
+            if route == "first":
+                return mk._mesh_trace_yardstick(xs, ys, zero, tables, route="instanced", **kw)
+            return mk.mesh_trace(xs, ys, zero, tables, route=route, generator=generator, **kw)
 
         launch()  # warm-up
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2825,11 +2906,26 @@ def fleet_timing(dev, card, tables, sky):
         t.setdefault(key, []).append(start.elapsed_time(end) / FLEET_TURNS)
     tables.sky = None
     ms = {k: sum(v) / len(v) for k, v in t.items()}
-    print(f"[timing] fleet {MESH_W}x{MESH_H} spl={MESH_SPP} in turns {order}: "
+    print(f"[timing] {label} {MESH_W}x{MESH_H} spl={MESH_SPP} in turns {order}: "
           + ", ".join(f"{k} {ms[k]:.3f} ms/launch (turns {t[k]})" for k in runs)
-          + f"; instanced / walk {ms['mesh_trace_instanced'] / ms['walk']:.3f} [{card}]",
-          flush=True)
+          + f"; instanced / walk {ms['mesh_trace_instanced'] / ms['walk']:.3f}, first design / "
+          f"walk {ms['mesh_trace_instanced_first'] / ms['walk']:.3f} [{card}]", flush=True)
     return ms
+
+
+def fleet_timing(dev, card, tables, sky):
+    """The fleet's MESH_SPP launch of the whole frame in turns: instanced,
+    its first design, walk, the instanced sky and pcg instantiations, and
+    back. Returns the mean ms a launch of each."""
+    import torch
+
+    fx, fy = (lambda f: (f % MESH_W, f // MESH_W))(
+        torch.arange(MESH_W * MESH_H, dtype=torch.int32, device=dev))
+    return trace_turns("fleet", tables, fx, fy, {
+        "mesh_trace_instanced": ("instanced", "weyl", None),
+        "mesh_trace_instanced_first": ("first", "weyl", None), "walk": ("walk", "weyl", None),
+        "mesh_trace_instanced_sky": ("instanced", "weyl", sky),
+        "mesh_trace_instanced_pcg": ("instanced", "pcg", None)}, card)
 
 
 def fleet_renders(card, scheme, sky_scheme):
@@ -2847,7 +2943,12 @@ def fleet_renders(card, scheme, sky_scheme):
 
     renders = {}
     r, img, counts, _ = warm_render("fleet", "fleet", scheme, MESH_SPP, card)
+    default = mk.ROUTES[r.tables.route]
     assert r.tables.route == ("instanced" if mk.INSTANCED_ROUTE else "walk")
+    assert counts[default] > 0 and sum(counts.values()) == counts[default], \
+        f"the default ({r.tables.route}) render launched {counts}"
+    print(f"[fleet] the default route {r.tables.route} (INSTANCED_ROUTE {mk.INSTANCED_ROUTE}): "
+          f"{counts[default]} {default} launches a render({MESH_SPP})", flush=True)
     renders[r.tables.route] = (r, img, counts)
     for route in ("instanced", "walk"):
         if route not in renders:
@@ -2890,13 +2991,119 @@ def fleet_renders(card, scheme, sky_scheme):
     return launches, render_ms
 
 
-def fleet_phase(dev, card):
-    """Phase 13: two-level instancing on the fleet (module docstring).
-    Returns the JSON records of mesh_trace_instanced and its sky and pcg
+def inst_bytes(tables):
+    """The bytes an instanced launch reads (the flattened walk tables it
+    does not) and writes: the scene rows, the instance table, the mesh's
+    attributes and texels, the asset's walk tables and each lane's (x, y,
+    sample id) in and radiance out."""
+    read = ("sph", "ft", "cam_vec", "inst", "attr", "desc", "pool")
+    return (tensor_bytes(getattr(tables, k) for k in read) + tensor_bytes(tables.asset.buffers())
+            + MESH_W * MESH_H * (3 * 4 + 3 * 4))
+
+
+def per_bounce_ops(tables, walk_ops):
+    """FP32 instructions of a lane-bounce: spheres, free triangles, the
+    mesh shade and a least walk of walk_ops."""
+    return (tables.n_sph * SPH_OPS + tables.n_ft * (TRI_OPS - 2) + SHADE_MESH_OPS + walk_ops)
+
+
+INST_SPILL_MAX = 64  # bytes of spill stores a thread mesh_trace_instanced may take (see below)
+
+
+def inst_ptxas_check(mesh_log):
+    """ptxas' registers, stack, spills and shared memory of every instanced
+    kernel of the mesh_kernel build (the four mesh_trace_kernel<kInst>
+    instantiations and the first design); raises if an instantiation of
+    mesh_trace_instanced runs fewer than 4 blocks of 256 a SM by its
+    registers or spills more than INST_SPILL_MAX bytes a thread (its
+    4-block build spills 32-40 B around the shade, and ran faster than the
+    3-block build without a spill; without the lane stash the 4-block
+    build spilled 380 B and ran 1.5x slower: csrc/mesh_kernel.cu's note)."""
+    info = inst_ptxas(mesh_log)
+    for name, v in info.items():
+        print(f"[fleet] ptxas {name}: {v.get('registers')} registers ("
+              f"{65536 // (256 * max(v.get('registers', 1), 1))} blocks of 256 a SM by registers), "
+              f"{v.get('stack')} B stack, {v.get('spill_stores')} B spill stores, "
+              f"{v.get('spill_loads')} B spill loads, {v.get('smem')} B static smem", flush=True)
+    redesigned = {k: v for k, v in info.items() if "inst=1" in k}
+    assert len(redesigned) == 4 and len(info) == 5, f"instanced kernels {sorted(info)}"
+    for name, v in redesigned.items():
+        assert v["spill_stores"] <= INST_SPILL_MAX, f"{name} spills {v['spill_stores']} B"
+        assert v["registers"] <= 64, f"{name}: {v['registers']} registers, under 4 blocks a SM"
+
+
+LARGE_STRIP = 288  # the first row of the large fleet's 1216x32 bitwise strip
+
+
+def large_fleet(dev, card):
+    """Phase 13's large fleet (procedural.FLEET_LARGE_ROWS: 144 instances,
+    1,051,200 triangles, flattened tables over the 50 MB L2): the build and
+    both table sets' bytes; mesh_trace_instanced bitwise against the plain
+    version on the 1216x32 strip from row LARGE_STRIP at samples per lane
+    1, 4 and MESH_SPP; the whole frame's MESH_SPP launch through the plain
+    version (its lane-bounces for the bound) and by mesh_trace_instanced,
+    its first design and the walk in turns, the two routes' images under
+    the tile gate; the least walk a ray of each route on the frame's rays.
+    Returns (ms of each, the plain launch's lane-bounces, instanced ops a
+    ray, flattened ops a ray, tables)."""
+    import torch
+
+    from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+
+    scheme = fleet_scheme(rows=procedural.FLEET_LARGE_ROWS)
+    scene, tables = fleet_build(dev, card, scheme, "large fleet")
+    flat = torch.arange(MESH_W * MESH_H, dtype=torch.int32, device=dev)
+    fx, fy = flat % MESH_W, flat // MESH_W
+    strip = slice(LARGE_STRIP * MESH_W, (LARGE_STRIP + 32) * MESH_W)
+    for spl in (1, 4, MESH_SPP):
+        kw = dict(route="instanced", assured=5, max_bounces=24, samples_per_lane=spl)
+        xs, ys = fx[strip], fy[strip]
+        ref = torch.stack(mk.mesh_trace_reference(xs, ys, torch.zeros_like(xs), tables, **kw))
+        ours = torch.stack(mk.mesh_trace(xs, ys, torch.zeros_like(xs), tables, **kw))
+        bad = int((ours != ref).any(0).sum())
+        print(f"[fleet] large fleet {MESH_W}x32 strip (rows {LARGE_STRIP}-{LARGE_STRIP + 31}) "
+              f"spl={spl}: {bad} lanes differ from the plain version; radiance mean "
+              f"{(ours.mean(1) / spl).tolist()}", flush=True)
+        assert bad == 0, f"large fleet strip spl={spl}: {bad} lanes differ"
+    zero = torch.zeros_like(fx)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref, (iters, _) = mk.mesh_trace_reference(fx, fy, zero, tables, route="instanced", assured=5,
+                                              max_bounces=24, samples_per_lane=MESH_SPP,
+                                              return_counts=True)
+    end.record()
+    end.synchronize()
+    ms = trace_turns("large fleet", tables, fx, fy, {
+        "mesh_trace_instanced": ("instanced", "weyl", None),
+        "mesh_trace_instanced_first": ("first", "weyl", None), "walk": ("walk", "weyl", None)},
+        card)
+    images = {route: torch.stack(mk.mesh_trace(fx, fy, zero, tables, route=route, assured=5,
+                                               max_bounces=24, samples_per_lane=MESH_SPP))
+              for route in ("instanced", "walk")}
+    bad = int((images["instanced"] != torch.stack(ref)).any(0).sum())
+    print(f"[fleet] large fleet {MESH_W}x{MESH_H} spl={MESH_SPP}: {bad} lanes of the instanced "
+          f"launch differ from the plain version (plain {start.elapsed_time(end):.1f} ms, "
+          f"{int(iters.sum())} lane-bounces)", flush=True)
+    assert bad == 0, f"large fleet: {bad} lanes differ"
+    img = {k: (v / MESH_SPP).T.reshape(MESH_H, MESH_W, 3).cpu().numpy() for k, v in images.items()}
+    gate("fleet", f"large fleet {MESH_W}x{MESH_H}x{MESH_SPP} instanced vs walk", img["instanced"],
+         img["walk"])
+    (inst_ops, inst_work), (flat_ops, flat_work) = fleet_ops(dev, scheme, scene, tables)
+    print(f"[bound] large fleet least walks a ray: instanced {inst_ops:.1f} FP32 instructions "
+          f"({inst_work}), flattened {flat_ops:.1f} ({flat_work})", flush=True)
+    return ms, float(iters.sum()), inst_ops, flat_ops, tables
+
+
+def fleet_phase(dev, card, mesh_log):
+    """Phase 13: two-level instancing on the fleet and the large fleet
+    (module docstring); mesh_log: the mesh_kernel build's log. Returns the
+    JSON records of mesh_trace_instanced and its sky and pcg
     instantiations."""
     from raytrace_tpu_torch.ops import mesh_kernel as mk
 
     t_phase = time.perf_counter()
+    inst_ptxas_check(mesh_log)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_fleet_") as face_dir:
         scheme, sky_scheme = fleet_scheme(), fleet_scheme(face_dir)
         scene, tables = fleet_build(dev, card, scheme, "fleet")
@@ -2904,17 +3111,14 @@ def fleet_phase(dev, card):
         sky = sky_tables.sky
         parity = fleet_parity(dev, card, tables, sky)
         ms = fleet_timing(dev, card, tables, sky)
-        (inst_ops, inst_work), (flat_ops, flat_work) = fleet_ops(dev, scheme, tables)
+        (inst_ops, inst_work), (flat_ops, flat_work) = fleet_ops(dev, scheme, scene, tables)
         launches, render_ms = fleet_renders(card, scheme, sky_scheme)
+    del sky_tables, sky
     print(f"[bound] fleet least walks a ray (frame rays, gpu semantics): instanced {inst_ops:.1f} "
           f"FP32 instructions ({inst_work}: live rays, instance boxes, transforms, local slab "
           f"tests a level, triangle tests), flattened {flat_ops:.1f} ({flat_work})", flush=True)
-    # the buffers an instanced launch reads (the flattened walk tables it does not)
-    read = ("sph", "ft", "cam_vec", "inst", "attr", "desc", "pool")
-    nbytes = (tensor_bytes(getattr(tables, k) for k in read) + tensor_bytes(tables.asset.buffers())
-              + MESH_W * MESH_H * (3 * 4 + 3 * 4))
-    per_bounce = (tables.n_sph * SPH_OPS + tables.n_ft * (TRI_OPS - 2) + SHADE_MESH_OPS
-                  + inst_ops)
+    nbytes = inst_bytes(tables)
+    per_bounce = per_bounce_ops(tables, inst_ops)
     records = []
     for name, p in parity.items():
         ops = p["lane_bounces"] * per_bounce + p["misses"] * (SKY_INSTR if FLEET_KERNELS[name][1]
@@ -2926,8 +3130,13 @@ def fleet_phase(dev, card):
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                "launches_per_render": launches[name]}
         if name == "mesh_trace_instanced":
-            rec.update(walk_ms=ms["walk"], render_ms=render_ms["instanced"],
-                       walk_render_ms=render_ms["walk"], default_route=tables.route)
+            first = ms["mesh_trace_instanced_first"]
+            rec.update(walk_ms=ms["walk"], yardstick_ms=first, yardstick_share=b_ms / first,
+                       render_ms=render_ms["instanced"], walk_render_ms=render_ms["walk"],
+                       default_route=tables.route)
+            print(f"[bound] mesh_trace_instanced_first (the yardstick): kernel {first:.4f} ms "
+                  f"({b_ms / first:.2%} of the {b_ms:.4f} ms bound); the walk {ms['walk']:.4f} ms "
+                  f"[{card}]", flush=True)
         records.append(rec)
         fetches = f" + {p['misses']:.4g} sky fetches" if FLEET_KERNELS[name][1] else ""
         print(f"[bound] {name}: {p['lane_bounces']:.4g} lane-bounces x {per_bounce:.1f} FP32 "
@@ -2935,9 +3144,26 @@ def fleet_phase(dev, card):
               f"{nbytes + p['sky_bytes']:.4g} bytes: "
               f"bound {b_ms:.4f} ms by {b_by}; kernel {ms[name]:.4f} ms ({b_ms / ms[name]:.2%} of "
               f"the bound reached); plain {p['plain_ms']:.1f} ms [{card}]", flush=True)
-    print(f"[fleet] MeshTables.route on the fleet: {tables.route} (INSTANCED_ROUTE "
-          f"{mk.INSTANCED_ROUTE}); measured instanced {ms['mesh_trace_instanced']:.3f} ms, walk "
-          f"{ms['walk']:.3f} ms a launch [{card}]", flush=True)
+    del tables
+    t_large = time.perf_counter()
+    lms, lane_bounces, l_inst_ops, l_flat_ops, ltables = large_fleet(dev, card)
+    l_bound, l_by = bound(lane_bounces * per_bounce_ops(ltables, l_inst_ops), inst_bytes(ltables),
+                          "mesh_trace")
+    for key in ("mesh_trace_instanced", "mesh_trace_instanced_first"):
+        print(f"[bound] large fleet {key}: {lane_bounces:.4g} lane-bounces: bound {l_bound:.4f} ms "
+              f"by {l_by}; kernel {lms[key]:.4f} ms ({l_bound / lms[key]:.2%} of the bound "
+              f"reached); the walk {lms['walk']:.4f} ms [{card}]", flush=True)
+    records[0].update(large_ms=lms["mesh_trace_instanced"], large_walk_ms=lms["walk"],
+                      large_yardstick_ms=lms["mesh_trace_instanced_first"],
+                      large_bound_ms=l_bound, large_default_route=ltables.route)
+    print(f"[fleet] large fleet in {time.perf_counter() - t_large:.1f} s", flush=True)
+    print(f"[fleet] MeshTables.route: fleet {records[0]['default_route']}, large fleet "
+          f"{ltables.route} (INSTANCED_ROUTE {mk.INSTANCED_ROUTE}); measured a launch: fleet "
+          f"instanced {ms['mesh_trace_instanced']:.3f}, first design "
+          f"{ms['mesh_trace_instanced_first']:.3f}, walk {ms['walk']:.3f} ms; large fleet "
+          f"instanced {lms['mesh_trace_instanced']:.3f}, first design "
+          f"{lms['mesh_trace_instanced_first']:.3f}, walk {lms['walk']:.3f} ms [{card}]",
+          flush=True)
     print(f"[fleet] phase 13 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return records
 
@@ -2950,7 +3176,7 @@ def profile_child(what, card) -> int:
     walled 1200x600 render(64); "sky", phase 9's warm outdoor + sky
     render(64) and a380-class + sky render(16) (the faces written anew);
     "diff", phase 10's differentiable a380-class render (profile_diff);
-    "fleet", phase 13's warm fleet render(16) on the instanced route.
+    "fleet", phase 13's warm fleet render(16) on its default route.
     Prints {label: profile's result} as the last line."""
     from raytrace_tpu_torch.models import procedural
     from raytrace_tpu_torch.models.walled import walled_scheme
@@ -2961,10 +3187,10 @@ def profile_child(what, card) -> int:
         return 0
     if what == "fleet":
         renderer = Renderer(fleet_scheme(), device="cuda")
-        renderer.tables.route = "instanced"  # whatever MeshTables.route says
         renderer.render(progress=False, samples=1)  # loads the kernel (the parent's build)
         print(json.dumps({"fleet": profile(renderer, card, "mesh_trace_kernel",
-                                           f"fleet instanced {MESH_W}x{MESH_H}")}), flush=True)
+                                           f"fleet {renderer.tables.route} {MESH_W}x{MESH_H}")}),
+              flush=True)
         return 0
     results = {}
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_sky_") as face_dir:
@@ -3229,7 +3455,7 @@ def main() -> int:
     kernels[0]["nccl_launches"] = dist["nccl"]["trace_tiles"]
 
     # ---- 13. two-level instancing: the fleet ----
-    fleet = fleet_phase(dev, card)
+    fleet = fleet_phase(dev, card, builds[1].log)
     fleet_profile = profile_in_child("fleet", card)["fleet"]
     if fleet_profile:
         fleet[0]["in_render_ms"] = fleet_profile["ms"]

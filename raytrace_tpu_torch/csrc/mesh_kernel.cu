@@ -81,37 +81,64 @@
 //                     (models/scene.py). The group of mesh_trace (G =
 //                     kTraceGroup) slab-tests the instances' world AABBs
 //                     under its running best, one a thread, and takes the
-//                     reached ones nearest entry first (`group_instances`):
-//                     the ray moved into the instance frame (o' = A (o - T),
-//                     d' = A d; d' is not normalized, so a local t is the
-//                     world t), the group walk of the asset's tables seeded
-//                     with the running best, the instance's gid base added
-//                     to the winner. Bound: operations, as the walk's: what
-//                     an exact instanced walk must test (ops/mesh_kernel.
+//                     reached ones nearest entry first
+//                     (`group_instances_slot`): the ray moved into the
+//                     instance frame (o' = A (o - T), d' = A d; d' is not
+//                     normalized, so a local t is the world t), the group
+//                     walk of the asset's tables seeded with the running
+//                     best, the instance's gid base added to the winner.
+//                     Bound: operations, as the walk's: what an exact
+//                     instanced walk must test (ops/mesh_kernel.
 //                     instanced_walk_work: every instance box a live ray, a
 //                     transform and the local walk's slab and triangle
 //                     tests for each box it reaches under its final t) plus
 //                     the shade, in FP32 instructions at 33.5 T/s; what
 //                     holds it above that is, as for the walk, the latency
-//                     of dependent loads. The instance loop's state on top
-//                     of the walk's does not fit mesh_trace's 64 registers:
-//                     there (4 blocks a SM) ptxas spilled 636 B a thread and
-//                     the fleet's launch took 2.1x its time at kInstBlocks =
-//                     2 (115 registers, no spill, half the resident warps),
-//                     at 80 registers (3 blocks) 380 B and 1.7x
-//                     (scripts/torch_instanced_variants.py, H100 80GB HBM3
-//                     at 700 W). The instances are visited by entry, not in
-//                     table order, so that on a secondary ray a near
-//                     instance's hit prunes the far ones.
-//                     The asset's tables are 1/n the flattened size (0.43
-//                     MB on the fleet, against 6.9 MB) and stay in L2. The
-//                     instance table is read with __ldg, not staged: 96 B a
-//                     row, the group's threads read different rows of one
-//                     chunk at once, the table (1.6 KB on the fleet) stays
-//                     in L1, and staging it would add a barrier and shared
-//                     memory sized by n. Pallas' mesh_resident VMEM copy
-//                     (:433-437) has no counterpart: L1 and L2 cache the
-//                     asset's rows.
+//                     of dependent loads, which only resident warps hide.
+//                     The design is therefore about registers and where the
+//                     state lives:
+//                     - the group's state (the world ray and its slab
+//                       reciprocals, the running best and its row, the
+//                       chunk's slab entries) sits once in its InstSlot in
+//                       shared memory, not on each of its G threads;
+//                     - a lane's path state waits in its column of the
+//                       lane stash across the search
+//                       (warp_nearest_stashed reads the owners' rays and
+//                       seeds there and leaves their hits);
+//                     - the asset's tables are read through __ldg, as the
+//                       walk's: its box levels and counts (4,896 B on the
+//                       fleet, a supergroup) stay in L1 and the triangle
+//                       rows (0.43 MB) in L2, so no asset is too large.
+//                     So it runs 4 blocks of 256 a SM at 64 registers,
+//                     against its first design's 2 at 115 (kept as the
+//                     yardstick mesh_trace_instanced_first). ptxas still
+//                     spills 20-48 B a thread there (20 weyl, 48 with the
+//                     sky and pcg), around the shade and not in the walk
+//                     (the lane index, the bounce and sample counters, two
+//                     of the bounce's draws; the pixel's constants are
+//                     recomputed from the stash only where a path starts,
+//                     which took the spill down from 80-88 B); the 3-block
+//                     build (72 registers) spills nothing but ran 6%
+//                     slower.
+//                     Measured (scripts/torch_instanced_variants.py, NVIDIA
+//                     H100 80GB HBM3 at 700 W, 1216x608 at 16 spl, in
+//                     turns): the fleet (17 instances) 113.6 ms a launch,
+//                     the walk 117.6, the first design 130.8; the large
+//                     fleet (144 instances, 64 MB of flattened tables)
+//                     145.0, 246.0 and 170.0. Without the stash the 4-block
+//                     build spilled 380-396 B and took 1.46-1.48x the walk;
+//                     staging the box levels in shared memory once a block
+//                     (the counterpart of the TPU kernel's SMEM box tables,
+//                     mesh_bounce_kernel.py:753) moved the launch by under
+//                     2% (the fleet 113.8 against 114.1 ms, the large fleet
+//                     143.3 against 144.9) and capped the asset's size, so
+//                     it was dropped; re-reading the local ray from the
+//                     slot at each use (to free 9 registers more) made it
+//                     16% slower. The
+//                     instances are visited by entry, not in table order,
+//                     so that on a secondary ray a near instance's hit
+//                     prunes the far ones; the instance table is read with
+//                     __ldg (96 B a row, 1.6 KB on the fleet).
 // Exactness: each thread keeps its least (t, position) under strict-<
 // updates in its own ascending order, and the group takes the
 // lexicographic least by a butterfly: among the least t, the least
@@ -121,9 +148,11 @@
 // mesh_trace_reference bitwise.
 // The yardsticks, which nothing on a render path launches, are the first
 // designs: mesh_trace_per_thread (each thread walks its own ray in the
-// camera's scan order, `walk`) and mesh_trace_brute_lockstep (the block
+// camera's scan order, `walk`), mesh_trace_brute_lockstep (the block
 // stages 64-row chunks in shared memory with two barriers a chunk and
-// keeps one bounce loop in step, `brute`).
+// keeps one bounce loop in step, `brute`) and mesh_trace_instanced_first
+// (the instance loop's and the lane's state in registers,
+// `group_instances`).
 //
 // ptxas (sm_90a, -fmad=false; chip_smoke.py's build phase prints it):
 //   mesh_trace_kernel<kBrute, kInst, ...> (the weyl, no-sky instantiations)
@@ -132,8 +161,12 @@
 //   <true, false>                64 registers, 64 B stack, 9,808 B smem +
 //   (mesh_trace_brute)           the table (48 B a row, 101,376 B at
 //                                2,097 triangles): 1 block, 32 warps a SM
-//   <false, true>                115 registers, 32 B stack, no spill,
-//   (mesh_trace_instanced)       9,808 B smem: 2 blocks, 16 warps a SM
+//   <false, true>                64 registers, 48 B stack (20 B of spill
+//   (mesh_trace_instanced)       stores), 9,808 B smem + 35,840 B dynamic
+//                                (32 InstSlots and the lane stash): 4
+//                                blocks, 32 warps a SM
+//   mesh_trace_instanced_first_kernel  115 registers, 32 B stack, no
+//                                spill, 9,808 B smem: 2 blocks, 16 warps
 //   mesh_hit_kernel              48 registers, 24 B stack: 5 blocks, 40
 //                                warps a SM
 //   mesh_trace_yardstick_kernel  64 (walk, 48 B stack; 32 warps a SM) and
@@ -191,8 +224,9 @@ constexpr int kTraceGroup = 8;   // mesh_trace: threads per ray of the group wal
 constexpr int kTraceBlocks = 4;  // mesh_trace: resident blocks an SM asked of ptxas
 constexpr int kBruteGroup = 32;  // mesh_trace_brute: threads per ray of the scan
 constexpr int kBruteThreads = 1024;  // mesh_trace_brute: one persistent block per SM
-constexpr int kInstBlocks = 2;   // mesh_trace_instanced: resident blocks an SM asked of ptxas
+constexpr int kInstBlocks = 4;   // mesh_trace_instanced: resident blocks an SM asked of ptxas
 constexpr int kInstChunk = 32;   // mesh_trace_instanced: instances ordered together
+constexpr int kInstFirstBlocks = 2;  // mesh_trace_instanced_first: resident blocks an SM
 
 struct Mesh {
   const float* sgbounds;  // (n_sg, 8)  [lo xyz, hi xyz, 0, 0]
@@ -575,6 +609,27 @@ __device__ __forceinline__ int pop_nearest(Slots<G, F>& s, const Group<G>& g, fl
   return j;
 }
 
+// A group's state in mesh_trace_instanced's instance loop, in shared
+// memory: the same on all G threads, so it is kept once and not in each
+// thread's registers across the nested group walk. The world ray and its
+// slab reciprocals, the running best hit (t, global gid, u, v) and its
+// instance row (-1: the seed stands), the gid base of the instance walked,
+// and the slab entries of the chunk's instances (+inf: not reached, or
+// visited). Padded to kSlotWords, 8 modulo 32, so that the four groups of
+// a warp read a field from four different banks.
+constexpr int kSlotFields = 15;
+constexpr int kSlotWords = (kSlotFields + kInstChunk - 8 + 31) / 32 * 32 + 8;
+
+struct InstSlot {
+  float ox, oy, oz, dx, dy, dz;
+  float fx, fy, fz;
+  float ct, cu, cv;
+  int gid, crow, gbase;
+  float e[kInstChunk];
+  float pad[kSlotWords - kSlotFields - kInstChunk];
+};
+static_assert(sizeof(InstSlot) == 4 * kSlotWords, "InstSlot is kSlotWords words");
+
 // The nearest hit of ray r (the same on every thread of the group) with
 // t_min <= t < t_seed: (t, scan position, u, v) on every thread of the
 // group; position -1 and t = t_seed, u = v = 0 without one.
@@ -714,6 +769,234 @@ __device__ __forceinline__ void group_instances(const Inst& in, const Group<G>& 
   }
 }
 
+// The chunk's reached instance of least slab entry (ties to the least
+// index) that still has entry <= the running best, marked visited; -1 when
+// none is left. pop_nearest's choice, on the slot's entries; the same on
+// every thread of the group.
+template <int G>
+__device__ __forceinline__ int pop_entry(InstSlot& s, const Group<G>& g) {
+  float e = s.e[g.rank];
+  int j = g.rank;
+#pragma unroll
+  for (int k = 1; k < kInstChunk / G; ++k) {
+    if (s.e[k * G + g.rank] < e) {
+      e = s.e[k * G + g.rank];
+      j = k * G + g.rank;
+    }
+  }
+#pragma unroll
+  for (int sh = G / 2; sh > 0; sh >>= 1) {
+    const float oe = __shfl_xor_sync(g.mask, e, sh, G);
+    const int oj = __shfl_xor_sync(g.mask, j, sh, G);
+    if (oe < e || (oe == e && oj < j)) {
+      e = oe;
+      j = oj;
+    }
+  }
+  if (!(e < nextafterf(s.ct, CUDART_INF_F))) return -1;
+  if (g.rank == 0) s.e[j] = CUDART_INF_F;  // read by all before the butterfly
+  return j;
+}
+
+// group_instances with the group's state in its shared-memory slot `s`:
+// the same instances in the same order under the same seeds, so the same
+// result, left in s (ct, gid, cu, cv). Nothing of the instance loop is
+// live in registers across the nested group walk but the chunk's base:
+// each pop re-reads the entries and the running best from the slot. Every
+// write is rank 0's, followed by __syncwarp before the group reads it.
+template <int G>
+__device__ __forceinline__ void group_instances_slot(const Inst& in, const Group<G>& g,
+                                                     InstSlot& s, const Ray& r, float t_seed) {
+  static_assert(kInstChunk % G == 0, "a chunk is whole rounds of the group");
+  if (g.rank == 0) {
+    s.ox = r.ox;
+    s.oy = r.oy;
+    s.oz = r.oz;
+    s.dx = r.dx;
+    s.dy = r.dy;
+    s.dz = r.dz;
+    s.fx = 1.f / slab_dir(r.dx);
+    s.fy = 1.f / slab_dir(r.dy);
+    s.fz = 1.f / slab_dir(r.dz);
+    s.ct = t_seed;
+    s.cu = s.cv = 0.f;
+    s.gid = s.crow = -1;
+  }
+  __syncwarp(g.mask);
+  for (int base = 0; base < in.n; base += kInstChunk) {
+    const float reach_t = nextafterf(s.ct, CUDART_INF_F);  // entry <= the best
+    const Ray w{s.ox, s.oy, s.oz, s.dx, s.dy, s.dz};
+#pragma unroll
+    for (int k = 0; k < kInstChunk / G; ++k) {
+      const int j = k * G + g.rank;
+      float e = CUDART_INF_F;
+      if (base + j < in.n) {
+        const float4* row = in.rows + 6 * (base + j);
+        float entry, exit_;
+        slab_span(__ldg(row + 3), __ldg(row + 4), w, s.fx, s.fy, s.fz, entry, exit_);
+        if (entry <= exit_ && exit_ >= 0.f && entry < reach_t) e = entry;
+      }
+      s.e[j] = e;
+    }
+    __syncwarp(g.mask);
+    for (int j; (j = pop_entry(s, g)) >= 0;) {
+      const int k = base + j;
+      const float4* row = in.rows + 6 * k;
+      const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);  // A 0:9, T c.yzw
+      const float rx = s.ox - c.y, ry = s.oy - c.z, rz = s.oz - c.w;
+      const float dx = s.dx, dy = s.dy, dz = s.dz;
+      const Ray q{a.x * rx + a.y * ry + a.z * rz,
+                  a.w * rx + b.x * ry + b.y * rz,
+                  b.z * rx + b.w * ry + c.x * rz,
+                  a.x * dx + a.y * dy + a.z * dz,
+                  a.w * dx + b.x * dy + b.y * dz,
+                  b.z * dx + b.w * dy + c.x * dz};
+      if (g.rank == 0) s.gbase = static_cast<int>(__ldg(row + 4).z);
+      const float ct = s.ct;
+      const bool earlier = s.crow >= 0 && k < s.crow;  // takes an exact-t tie from the winner
+      float t, u, v;
+      int pos;
+      group_walk(in.asset, g, q, earlier ? nextafterf(ct, CUDART_INF_F) : ct, kEps, t, pos, u,
+                 v);
+      if (pos >= 0 && g.rank == 0) {  // below the seed: the same on every thread of the group
+        s.ct = t;
+        s.crow = k;
+        s.gid = __ldg(in.asset.gid + pos) + s.gbase;
+        s.cu = u;
+        s.cv = v;
+      }
+      __syncwarp(g.mask);
+    }
+  }
+}
+
+// The groups' InstSlots: the start of the block's (writable) dynamic shared
+// memory.
+__device__ __forceinline__ InstSlot* inst_slots(const float4* rows) {
+  return reinterpret_cast<InstSlot*>(const_cast<float4*>(rows));
+}
+
+// mesh_trace_instanced's lane stash: what a lane holds across
+// the nearest-hit search, in shared memory past the InstSlots, a field's
+// kThreads values together (lane t of field f at f * kThreads + t, so a
+// warp's accesses are conflict-free). trace_lane stores it before the
+// search and reloads it after, so no register carries it across the
+// nested walk; warp_nearest_stashed reads the owners' rays and seeds from
+// it and leaves their hits there.
+enum StashField {
+  kStOx, kStOy, kStOz, kStDx, kStDy, kStDz,  // the path's ray
+  kStCir, kStCig, kStCib, kStInten, kStLr, kStLg, kStLb, kStDepth, kStState, kStSk,
+  kStX, kStY, kStSamp0,        // the pixel and the first sample id (stored once)
+  kStTBest, kStKind, kStBest,  // the sphere / free-triangle hit
+  kStT, kStPos, kStU, kStV,    // the search's seed in, the mesh hit out
+  kStashFields
+};
+
+// lane t's column of the stash
+__device__ __forceinline__ float* lane_stash(const float4* rows, int t) {
+  return reinterpret_cast<float*>(inst_slots(rows) + kThreads / kTraceGroup) + t;
+}
+
+__device__ __forceinline__ void stash_lane(float* c, const Path& p, uint32_t state, int sk,
+                                           float t_best, int kind, int best) {
+  int* ci = reinterpret_cast<int*>(c);
+  c[kStOx * kThreads] = p.ray.ox;
+  c[kStOy * kThreads] = p.ray.oy;
+  c[kStOz * kThreads] = p.ray.oz;
+  c[kStDx * kThreads] = p.ray.dx;
+  c[kStDy * kThreads] = p.ray.dy;
+  c[kStDz * kThreads] = p.ray.dz;
+  c[kStCir * kThreads] = p.cir;
+  c[kStCig * kThreads] = p.cig;
+  c[kStCib * kThreads] = p.cib;
+  c[kStInten * kThreads] = p.inten;
+  c[kStLr * kThreads] = p.lr;
+  c[kStLg * kThreads] = p.lg;
+  c[kStLb * kThreads] = p.lb;
+  ci[kStDepth * kThreads] = p.depth;
+  ci[kStState * kThreads] = static_cast<int>(state);
+  ci[kStSk * kThreads] = sk;
+  c[kStTBest * kThreads] = t_best;
+  ci[kStKind * kThreads] = kind;
+  ci[kStBest * kThreads] = best;
+  c[kStT * kThreads] = t_best;  // the seed; the search leaves (t, pos, u, v) of a mesh hit
+  ci[kStPos * kThreads] = -1;
+  c[kStU * kThreads] = 0.f;
+  c[kStV * kThreads] = 0.f;
+}
+
+__device__ __forceinline__ void unstash_lane(const float* c, Path& p, uint32_t& state, int& sk,
+                                             float& t_best, int& kind, int& best, float& tm,
+                                             int& pos, float& bu, float& bv) {
+  const int* ci = reinterpret_cast<const int*>(c);
+  p.ray = Ray{c[kStOx * kThreads], c[kStOy * kThreads], c[kStOz * kThreads],
+              c[kStDx * kThreads], c[kStDy * kThreads], c[kStDz * kThreads]};
+  p.cir = c[kStCir * kThreads];
+  p.cig = c[kStCig * kThreads];
+  p.cib = c[kStCib * kThreads];
+  p.inten = c[kStInten * kThreads];
+  p.lr = c[kStLr * kThreads];
+  p.lg = c[kStLg * kThreads];
+  p.lb = c[kStLb * kThreads];
+  p.depth = ci[kStDepth * kThreads];
+  state = static_cast<uint32_t>(ci[kStState * kThreads]);
+  sk = ci[kStSk * kThreads];
+  t_best = c[kStTBest * kThreads];
+  kind = ci[kStKind * kThreads];
+  best = ci[kStBest * kThreads];
+  tm = c[kStT * kThreads];
+  pos = ci[kStPos * kThreads];
+  bu = c[kStU * kThreads];
+  bv = c[kStV * kThreads];
+}
+
+// warp_nearest for mesh_trace_instanced with the lane stash: group k of the
+// warp takes the k-th lowest live lane left, reads its ray and seed from
+// the owner's stash column, searches the instances (group_instances_slot)
+// and rank 0 leaves (t, gid, u, v) in that column. Every lane of the warp
+// calls it, after stashing its own state.
+template <int G>
+__device__ __forceinline__ void warp_nearest_stashed(unsigned live, const float4* rows,
+                                                     const Inst& inst) {
+  const Group<G> g = lane_group<G>();
+  const int slot = static_cast<int>(threadIdx.x & 31) / G;
+  const int warp0 = static_cast<int>(threadIdx.x & ~31u);
+  InstSlot& s = inst_slots(rows)[threadIdx.x / G];
+  __syncwarp();  // the owners' stashes are written
+  unsigned todo = live;
+  while (todo) {  // the same on every lane of the warp
+    int owner = -1;
+#pragma unroll
+    for (int k = 0; k < 32 / G; ++k) {
+      const unsigned low = todo & (0u - todo);  // lowest live lane left, 0 when none
+      if (k == slot && low) owner = __ffs(low) - 1;
+      todo ^= low;
+    }
+    if (owner >= 0) {
+      float* c = lane_stash(rows, warp0 + owner);
+      const float seed = c[kStT * kThreads];
+      if (seed > kEps) {  // a seed at or below EPS leaves no t to find
+        const Ray q{c[kStOx * kThreads], c[kStOy * kThreads], c[kStOz * kThreads],
+                    c[kStDx * kThreads], c[kStDy * kThreads], c[kStDz * kThreads]};
+        group_instances_slot(inst, g, s, q, seed);
+        if (g.rank == 0) {
+          c[kStT * kThreads] = s.ct;
+          reinterpret_cast<int*>(c)[kStPos * kThreads] = s.gid;
+          c[kStU * kThreads] = s.cu;
+          c[kStV * kThreads] = s.cv;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The instanced walk's designs (the template argument kInst of warp_nearest
+// and trace_lane): none, mesh_trace_instanced's (the group's state in its
+// InstSlot and the lane's in the stash, warp_nearest_stashed) and the first
+// design's (in registers, warp_nearest; the yardstick)
+enum InstDesign { kNoInst = 0, kInstSlots = 1, kInstFirst = 2 };
+
 // The nearest mesh hits of the warp's live rays (bit k of `live`: lane
 // k's ray r, seeded with tm), G threads a ray and 32 / G rays a round:
 // group k of the warp takes the k-th lowest live lane left, its ray and
@@ -721,13 +1004,14 @@ __device__ __forceinline__ void group_instances(const Inst& in, const Group<G>& 
 // back to the owner by shuffle. Every lane of the warp calls it; on
 // return each live lane holds its own in (tm, pos, bu, bv), position -1
 // without a hit. kBrute: the resident table `rows` (n_rows); kInst: the
-// instances of `inst`, pos then the global gid; else the walk of m, t_min
-// EPS.
-template <int G, bool kBrute, bool kInst>
+// instances of `inst` (kInstFirst: group_instances), pos then the global
+// gid; else the walk of m, t_min EPS.
+template <int G, bool kBrute, int kInst>
 __device__ __forceinline__ void warp_nearest(unsigned live, const Ray& r, const Mesh& m,
                                              const float4* rows, int n_rows, const Inst& inst,
                                              float& tm, int& pos, float& bu, float& bv) {
   static_assert(!(kBrute && kInst), "the brute route and instancing exclude each other");
+  static_assert(kInst != kInstSlots, "mesh_trace_instanced searches in warp_nearest_stashed");
   const Group<G> g = lane_group<G>();
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int slot = lane / G;
@@ -753,7 +1037,7 @@ __device__ __forceinline__ void warp_nearest(unsigned live, const Ray& r, const 
     if (owner >= 0 && seed > kEps) {  // a seed at or below EPS leaves no t to find
       if constexpr (kBrute) {
         group_brute(g, rows, n_rows, q, ct, cpos, cu, cv);
-      } else if constexpr (kInst) {
+      } else if constexpr (kInst == kInstFirst) {
         group_instances(inst, g, q, seed, ct, cpos, cu, cv);
       } else {
         group_walk(m, g, q, seed, kEps, ct, cpos, cu, cv);
@@ -794,26 +1078,26 @@ struct Lanes {
 
 // The whole path of lane i (inactive when i >= n), its nearest mesh hits
 // found with the rest of its warp (warp_nearest); every lane of the warp
-// calls it. kInst: the nearest mesh hit over the instances of `inst`;
-// kSky: a lane that hits nothing adds the sky's term (s_face the staged
-// face table); kPcg: the draws from the pcg generator, else weyl.
-template <bool kBrute, bool kInst, bool kSky, bool kPcg>
+// calls it. kInst (an InstDesign): the nearest mesh hit over the instances
+// of `inst`; kSky: a lane that hits nothing adds the sky's term (s_face the
+// staged face table); kPcg: the draws from the pcg generator, else weyl.
+template <bool kBrute, int kInst, bool kSky, bool kPcg>
 __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* sph,
                                            const float* ft, const float* cam, const Mesh& m,
                                            const float4* rows, const Inst& inst, const Sky& sky,
                                            const int* s_face) {
   bool active = i < L.n;
-  const int xi = active ? L.xs[i] : 0, yi = active ? L.ys[i] : 0;
-  const uint32_t hpix = jenkins(static_cast<uint32_t>(xi) ^ (static_cast<uint32_t>(yi) << 16));
-  const float s_x = cam[12] * (static_cast<float>(xi) - cam[14]);
-  const float s_y = cam[13] * (static_cast<float>(yi) - cam[15]);
-  const float bdx = cam[3] + s_x * cam[9] + s_y * cam[6];
-  const float bdy = cam[4] + s_x * cam[10] + s_y * cam[7];
-  const float bdz = cam[5] + s_x * cam[11] + s_y * cam[8];
-  const float max_thres = cam[17];
-  const float inv_thres = 1.0f / max_thres;
+  int xi = active ? L.xs[i] : 0, yi = active ? L.ys[i] : 0;
+  uint32_t hpix = jenkins(static_cast<uint32_t>(xi) ^ (static_cast<uint32_t>(yi) << 16));
+  float s_x = cam[12] * (static_cast<float>(xi) - cam[14]);
+  float s_y = cam[13] * (static_cast<float>(yi) - cam[15]);
+  float bdx = cam[3] + s_x * cam[9] + s_y * cam[6];
+  float bdy = cam[4] + s_x * cam[10] + s_y * cam[7];
+  float bdz = cam[5] + s_x * cam[11] + s_y * cam[8];
+  float max_thres = cam[17];
+  float inv_thres = 1.0f / max_thres;
 
-  const uint32_t samp0 = active ? static_cast<uint32_t>(L.samp[i]) : 0u;
+  uint32_t samp0 = active ? static_cast<uint32_t>(L.samp[i]) : 0u;
   uint32_t state;
   Path p;
   p.ray = start_sample<kPcg>(hpix, samp0, state, bdx, bdy, bdz, cam, L.has_lens);
@@ -821,6 +1105,12 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
   p.cir = p.cig = p.cib = p.inten = 1.f;
   p.depth = 0;
   int sk = 0;
+  if constexpr (kInst == kInstSlots) {
+    int* c = reinterpret_cast<int*>(lane_stash(rows, threadIdx.x));
+    c[kStX * kThreads] = xi;
+    c[kStY * kThreads] = yi;
+    c[kStSamp0 * kThreads] = static_cast<int>(samp0);
+  }
 
   const int n_iter = L.max_bounces * L.spl;  // never cuts a lane short (trace_kernel.cu)
   for (int it = 0; it < n_iter; ++it) {
@@ -831,9 +1121,20 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
     if (active) closest_sph_ft(p.ray, sph, L.n_sph, ft, L.n_ft, t_best, kind, best);
     float tm = t_best, bu = 0.f, bv = 0.f;
     int pos = -1;
-    warp_nearest<kBrute ? kBruteGroup : kTraceGroup, kBrute, kInst>(live, p.ray, m, rows,
-                                                                     m.n_brute, inst, tm, pos,
-                                                                     bu, bv);
+    if constexpr (kInst == kInstSlots) {
+      // the lane's state waits in its stash column (the pixel's constants
+      // are recomputed from it where a path starts, below)
+      float* c = lane_stash(rows, threadIdx.x);
+      stash_lane(c, p, state, sk, t_best, kind, best);
+      warp_nearest_stashed<kTraceGroup>(live, rows, inst);
+      unstash_lane(c, p, state, sk, t_best, kind, best, tm, pos, bu, bv);
+      max_thres = cam[17];
+      inv_thres = 1.0f / max_thres;
+    } else {
+      warp_nearest<kBrute ? kBruteGroup : kTraceGroup, kBrute, kInst>(live, p.ray, m, rows,
+                                                                       m.n_brute, inst, tm, pos,
+                                                                       bu, bv);
+    }
     if (!active) continue;
     const int mgid = kInst ? pos : pos < 0 ? -1 : __ldg((kBrute ? m.bgid : m.gid) + pos);
 
@@ -866,6 +1167,18 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
       const bool regen = !alive && sk + 1 < L.spl;
       if (regen) {
         ++sk;
+        if constexpr (kInst == kInstSlots) {  // as at the top, from the stash
+          const int* c = reinterpret_cast<const int*>(lane_stash(rows, threadIdx.x));
+          xi = c[kStX * kThreads];
+          yi = c[kStY * kThreads];
+          samp0 = static_cast<uint32_t>(c[kStSamp0 * kThreads]);
+          hpix = jenkins(static_cast<uint32_t>(xi) ^ (static_cast<uint32_t>(yi) << 16));
+          s_x = cam[12] * (static_cast<float>(xi) - cam[14]);
+          s_y = cam[13] * (static_cast<float>(yi) - cam[15]);
+          bdx = cam[3] + s_x * cam[9] + s_y * cam[6];
+          bdy = cam[4] + s_x * cam[10] + s_y * cam[7];
+          bdz = cam[5] + s_x * cam[11] + s_y * cam[8];
+        }
         p.ray = start_sample<kPcg>(hpix, samp0 + static_cast<uint32_t>(sk), state, bdx, bdy,
                                    bdz, cam, L.has_lens);
         p.cir = p.cig = p.cib = p.inten = 1.f;
@@ -884,21 +1197,20 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
   }
 }
 
-// mesh_trace (kBrute false) and mesh_trace_brute (true): persistent
-// blocks, as many as the SMs hold, whose warps take 32-lane tiles from the
-// counter `work` (0 at launch) until the lanes run out, so no warp waits
-// for the others of its block. The brute route's table is resident in
-// dynamic shared memory (3 float4 a row), loaded once a block. kInst: the
-// instanced route (mesh_trace_instanced, the walk's launch shape); kSky:
-// the cube map's face table is staged too (the sky entries); kPcg: the pcg
-// generator's draws. `inst` is the last parameter, so the other
-// instantiations keep their parameters' offsets.
-template <bool kBrute, bool kInst, bool kSky, bool kPcg>
-__global__ void __launch_bounds__(kBrute ? kBruteThreads : kThreads,
-                                  kBrute ? 1 : kInst ? kInstBlocks : kTraceBlocks)
-mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* __restrict__ ft_g,
-                  const float* __restrict__ cam_g, const Mesh m, int* __restrict__ work,
-                  const Sky sky, const Inst inst) {
+// The body of the persistent mesh_trace kernels: blocks, as many as the
+// SMs hold, whose warps take 32-lane tiles from the counter `work` (0 at
+// launch) until the lanes run out, so no warp waits for the others of its
+// block. The brute route's table is resident in dynamic shared memory (3
+// float4 a row), loaded once a block; for kInst == kInstSlots it holds the
+// groups' InstSlots and the lane stash. kSky: the cube map's face table is
+// staged too.
+template <bool kBrute, int kInst, bool kSky, bool kPcg>
+__device__ __forceinline__ void trace_tiles_of_block(const Lanes& L,
+                                                     const float* __restrict__ sph_g,
+                                                     const float* __restrict__ ft_g,
+                                                     const float* __restrict__ cam_g,
+                                                     const Mesh& m, int* __restrict__ work,
+                                                     const Sky& sky, const Inst& inst) {
   extern __shared__ float4 rows[];
   __shared__ float sph[kMaxPrims * kSphCols];
   __shared__ float ft[kMaxPrims * kFtCols];
@@ -919,6 +1231,32 @@ mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* _
     trace_lane<kBrute, kInst, kSky, kPcg>(tile * 32 + lane, L, sph, ft, cam, m, rows, inst, sky,
                                           s_face);
   }
+}
+
+// mesh_trace (kBrute false) and mesh_trace_brute (true), and kInst, the
+// instanced route (mesh_trace_instanced, the walk's launch shape); kSky:
+// the sky entries; kPcg: the pcg generator's draws. `inst` is the last
+// parameter, so the other instantiations keep their parameters' offsets.
+template <bool kBrute, bool kInst, bool kSky, bool kPcg>
+__global__ void __launch_bounds__(kBrute ? kBruteThreads : kThreads,
+                                  kBrute ? 1 : kInst ? kInstBlocks : kTraceBlocks)
+mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* __restrict__ ft_g,
+                  const float* __restrict__ cam_g, const Mesh m, int* __restrict__ work,
+                  const Sky sky, const Inst inst) {
+  trace_tiles_of_block<kBrute, kInst ? kInstSlots : kNoInst, kSky, kPcg>(L, sph_g, ft_g, cam_g, m,
+                                                                       work, sky, inst);
+}
+
+// The yardstick mesh_trace_instanced is timed against: the entry's first
+// design, the group's instance state and the lane's path state in
+// registers (group_instances), weyl without the sky. Nothing on a render
+// path launches it.
+__global__ void __launch_bounds__(kThreads, kInstFirstBlocks)
+mesh_trace_instanced_first_kernel(const Lanes L, const float* __restrict__ sph_g,
+                                  const float* __restrict__ ft_g, const float* __restrict__ cam_g,
+                                  const Mesh m, int* __restrict__ work, const Sky sky,
+                                  const Inst inst) {
+  trace_tiles_of_block<false, kInstFirst, false, false>(L, sph_g, ft_g, cam_g, m, work, sky, inst);
 }
 
 // The yardsticks mesh_trace_kernel<false, false> and <true, false> are timed
@@ -1021,7 +1359,14 @@ mesh_trace_yardstick_kernel(const Lanes L, const float* __restrict__ sph_g,
   }
 }
 
-enum TraceEntry { kEntryWalk, kEntryBrute, kEntryInstanced, kEntryPerThread, kEntryLockstep };
+enum TraceEntry {
+  kEntryWalk,
+  kEntryBrute,
+  kEntryInstanced,
+  kEntryPerThread,
+  kEntryLockstep,
+  kEntryInstancedFirst
+};
 
 // A CUDA error as the C interface's return code; the sticky "last error"
 // is cleared so that it is not reported again by a later launch.
@@ -1030,16 +1375,15 @@ int fail(cudaError_t e) {
   return static_cast<int>(e);
 }
 
-// One persistent launch of mesh_trace_kernel<kBrute, kInst, kSky, kPcg>: as
-// many blocks as the SMs hold with `smem` bytes of dynamic shared memory, at
+// One persistent launch of `kernel` (a mesh_trace_kernel instantiation or
+// mesh_trace_instanced_first_kernel) with `threads` threads a block: as many
+// blocks as the SMs hold with `smem` bytes of dynamic shared memory, at
 // most one a 32-lane tile.
-template <bool kBrute, bool kInst, bool kSky, bool kPcg>
-int launch_persistent(const Lanes& L, const float* sph, const float* ft, const float* cam,
-                      const Mesh& m, int* work, size_t smem, cudaStream_t s, const Sky& sky,
-                      const Inst& inst) {
-  constexpr int threads = kBrute ? kBruteThreads : kThreads;
-  cudaError_t e = cudaFuncSetAttribute(mesh_trace_kernel<kBrute, kInst, kSky, kPcg>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <typename Kernel>
+int launch_persistent(Kernel kernel, int threads, const Lanes& L, const float* sph,
+                      const float* ft, const float* cam, const Mesh& m, int* work, size_t smem,
+                      cudaStream_t s, const Sky& sky, const Inst& inst) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return fail(e);
   int dev = 0, sms = 0, per_sm = 0;
@@ -1047,14 +1391,12 @@ int launch_persistent(const Lanes& L, const float* sph, const float* ft, const f
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
     return fail(e);
   }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mesh_trace_kernel<kBrute, kInst, kSky, kPcg>, threads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return fail(e);
   const int tiles = (L.n + 31) / 32, warps = threads / 32;
   const int resident = (per_sm > 1 ? per_sm : 1) * sms, needed = (tiles + warps - 1) / warps;
-  mesh_trace_kernel<kBrute, kInst, kSky, kPcg>
-      <<<resident < needed ? resident : needed, threads, smem, s>>>(L, sph, ft, cam, m, work, sky,
-                                                                    inst);
+  kernel<<<resident < needed ? resident : needed, threads, smem, s>>>(L, sph, ft, cam, m, work, sky,
+                                                                      inst);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1065,16 +1407,17 @@ int launch_route(const Lanes& L, const float* sph, const float* ft, const float*
                  const Mesh& m, int* work, size_t smem, cudaStream_t s, const Sky& sky,
                  const Inst& inst) {
   static_assert(!(kBrute && kInst), "the brute route and instancing exclude each other");
+  constexpr int threads = kBrute ? kBruteThreads : kThreads;
   return sky.face != nullptr
-             ? launch_persistent<kBrute, kInst, true, kPcg>(L, sph, ft, cam, m, work, smem, s,
-                                                            sky, inst)
-             : launch_persistent<kBrute, kInst, false, kPcg>(L, sph, ft, cam, m, work, smem, s,
-                                                             sky, inst);
+             ? launch_persistent(mesh_trace_kernel<kBrute, kInst, true, kPcg>, threads, L, sph,
+                                 ft, cam, m, work, smem, s, sky, inst)
+             : launch_persistent(mesh_trace_kernel<kBrute, kInst, false, kPcg>, threads, L, sph,
+                                 ft, cam, m, work, smem, s, sky, inst);
 }
 
 // sky.face nullptr: the entries without the cube map; else the route
 // entries' sky instantiations; pcg: the route entries' pcg instantiations
-// (the yardsticks take neither); inst: the instanced entry's tables
+// (the yardsticks take neither); inst: the instanced entries' tables
 // (refused when missing)
 int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float* ft,
                  const float* cam, const Mesh& m, int* work, void* stream, const Sky& sky,
@@ -1082,11 +1425,12 @@ int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float
   if (L.n <= 0) return 0;
   const bool with_sky = sky.face != nullptr;
   const bool route = entry == kEntryWalk || entry == kEntryBrute || entry == kEntryInstanced;
+  const bool instanced = entry == kEntryInstanced || entry == kEntryInstancedFirst;
   const Mesh& a = inst.asset;
   if (L.n_sph > kMaxPrims || L.n_ft > kMaxPrims || m.n_brute % kBruteChunk ||
-      (work == nullptr && route) || (pcg && !route) ||
+      (work == nullptr && (route || instanced)) || (pcg && !route) ||
       (with_sky && (sky.pool == nullptr || sky.len < 1 || !route)) ||
-      (entry == kEntryInstanced &&
+      (instanced &&
        (inst.rows == nullptr || inst.n < 1 || a.sgbounds == nullptr || a.sbounds == nullptr ||
         a.bounds == nullptr || a.count == nullptr || a.tri == nullptr || a.gid == nullptr ||
         a.n_sg < 1 || a.width < 1))) {
@@ -1095,6 +1439,8 @@ int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (L.n + kThreads - 1) / kThreads;
   const size_t brute_smem = static_cast<size_t>(m.n_brute) * 3 * sizeof(float4);
+  const size_t inst_smem = kThreads / kTraceGroup * sizeof(InstSlot) +
+                           static_cast<size_t>(kStashFields) * kThreads * sizeof(float);
   switch (entry) {
     case kEntryWalk:
       return pcg ? launch_route<false, false, true>(L, sph, ft, cam, m, work, 0, s, sky, inst)
@@ -1105,8 +1451,13 @@ int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float
                  : launch_route<true, false, false>(L, sph, ft, cam, m, work, brute_smem, s, sky,
                                                     inst);
     case kEntryInstanced:
-      return pcg ? launch_route<false, true, true>(L, sph, ft, cam, m, work, 0, s, sky, inst)
-                 : launch_route<false, true, false>(L, sph, ft, cam, m, work, 0, s, sky, inst);
+      return pcg ? launch_route<false, true, true>(L, sph, ft, cam, m, work, inst_smem, s, sky,
+                                                   inst)
+                 : launch_route<false, true, false>(L, sph, ft, cam, m, work, inst_smem, s, sky,
+                                                    inst);
+    case kEntryInstancedFirst:
+      return launch_persistent(mesh_trace_instanced_first_kernel, kThreads, L, sph, ft, cam, m,
+                               work, 0, s, sky, inst);
     case kEntryPerThread:
       mesh_trace_yardstick_kernel<false><<<blocks, kThreads, 0, s>>>(L, sph, ft, cam, m);
       break;
@@ -1210,13 +1561,13 @@ extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
   return launch_hit(mesh_hit_per_thread_kernel, 1, MESH_HIT_PASS);
 }
 
-// The five mesh_trace entries share one C signature; `work` is a zeroed
-// int32 the warps of the route entries take their tiles from (unused by
-// the yardsticks). The cube map's arguments are null (sky_face nullptr)
+// The six mesh_trace entries share one C signature; `work` is a zeroed
+// int32 the warps of the route entries and of mesh_trace_instanced_first
+// take their tiles from (unused by the other yardsticks). The cube map's arguments are null (sky_face nullptr)
 // without one: the (6, kFaceCols) int32 face table and the sky pool of
 // sky_len elements in its dtype sky_kind; pcg != 0 asks for the pcg
 // generator. The yardsticks take neither. The last ten are the instanced
-// entry's (null and 0 for the others): the (n_inst, 24) f32 instance
+// entries' (null and 0 for the others): the (n_inst, 24) f32 instance
 // table and the asset's walk tables (l_*, the layout of the walk's).
 #define MESH_TRACE_ARGS                                                                      \
   const int32_t *xs, const int32_t *ys, const int32_t *samp, int n, const float *sph,        \
@@ -1248,6 +1599,10 @@ extern "C" int mesh_trace_brute_launch(MESH_TRACE_ARGS) { return MESH_TRACE_PASS
 
 extern "C" int mesh_trace_instanced_launch(MESH_TRACE_ARGS) {
   return MESH_TRACE_PASS(kEntryInstanced);
+}
+
+extern "C" int mesh_trace_instanced_first_launch(MESH_TRACE_ARGS) {
+  return MESH_TRACE_PASS(kEntryInstancedFirst);
 }
 
 extern "C" int mesh_trace_per_thread_launch(MESH_TRACE_ARGS) {

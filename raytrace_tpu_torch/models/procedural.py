@@ -24,7 +24,9 @@ biplane instances, 124k triangles): `fleet_scheme` places 17 copies of a
 shared by every member, so its four textures enter the texel pool once)
 under the a380 camera and sun, each with its own seeded translation,
 scale in 0.8-1.2 and non-zero Euler angles, in three rows facing the
-camera that cover about 97% of the frame.
+camera that cover about 97% of the frame; with `rows` it places more
+layers of such rows deeper along the view, as the large fleet of 144
+instances (1,051,200 triangles) whose flattened tables outgrow the L2.
 
 Nor does the repository hold an animated scheme: `animated_walled_scheme`
 keyframes two of walled's spheres through the bezier, polynomial, Step and
@@ -152,17 +154,27 @@ FLEET_INSTANCES = 17
 FLEET_TRIS = 7300  # 17 x 7,300 = 124,100 triangles
 FLEET_ROWS = (6, 6, 5)  # instances a row, bottom to top
 FLEET_DEPTH, FLEET_COL, FLEET_ROW = 110.0, 34.0, 30.0  # along the view, apart across it
+FLEET_LAYER = 45.0  # each further three rows lie this much deeper
 FLEET_SEED = 17  # the draws of each instance's placement
+# the large fleet: eight layers of three rows of 6, 144 instances and
+# 1,051,200 triangles, whose flattened walk tables (at least 52 B a
+# triangle) outgrow the H100's 50 MB L2 while the asset's stay 0.43 MB
+FLEET_LARGE_ROWS = (6, 6, 6) * 8
 
 
-def fleet_scheme(width: int = WIDTH, height: int = HEIGHT, spp: int = 16) -> Scheme:
-    """FLEET_INSTANCES copies of make_mesh(FLEET_TRIS, n_textures=4) under
-    the a380 camera and sun: rows of FLEET_ROWS instances about
-    FLEET_DEPTH along the camera's view, FLEET_COL and FLEET_ROW apart
-    across it, each rolled to face the camera (its flat side, the
-    surface's y axis, toward it) and turned, scaled (0.8-1.2) and moved
-    by draws from FLEET_SEED. The members share one `loaded` list and one
-    `path`, so build_scene builds the instancing tables."""
+def fleet_scheme(width: int = WIDTH, height: int = HEIGHT, spp: int = 16,
+                 rows=FLEET_ROWS) -> Scheme:
+    """Copies of make_mesh(FLEET_TRIS, n_textures=4) under the a380 camera
+    and sun, `rows[k]` of them in row k: every three rows make a layer,
+    layer L about FLEET_DEPTH + L * FLEET_LAYER along the camera's view
+    (the rows bottom to top, FLEET_ROW apart, their instances FLEET_COL
+    apart across it, both spacings grown with the depth so that each layer
+    spans the view, an odd layer shifted half a column), each instance
+    rolled to face the camera (its flat side, the surface's y axis,
+    toward it) and turned, scaled (0.8-1.2) and moved by draws from
+    FLEET_SEED. The default is the fleet, one layer of FLEET_INSTANCES;
+    FLEET_LARGE_ROWS the large fleet. The members share one `loaded` list
+    and one `path`, so build_scene builds the instancing tables."""
     from .camera import build_camera
 
     scheme = a380_cam_scheme(width, height, spp)
@@ -170,11 +182,14 @@ def fleet_scheme(width: int = WIDTH, height: int = HEIGHT, spp: int = 16) -> Sch
     fwd = cam.d / np.linalg.norm(cam.d)
     loaded = [make_mesh(FLEET_TRIS, n_textures=4)]
     g = np.random.default_rng(FLEET_SEED)
-    for row, n in enumerate(FLEET_ROWS):
+    for row, n in enumerate(rows):
+        layer = row // 3
+        depth = FLEET_DEPTH + layer * FLEET_LAYER
+        grow = depth / FLEET_DEPTH
         for col in range(n):
-            across = (col - (n - 1) / 2) * FLEET_COL + g.uniform(-3, 3)
-            rise = (row - 1) * FLEET_ROW + g.uniform(-3, 3)
-            pos = cam.o + (FLEET_DEPTH + g.uniform(-12, 12)) * fwd + across * cam.right \
+            across = (col - (n - 1) / 2 + 0.5 * (layer % 2)) * FLEET_COL * grow + g.uniform(-3, 3)
+            rise = (row % 3 - 1) * FLEET_ROW * grow + g.uniform(-3, 3)
+            pos = cam.o + (depth + g.uniform(-12, 12)) * fwd + across * cam.right \
                 + rise * cam.up
             euler = [-2.17 + g.uniform(-0.25, 0.25), g.uniform(-0.3, 0.3), g.uniform(-0.3, 0.3)]
             scheme.scene_members.append(ModelMember(

@@ -46,7 +46,8 @@ nearest hits of a warp's live rays are found by groups of its threads:
   instances nearest entry first and keeps that result). Brute and instanced exclude each
   other, as in the JAX package: route "brute" on an instanced scene takes
   the flattened brute table. MeshTables takes it for every instanced
-  scene when INSTANCED_ROUTE is set.
+  scene when INSTANCED_ROUTE is set; its first design,
+  `mesh_trace_instanced_first`, is chip_smoke.py's yardstick.
 
 The gate, MAX_BRUTE_TRIS, is measured on the card, not copied from the
 JAX package's 2,560 (woop.MAX_TRIS, where the MXU made the brute pass
@@ -92,12 +93,15 @@ from .trace_kernel import (CAM_LEN, FT_COLS, MAX_PRIMS, SPH_COLS, launch_key, ma
                            pack_scene_tables)
 
 MAX_BRUTE_TRIS = 0  # brute route up to this many triangles: none (see the docstring)
-# Instanced scenes take the per-instance walk when set. It measured slower
-# than the flattened walk on the fleet (procedural.fleet_scheme, 1216x608,
-# 16 spl; chip_smoke.py phase 13 on an NVIDIA H100 80GB HBM3 at 700 W):
-# 132.5 ms a launch instanced against 118.4 for the walk, in turns. So
-# instanced scenes keep the walk, and route="instanced" asks for the other.
-INSTANCED_ROUTE = False
+# Instanced scenes take the per-instance walk when set: it measured faster
+# than the flattened walk on both fleets (procedural.fleet_scheme, 1216x608,
+# 16 spl; scripts/torch_instanced_variants.py --large on an NVIDIA H100 80GB
+# HBM3, 700.00 W, in turns; chip_smoke.py phase 13 times the same three):
+# the fleet 113.611 ms a launch, against 130.844 for its first design
+# (mesh_trace_instanced_first) and 117.622 for the walk; the large fleet
+# (FLEET_LARGE_ROWS, flattened tables 64 MB, over the L2) 145.016, 170.025
+# and 246.002. The asset's size sets no limit.
+INSTANCED_ROUTE = True
 GROUP = 16  # clusters per supercluster
 SGROUP = 8  # superclusters per supergroup
 TRI_COLS = 12  # v0 xyz | e1 xyz | e2 xyz | 3 zero: three float4 loads a triangle
@@ -106,8 +110,10 @@ ROUTES = {"walk": "mesh_trace", "brute": "mesh_trace_brute", "instanced": "mesh_
 INST_COLS = 24  # the instance table's row: A (9) | T (3) | world AABB lo, hi (6) | gid base | 0
 # the first design of each route's entry, kept as the yardstick chip_smoke.py
 # times it against (a thread walks its own ray in the camera's scan order;
-# the block stages 64-row chunks in lockstep); no render launches them
-YARDSTICKS = {"walk": "mesh_trace_per_thread", "brute": "mesh_trace_brute_lockstep"}
+# the block stages 64-row chunks in lockstep; the group's instance state and
+# the lane's path state in registers); no render launches them
+YARDSTICKS = {"walk": "mesh_trace_per_thread", "brute": "mesh_trace_brute_lockstep",
+              "instanced": "mesh_trace_instanced_first"}
 _NOHIT_LO, _NOHIT_HI = 3.0e38, -3.0e38  # inverted AABB of padding clusters (the
 # JAX layout; the slab test does not retire it, the walks skip count-0 clusters)
 
@@ -117,7 +123,8 @@ LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_trace_sky": 0,
             "mesh_trace_sky_pcg": 0, "mesh_trace_brute_sky_pcg": 0, "mesh_trace_instanced": 0,
             "mesh_trace_instanced_sky": 0, "mesh_trace_instanced_pcg": 0,
             "mesh_trace_instanced_sky_pcg": 0, "mesh_hit": 0, "mesh_hit_per_thread": 0,
-            "mesh_trace_per_thread": 0, "mesh_trace_brute_lockstep": 0}
+            "mesh_trace_per_thread": 0, "mesh_trace_brute_lockstep": 0,
+            "mesh_trace_instanced_first": 0}
 
 
 # --- host-side packing -----------------------------------------------------
@@ -450,48 +457,62 @@ def _instance_spans(o, d, inst):
 
 def _instance_rays(o, d, lane, row):
     """The rays of the lanes `lane` in the frame of the instance of table
-    row `row`: o' = A (o - T), d' = A d, in f32 and the JAX package's order
-    of terms (mesh_bounce_kernel.py:532-540). Returns (o', d')."""
-    r = [o[k][lane] - row[9 + k] for k in range(3)]
+    row `row` ((24,), or (len(lane), 24): each lane's own row): o' = A (o -
+    T), d' = A d, in f32 and the JAX package's order of terms
+    (mesh_bounce_kernel.py:532-540). Returns (o', d')."""
+    c = [row[..., j] for j in range(12)]
+    r = [o[k][lane] - c[9 + k] for k in range(3)]
     dl = [d[k][lane] for k in range(3)]
-    ol = tuple(row[3 * j] * r[0] + row[3 * j + 1] * r[1] + row[3 * j + 2] * r[2] for j in range(3))
-    dd = tuple(row[3 * j] * dl[0] + row[3 * j + 1] * dl[1] + row[3 * j + 2] * dl[2]
-               for j in range(3))
+    ol = tuple(c[3 * j] * r[0] + c[3 * j + 1] * r[1] + c[3 * j + 2] * r[2] for j in range(3))
+    dd = tuple(c[3 * j] * dl[0] + c[3 * j + 1] * dl[1] + c[3 * j + 2] * dl[2] for j in range(3))
     return ol, dd
 
 
 def mesh_hit_instanced(o, d, t_seed, tables, t_min: float = EPS):
     """Nearest mesh hit of an instanced scene (bounce_tiles' `inst_body`,
-    mesh_bounce_kernel.py:500-544): for each row of tables.inst in table
-    order, the lanes whose world slab test reaches the instance's AABB
-    under the running best t (`_instance_spans`, entry < the best), their
-    rays moved into the instance's frame (`_instance_rays`), `mesh_hit_walk`
-    over the asset's local tables (tables.asset) seeded with the running
-    best, and the instance's gid base added to the local id. A later
-    instance replaces a hit only at a smaller t (strict <), so an exact-t
-    tie goes to the earlier instance; inside an instance, to the least scan
-    position. Same arguments and returns as mesh_hit_walk (gid global: the
-    flattened tables' id)."""
+    mesh_bounce_kernel.py:500-544): the least (t, instance table row,
+    scan position) over the instances of tables.inst, hits with t_min <= t
+    < t_seed. The (lane, instance) pairs are those whose world slab test
+    reaches the instance's AABB below the lane's seed (`_instance_spans`),
+    each walked by `mesh_hit_walk` over the asset's local tables
+    (tables.asset) with the ray moved into the instance's frame
+    (`_instance_rays`), in two batches: first every lane's pair of least
+    slab entry, seeded with the lane's seed; then its other pairs whose
+    entry is at most that hit's t, seeded one ulp above it (so an earlier
+    row's exact-t tie is found). Per lane the least t wins, an exact-t tie
+    to the earlier table row (`_resolve`), and the instance's gid base is
+    added to the local id. That is the answer of walking the instances one
+    after another in table order, each seeded with the running best (a
+    later instance replaces a hit only at a smaller t), since a seed only
+    prunes boxes whose slab entry lies above it; the tests and chip_smoke.py
+    hold the two bitwise (tests/torch_instanced_loop.py). Same arguments
+    and returns as mesh_hit_walk (gid global: the flattened tables' id)."""
     if tables.asset is None:
         raise ValueError("the instanced route needs a scene with instancing tables (n_inst > 0)")
-    n, dev = t_seed.numel(), t_seed.device
-    t_out = t_seed.clone()
-    gid_out = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    u_out, v_out = torch.zeros_like(t_seed), torch.zeros_like(t_seed)
     entry, ok = _instance_spans(o, d, tables.inst)
-    ok &= entry < t_seed[:, None]  # the running best only falls from the seed
-    bases = tables.inst[:, 18].long().tolist()
-    for k in (ok.any(0).nonzero()[:, 0]).tolist():  # the instances some ray may reach
-        lane = (ok[:, k] & (entry[:, k] < t_out)).nonzero()[:, 0]
-        if not lane.numel():
-            continue
-        ol, dl = _instance_rays(o, d, lane, tables.inst[k])
-        t, gid, u, v = mesh_hit_walk(ol, dl, t_out[lane], tables.asset, t_min=t_min)
+    ok &= entry < t_seed[:, None]
+    lane = ok.any(1).nonzero()[:, 0]
+    row = torch.where(ok, entry, torch.full_like(entry, INF))[lane].argmin(1)  # the first least
+    cand = [[] for _ in range(6)]
+
+    def walk(lane, row, seed):
+        inst = tables.inst[row]
+        t, gid, u, v = mesh_hit_walk(*_instance_rays(o, d, lane, inst), seed, tables.asset,
+                                     t_min=t_min)
         hit = gid >= 0
-        won = lane[hit]
-        t_out[won], gid_out[won] = t[hit], gid[hit] + bases[k]
-        u_out[won], v_out[won] = u[hit], v[hit]
-    return t_out, gid_out, u_out, v_out
+        for k, val in enumerate((lane[hit], t[hit], row[hit], gid[hit] + inst[hit, 18].long(),
+                                 u[hit], v[hit])):
+            cand[k].append(val)
+        return hit, t
+
+    hit, t = walk(lane, row, t_seed[lane])
+    below = t_seed.clone()
+    below[lane[hit]] = torch.nextafter(t[hit], torch.full_like(t[hit], math.inf))
+    ok[lane, row] = False
+    ok &= entry < below[:, None]
+    lane, row = ok.nonzero(as_tuple=True)
+    walk(lane, row, below[lane])
+    return _resolve(t_seed, *(torch.cat(c) for c in cand))
 
 
 def instanced_walk_work(o, d, t_best, tables, t_min: float = EPS):
@@ -782,7 +803,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
 
     entry = entry or ROUTES[route]
     sky_args = cubemap.launch_args(sky, dev)
-    asset_args = _asset_args(tables, dev, entry == ROUTES["instanced"])
+    asset_args = _asset_args(tables, dev, route == "instanced")
     lib = build.build("mesh_kernel").lib
     fn = getattr(lib, f"{entry}_launch")
     fn.restype = ctypes.c_int
@@ -796,8 +817,10 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
     xs_c, ys_c, samp_c = xs.contiguous(), ys.contiguous(), samp.contiguous()
     n = xs_c.numel()
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    # the route entries' warps take their 32-lane tiles from this counter
-    work = torch.zeros(1, dtype=torch.int32, device=dev) if entry in ROUTES.values() else None
+    # the persistent entries' warps (the routes' and the instanced yardstick's)
+    # take their 32-lane tiles from this counter
+    persistent = entry in ROUTES.values() or entry == YARDSTICKS["instanced"]
+    work = torch.zeros(1, dtype=torch.int32, device=dev) if persistent else None
     tb = tables
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

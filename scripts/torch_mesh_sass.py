@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """SASS instructions and registers of the port's mesh kernels, here and in another checkout.
 
-    python3 scripts/torch_mesh_sass.py [--against DIR]
+    python3 scripts/torch_mesh_sass.py [--against DIR] [--spills]
 
 Builds `raytrace_tpu_torch/csrc/mesh_kernel.cu` with kernels/build.py's
 flags and, with --against, DIR's copy of it with the same flags (into
@@ -9,10 +9,15 @@ flags and, with --against, DIR's copy of it with the same flags (into
 its SASS instructions (cuobjdump) and ptxas's registers side by side:
 each `mesh_trace_kernel` instantiation by its template arguments (kBrute,
 kInst, kSky, kPcg; a source without kInst counts as kInst false), the
-yardsticks and `mesh_hit_kernel`. A template argument added to a kernel
+yardsticks (`mesh_trace_instanced_first_kernel` among them) and
+`mesh_hit_kernel`. A template argument added to a kernel
 keeps its other instantiations' code when their counts and registers do
-not move. Needs nvcc and cuobjdump (the H100 machine); prints no result
-without them.
+not move. --spills also builds the source with -lineinfo and prints each
+local-memory store and load (STL / LDL) of mesh_trace_instanced's weyl
+no-sky instantiation with its source line (nvdisasm -g): where ptxas
+spills, and which local arrays (the slow path of sinf / cosf) take stack.
+Needs nvcc and cuobjdump (the H100 machine); prints no result without
+them.
 """
 import argparse
 import ctypes
@@ -25,7 +30,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL = re.compile(r"\d+(mesh_trace_kernel|mesh_trace_yardstick_kernel|mesh_hit_kernel|"
-                    r"mesh_hit_per_thread_kernel)(?:I((?:Lb[01]E)+)E)?")
+                    r"mesh_hit_per_thread_kernel|mesh_trace_instanced_first_kernel)"
+                    r"(?:I((?:Lb[01]E)+)E)?")
 
 
 def label(mangled):
@@ -61,6 +67,38 @@ def build_source(src, tag):
                        lib=ctypes.CDLL(str(so)))
 
 
+SPILL_KERNEL = "mesh_trace_kernelILb0ELb1ELb0ELb0E"  # the weyl, no-sky instanced instantiation
+
+
+def spills():
+    """Each STL / LDL of SPILL_KERNEL in a -lineinfo build, with its source line."""
+    from raytrace_tpu_torch.kernels import build
+
+    out = build.BUILD_DIR / "spills"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "mesh_kernel_lineinfo.so"
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, *build.EXTRA_FLAGS["mesh_kernel"],
+                    "-lineinfo", "-o", str(so), str(build.CSRC / "mesh_kernel.cu")],
+                   capture_output=True, text=True, check=True)
+    bindir = os.path.dirname(build.nvcc_path())
+    subprocess.run([os.path.join(bindir, "cuobjdump"), "-xelf", "all", str(so)], cwd=out,
+                   capture_output=True, check=True)
+    fn = where = None
+    for cubin in sorted(out.glob("*.cubin")):
+        text = subprocess.run([os.path.join(bindir, "nvdisasm"), "-g", "-c", str(cubin)],
+                              capture_output=True, text=True, check=True).stdout
+        for line in text.splitlines():
+            m = re.search(r"\.text\.(\S+):", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r'//## File "([^"]+)", line (\d+)', line)
+            if m:
+                where = f"{os.path.basename(m.group(1))}:{m.group(2)}"
+            if fn and SPILL_KERNEL in fn and re.search(r"\b(STL|LDL)\b", line):
+                print(f"[spills] {where}: {line.split(';')[0].split('*/')[-1].strip()}",
+                      flush=True)
+
+
 def counts(builds):
     """{tag: {label: (SASS instructions, registers)}} of {tag: Built}."""
     import chip_smoke
@@ -76,6 +114,8 @@ def counts(builds):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", default=None, help="another checkout's root")
+    ap.add_argument("--spills", action="store_true",
+                    help="the instanced kernel's local-memory accesses by source line")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     from raytrace_tpu_torch.kernels import build
@@ -104,6 +144,8 @@ def main() -> int:
         cols = "; ".join(f"{tag} " + (f"{table[tag][name][0]} SASS, {table[tag][name][1]} registers"
                                       if name in table[tag] else "absent") for tag in table)
         print(f"[sass] {name}: {cols}", flush=True)
+    if args.spills:
+        spills()
     return 0
 
 

@@ -14,11 +14,16 @@ planted exact-t tie across instances, the image of the port's plain
 version against the JAX fused mesh kernel's instanced walk (interpret
 mode), the Renderer on both routes and its resume, cpu semantics over
 the flattened tables against the JAX XLA integrator, and from_reference.
+Within the port: the batched plain version bitwise the table-order loop
+(also on the fleet's 152x76 frame), the instanced entries' C arguments,
+the route gate, and the large fleet's scheme.
 """
 import base64
 import dataclasses
 import json
 import os
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +48,7 @@ from raytrace_tpu_torch.utils import checkpoint as ckpt
 from test_torch_mesh_path import assert_close
 from test_torch_renderer import tile_gate
 from test_torch_scene import reference_fields
+from torch_instanced_loop import mesh_hit_instanced_loop
 
 W, H = 64, 32
 
@@ -228,20 +234,26 @@ def test_nearest_hit_matches_flattened_walk(five):
     assert hits <= work["transforms"] <= work["inst_slab"] and work["tri"] >= hits
 
 
-def test_exact_tie_goes_to_the_earlier_instance(tmp_path):
-    """Two members with one transform: every hit on them is an exact-t tie
-    across two instances, and the earlier row of the instance table wins;
-    with the table's rows reversed, the other one does."""
+def _tie_scene(tmp_path):
+    """Four octahedra, model members 0 and 1 with one transform (at x = -4),
+    and 2,048 rays toward them: (tables, o, d, seed)."""
     path = _write_octahedron_gltf(str(tmp_path))
     _, ps = _schemes([path] * 4)
-    first, second = ps.scene_members[1:3]  # model members 0 and 1 coincide, at x = -4
+    first, second = ps.scene_members[1:3]
     second.translation, second.uniform_scale, second.euler_angles = (
         first.translation, first.uniform_scale, first.euler_angles)
     scene = build_scene(ps)
     tables = _tables(scene, ps)
     assert tables.n_inst == 4
     o, d = _rays(2048, 5, origin=(-4.0, 0.0, -14.0), boxes=[(-5.0, -1.0, -1.0, -3.0, 1.0, 1.0)])
-    seed = torch.full((2048,), INF)
+    return tables, o, d, torch.full((2048,), INF)
+
+
+def test_exact_tie_goes_to_the_earlier_instance(tmp_path):
+    """Two members with one transform: every hit on them is an exact-t tie
+    across two instances, and the earlier row of the instance table wins;
+    with the table's rows reversed, the other one does."""
+    tables, o, d, seed = _tie_scene(tmp_path)
     twins = {0.0, 8.0}  # the gid bases of model members 0 and 1
     for flip in (False, True):
         if flip:
@@ -376,3 +388,140 @@ def test_fleet_scheme_builds_instanced_with_one_texture_set():
     assert scene.tex_pool.dtype == np.uint32 and scene.tex_pool.size == 4 * 1024 * 1024
     t = mk.MeshTables(scene, build_camera(scheme.cam, 32, 16), 0.5)
     assert t.inst.shape == (17, 24) and t.asset.tri.shape[0] * t.asset.tri.shape[1] >= 7300
+
+
+def _same(a, b):
+    """Bitwise equal (t, gid, u, v) tuples."""
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread: the plain walk's thousands of small ops, in a
+    test run whose workers share the cores, otherwise wait on each other's
+    thread pools (many times over; the results do not depend on it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("case", ["octahedra", "exact-tie", "exact-tie-flipped", "low-seed"])
+def test_batched_plain_matches_table_order_loop(five, tmp_path, one_thread, case):
+    """mesh_hit_instanced (the batched walks of the (lane, reached
+    instance) pairs) bitwise the table-order loop
+    (tests/torch_instanced_loop.py): the five octahedra's 4,096 rays, the
+    planted exact-t tie both ways, and seeds that cut half the lanes'
+    hits."""
+    if case.startswith("exact-tie"):
+        tables, o, d, seed = _tie_scene(str(tmp_path))
+        if case.endswith("flipped"):
+            tables.inst = tables.inst.flip(0).contiguous()
+    else:
+        _, _, scene, ps = five
+        tables = _tables(scene, ps)
+        o, d = _rays(4096, 11, boxes=scene.mk_inst[:, 12:18])
+        seed = torch.full((4096,), INF)
+        if case == "low-seed":  # about the middle of the hits' t: half the lanes keep theirs
+            seed = torch.where(torch.arange(4096) % 2 == 0, seed, torch.full_like(seed, 13.0))
+    ours = mk.mesh_hit_instanced(o, d, seed, tables)
+    _same(ours, mesh_hit_instanced_loop(o, d, seed, tables))
+    assert int((ours[1] >= 0).sum()) > 200
+
+
+@pytest.fixture(scope="module")
+def fleet_small():
+    """The fleet at 152x76: (tables, xs, ys)."""
+    from raytrace_tpu_torch.models import procedural
+
+    scheme = procedural.fleet_scheme(152, 76)
+    tables = mk.MeshTables(build_scene(scheme), build_camera(scheme.cam, 152, 76), 0.5)
+    flat = torch.arange(152 * 76, dtype=torch.int32)
+    return tables, flat % 152, flat // 152
+
+
+@pytest.mark.parametrize("spl", [1, 4])
+def test_batched_plain_matches_loop_on_the_fleet(fleet_small, one_thread, monkeypatch, spl):
+    """The fleet's 152x76 frame through mesh_trace_reference on the
+    instanced route: the batched plain version's image bitwise the
+    table-order loop's."""
+    tables, xs, ys = fleet_small
+    kw = dict(assured=5, max_bounces=24, samples_per_lane=spl, route="instanced")
+    ours = mk.mesh_trace_reference(xs, ys, torch.zeros_like(xs), tables, **kw)
+    monkeypatch.setattr(mk, "mesh_hit_instanced", mesh_hit_instanced_loop)
+    ref = mk.mesh_trace_reference(xs, ys, torch.zeros_like(xs), tables, **kw)
+    for a, b in zip(ours, ref):
+        assert torch.equal(a, b)
+    assert float(ours[0].mean()) > 0.0
+
+
+def test_asset_args(five):
+    """The instanced entries' last ten C arguments (_asset_args): the
+    instance table and its row count, then the asset's WalkTables sgbounds,
+    sbounds, bounds, count, tri and gid, its supergroup count and row
+    width; nulls for the other entries. MESH_TRACE_ARGS of
+    csrc/mesh_kernel.cu ends in the same ten."""
+    _, _, scene, ps = five
+    t = _tables(scene, ps)
+    a = t.asset
+    args = mk._asset_args(t, torch.device("cpu"), True)
+    assert args == [t.inst.data_ptr(), t.n_inst,
+                    *(getattr(a, k).data_ptr() for k in ("sgbounds", "sbounds", "bounds",
+                                                          "count", "tri", "gid")),
+                    a.sgbounds.shape[0], a.tri.shape[1]]
+    assert mk._asset_args(t, torch.device("cpu"), False) == [None, 0] + [None] * 6 + [0, 0]
+    src = (Path(mk.__file__).parent.parent / "csrc" / "mesh_kernel.cu").read_text()
+    sig = re.search(r"#define MESH_TRACE_ARGS(.*?)\n#define", src, re.S).group(1)
+    tail = [w.strip(" \\\n") for w in sig.split(",")][-10:]
+    assert tail[0] == "const float *inst" and tail[-1] == "int l_width"
+
+
+@pytest.mark.parametrize("case", ["instanced-on", "instanced-off", "flattened"])
+def test_instanced_route_gate(five, monkeypatch, case):
+    """MeshTables.route: an instanced scene takes the instanced route
+    exactly when INSTANCED_ROUTE is set, whatever the size of its asset,
+    and the walk otherwise; a scene without instancing tables takes the
+    walk, and route="instanced" on it raises a ValueError. mesh_trace's
+    default route is MeshTables.route."""
+    _, _, scene, ps = five
+    monkeypatch.setattr(mk, "INSTANCED_ROUTE", case != "instanced-off")
+    t = _tables(_flattened(scene) if case == "flattened" else scene, ps)
+    assert t.route == ("instanced" if case == "instanced-on" else "walk")
+    xs = torch.arange(64, dtype=torch.int32) % W
+    kw = dict(assured=3, max_bounces=3)
+    out = mk.mesh_trace(xs, xs // 2, xs, t, **kw)
+    for a, b in zip(out, mk.mesh_trace(xs, xs // 2, xs, t, route=t.route, **kw), strict=True):
+        assert torch.equal(a, b)
+    if case == "flattened":
+        with pytest.raises(ValueError, match="instancing tables"):
+            mk.mesh_trace(xs, xs // 2, xs, t, route="instanced", **kw)
+
+
+def test_large_fleet_scheme():
+    """procedural.fleet_scheme(rows=FLEET_LARGE_ROWS): 144 instances of the
+    7,300-triangle cut sharing one LoadedMesh and one path, in eight layers
+    at increasing depth; its flattened walk tables hold at least 52 B a
+    triangle (a 48 B row and a 4 B id), over 50 MB at 1,051,200 triangles
+    (counted, not built); its first eight members build the instancing
+    tables with the asset's four textures once. The default rows are the
+    fleet's, unchanged."""
+    from raytrace_tpu_torch.models import procedural
+
+    scheme = procedural.fleet_scheme(32, 16, rows=procedural.FLEET_LARGE_ROWS)
+    models = scheme.scene_members[1:]
+    assert len(models) == 144 and len({id(m.loaded) for m in models}) == 1
+    assert len({m.path for m in models}) == 1
+    n_tris = len(models) * procedural.FLEET_TRIS
+    assert n_tris == 1_051_200 and n_tris * (mk.TRI_COLS * 4 + 4) > 50 * 2 ** 20
+    cam = build_camera(scheme.cam, 32, 16)
+    fwd = cam.d / np.linalg.norm(cam.d)
+    depth = [float(np.dot(m.translation - cam.o, fwd)) for m in models]
+    assert max(depth) - min(depth) > 6 * procedural.FLEET_LAYER
+    fleet = procedural.fleet_scheme(32, 16).scene_members[1:]
+    for a, b in zip(fleet, models):  # the large fleet's first layer draws as the fleet does
+        assert a.uniform_scale == b.uniform_scale
+    scheme.scene_members = scheme.scene_members[:9]
+    scene = build_scene(scheme)
+    assert (scene.n_inst, scene.inst_tris) == (8, 7300)
+    assert scene.tex_pool.size == 4 * 1024 * 1024

@@ -18,9 +18,10 @@ of the JAX step (test_parallel.py:145); make_spp_sharded_step bitwise the
 rank-order sum of its slices; make_train_step's loss within 1e-5
 relative of the JAX step's and each gradient within relative L2 1e-3,
 bitwise equal on the four ranks; the Renderer over two ranks on each of
-its four drivers bitwise the rank-order sum of one-process slice renders
-(the fused drivers also bitwise the one-process render at
-samples_per_launch n / 2), the two ranks' targets and table checksums
+its four drivers and on the mesh driver's instanced route (the fleet)
+bitwise the rank-order sum of one-process slice renders (the fused
+drivers also bitwise the one-process render at samples_per_launch n /
+2), the two ranks' targets and table checksums
 equal, `render(samples=5)` adding 5, a resume bitwise; the CLI on two
 ranks writing, from rank 0 alone, the one-process CLI's PNG and frames.
 """
@@ -67,7 +68,9 @@ TRAIN_KW = dict(assured_depth=2, max_bounces=4)  # and its train step's
 # checksum. TINY is test_parallel.py's _tiny_scheme's dict, the port's
 # Tagged in the JAX one's place; DRIVERS each Renderer driver's scheme
 # and keywords (walled 32x16; the mesh path on a 2,048-triangle cut of
-# the procedural surface, two 16x16 textures, at 32x16).
+# the procedural surface, two 16x16 textures, at 32x16; "instanced": the
+# fleet of 17 instances at 32x16 on the mesh path's instanced route), and
+# DRIVER the driver each takes.
 SHARED = r"""
 import hashlib
 
@@ -109,7 +112,9 @@ DRIVERS = {
     "plain": (walled_scheme(32, 16), dict(use_fused=False, use_wavefront=False)),
     "wavefront": (walled_scheme(32, 16), dict(mode="cpu")),
     "mesh_fused": (mesh_scheme(), {}),
+    "instanced": (procedural.fleet_scheme(32, 16, 4), {}),
 }
+DRIVER = {name: "mesh_fused" if name == "instanced" else name for name in DRIVERS}
 
 
 def checksum(module):
@@ -183,7 +188,9 @@ elif what == "render2":
 
     for name, (sch, kw) in DRIVERS.items():
         r = Renderer(sch, device="cpu", **kw)
-        assert r.driver == name and r.group is dist.group.WORLD, (name, r.driver)
+        assert r.driver == DRIVER[name] and r.group is dist.group.WORLD, (name, r.driver)
+        route = getattr(r.tables, "route", None)
+        assert (route == "instanced") == (name == "instanced"), (name, route)
         digests = [None] * world
         dist.all_gather_object(digests, checksum(r.tables))
         assert len(set(digests)) == 1, (name, digests)
@@ -416,10 +423,11 @@ def test_spp_sharded_step_is_the_sum_of_its_slices(runs):
         np.testing.assert_array_equal(got["spp_sharded"], own)
 
 
-@pytest.mark.parametrize("name", ["fused", "plain", "wavefront", "mesh_fused"])
+@pytest.mark.parametrize("name", ["fused", "plain", "wavefront", "mesh_fused", "instanced"])
 def test_renderer_over_two_ranks(runs, name):
     """Renderer(group=the world of 2) on one driver (the fused ones
-    through their plain versions): render(4) bitwise the rank-order sum
+    through their plain versions; "instanced" the mesh driver on the
+    fleet's instanced route, MeshTables.route): render(4) bitwise the rank-order sum
     of one-process renders of ids 0-1 and 2-3 (each a Renderer whose
     target count is the slice's first id), then render(samples=5)
     bitwise the earlier target plus that sum over ids 4-6 and 7-8; the
@@ -443,7 +451,7 @@ def test_renderer_over_two_ranks(runs, name):
     ref4 = _slices(one, 0, 4, 2)
     ref9 = ref4 + _slices(lambda b, n: one(b, n, iters), 4, 5, 2)
     whole = Renderer(scheme, device="cpu", samples_per_launch=2, **kw)
-    assert whole.driver == name
+    assert whole.driver == NS["DRIVER"][name]
     whole.render(samples=4, progress=False)
     res = runs["render2"].result()
     for got in res:
@@ -451,7 +459,7 @@ def test_renderer_over_two_ranks(runs, name):
         np.testing.assert_array_equal(got[name + "_9"], ref9)
         assert str(got[name + "_checksum"]) == NS["checksum"](whole.tables)
         assert int(got[name + "_iterations"]) == sum(iters)
-    if name in ("fused", "mesh_fused"):
+    if name in ("fused", "mesh_fused", "instanced"):
         np.testing.assert_array_equal(res[0][name + "_4"], whole.target.acc)
     else:
         np.testing.assert_allclose(res[0][name + "_4"], whole.target.acc, rtol=1e-6, atol=1e-6)
