@@ -72,7 +72,8 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    rays of one bounce, a quarter of the lanes dead (seeded -inf), at
    t_min EPS (gpu semantics) and 20*EPS (cpu semantics), and on the
    in-render pool: the 131,072 rays of the 20th mesh_hit launch of the
-   cpu-semantics render(16), captured as the wavefront hands them over.
+   cpu-semantics render(16), captured as the wavefront hands them over
+   (its lane pool driven eagerly, an iteration at a time, to the 20th).
    gid must agree on >= 99.9% of lanes and t, u, v pass the lane gate;
    the lanes that differ in gid, t, u and v are printed. Plain, kernel
    and yardstick are timed with CUDA events on a 131,072-ray pool cut
@@ -86,18 +87,26 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    power limit: Renderer(a380-class 1216x608 in cpu semantics,
    "cuda").render(16), the slice's main path (the wavefront, mesh_hit
    launches > 0, no other kernel); the same with direct-light sampling
-   (its shadow rays add mesh_hit launches); the a380-class frame and
+   (its shadow rays add mesh_hit launches); each of these two, walled
+   through the wavefront and phase 9's cpu-semantics sky render in turns
+   graphed (the Renderer's loop: an iteration a CUDA graph replay, one
+   flag read), eager (the yardstick: the same iteration op by op),
+   eager, graphed, every turn's image bitwise the first's with equal
+   iterations, lane-bounces and launches, a bitwise resume, the graph's
+   capture + instantiate seconds, and (after phase 9, in a child
+   process) each render's device ms, idle share and host syncs an
+   iteration, graphed and eager; the a380-class frame and
    the 2,097-triangle surface in gpu semantics through the wavefront
    (use_mesh_fused=False) against mesh_trace's and mesh_trace_brute's
    images (the surface on the brute route whatever the gate says), and
    walled 1200x600 through the wavefront (use_fused=False)
    against trace_tiles' image, at 16 spp, under the tile gate (their
    lane-bounces per path set the fused kernels' bounds); a
-   cpu-semantics 96x48 a380-class frame on the card against the CPU; a
-   bitwise exact resume on the card in cpu semantics; and torch.profiler
-   tables of one warm cpu-semantics render(16) with mesh_hit and with
-   the per-thread yardstick in its place: mesh_hit's device ms per
-   launch inside the render and its share of device time;
+   cpu-semantics 96x48 a380-class frame on the card against the CPU;
+   and torch.profiler tables of one warm cpu-semantics render(16) with
+   mesh_hit and with the per-thread yardstick in its place (the graph
+   captured anew around it): mesh_hit's device ms per launch inside the
+   render and its share of device time;
 9. the cube map: six 2048x2048 u8 faces (models/procedural.sky_cubemap,
    biplane's size) written to a temporary directory. Outdoor spheres
    under the sky at 1200x600 (procedural.outdoor_scheme): `trace_tiles`
@@ -116,8 +125,8 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    with the sky bitwise on the 2,097-triangle cut at 16, each timed
    against its launch without the sky in turns; render(16) with paths/s
    and a torch.profiler table, against the wavefront and a bitwise resume; then in cpu semantics
-   through the wavefront: render(16) with mesh_hit launches, a 96x48
-   frame on the card against the CPU and a bitwise resume. A sky scene
+   through the wavefront: render(16) in phase 8's turns with mesh_hit
+   launches, a 96x48 frame on the card against the CPU. A sky scene
    on the card must launch the sky instantiations (their launch counts).
    Every resume loads its checkpoint into a new Renderer. Prints the
    phase's seconds;
@@ -380,6 +389,79 @@ def warm_render(tag, label, scheme, spp, card, route=None, **kw):
     assert img.shape == (h, w, 3) and np.isfinite(img).all(), f"{label}: bad image"
     print(f"[{tag}] {label} image mean per channel {img.mean(axis=(0, 1)).tolist()}", flush=True)
     return r, img, counts, dt
+
+
+WF_TURNS = ("graphed", "eager", "eager", "graphed")  # the wavefront's loops, in turns
+
+
+def wavefront_turns(tag, label, scheme, spp, card, **kw):
+    """A wavefront render(spp) on the card in WF_TURNS: "graphed", the
+    Renderer's own loop (an iteration a CUDA graph replay), and "eager",
+    its yardstick (wavefront.Lanes._run_eager in Lanes.run's place: the
+    same iteration launched op by op), each warm (the batch shape's graph
+    captured by a first render), into a fresh target, with the launch
+    counts reset just before and read just after. Every turn's image must
+    be bitwise the first's, with equal iterations, lane-bounces and
+    launches; then a bitwise resume. Prints each turn's wall ms and the
+    graph's capture + instantiate seconds. Returns (renderer, image,
+    launches, {graphed_ms, eager_ms, capture_s, iterations, lane_bounces,
+    mesh_hit})."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.ops import trace_kernel as tk
+    from raytrace_tpu_torch.render import wavefront as wf
+    from raytrace_tpu_torch.render.renderer import Renderer
+    from raytrace_tpu_torch.render.target import RenderTarget
+
+    r = Renderer(scheme, device="cuda", **kw)
+    assert r.driver == "wavefront", f"{label}: driver {r.driver}"
+    t0 = time.perf_counter()
+    r.render(progress=False, samples=spp)  # captures the batch shape's graph
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (lanes,) = r._lanes.values()
+    runs = {}
+    for turn in WF_TURNS:
+        r.target = RenderTarget(r.width, r.height)
+        real = wf.Lanes.run
+        if turn == "eager":
+            wf.Lanes.run = wf.Lanes._run_eager
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            img = r.render(progress=False, samples=spp)  # ends in a device -> host copy
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            wf.Lanes.run = real
+        counts = dict(mk.LAUNCHES, **tk.LAUNCHES)
+        runs.setdefault(turn, []).append(dict(img=img, stats=dict(r.stats), counts=counts, ms=ms))
+        print(f"[{tag}] {label} {r.width}x{r.height} render({spp}), {turn}: {ms:.3f} ms wall, "
+              f"stats {r.stats}, launches {({k: v for k, v in counts.items() if v})} [{card}]",
+              flush=True)
+    ref = runs["graphed"][0]
+    assert ref["img"].shape == (r.height, r.width, 3) and np.isfinite(ref["img"]).all(), \
+        f"{label}: bad image"
+    for turn, rs in runs.items():
+        for run in rs:
+            assert np.array_equal(run["img"], ref["img"]), f"{label}: {turn} image differs"
+            assert run["stats"] == ref["stats"] and run["counts"] == ref["counts"], \
+                f"{label}: {turn} stats {run['stats']} / launches {run['counts']} differ"
+    ms = {k: sum(run["ms"] for run in v) / len(v) for k, v in runs.items()}
+    print(f"[{tag}] {label}: graphed {ms['graphed']:.3f} ms against eager {ms['eager']:.3f} ms "
+          f"({ms['eager'] / ms['graphed']:.2f}x), every turn's image bitwise the first's, equal "
+          f"stats and launches; the first render {first_s:.3f} s, its graph's capture + "
+          f"instantiate {lanes.capture_s:.3f} s, launches captured {lanes.graph_launches} "
+          f"[{card}]", flush=True)
+    print(f"[{tag}] {label} image mean per channel {ref['img'].mean(axis=(0, 1)).tolist()}",
+          flush=True)
+    resume_bitwise(tag, r, label)
+    return r, ref["img"], ref["counts"], dict(
+        graphed_ms=ms["graphed"], eager_ms=ms["eager"], capture_s=lanes.capture_s,
+        mesh_hit=ref["counts"]["mesh_hit"], **ref["stats"])
 
 
 def mixed_scheme(width, height):
@@ -860,11 +942,18 @@ def frame_pool(o, d, seed, n):
 def in_render_pool(scheme):
     """The rays, seeds, t_min and tables of the CAPTURE_ITER-th mesh_hit
     launch of Renderer(scheme, "cuda").render(MESH_SPP): one mid-render
-    wavefront iteration's lanes, as the render hands them to the kernel
-    (the integrator's mesh_hit is wrapped for this one render)."""
+    wavefront iteration's lanes, as the render hands them to the kernel.
+    The render's lane pool (wavefront.Lanes, its first batch) is driven
+    eagerly, an iteration at a time, with the integrator's mesh_hit
+    wrapped: under the render's CUDA graph the wrapper would run at the
+    capture alone."""
     from raytrace_tpu_torch.render import integrator as itg
+    from raytrace_tpu_torch.render import wavefront as wf
     from raytrace_tpu_torch.render.renderer import Renderer
 
+    r = Renderer(scheme, device="cuda")
+    lanes = wf.Lanes(r.tables, r.params, r._xs, r._ys, min(MESH_SPP, r.samples_per_launch),
+                     r.width, r.pool)
     real, calls, pool = itg.mesh_hit, [0], {}
 
     def capture(o, d, seed, tables, *, t_min):
@@ -876,7 +965,9 @@ def in_render_pool(scheme):
 
     itg.mesh_hit = capture
     try:
-        Renderer(scheme, device="cuda").render(progress=False, samples=MESH_SPP)
+        lanes._start(0)
+        while not pool and bool(lanes.flag):
+            lanes._iteration()
     finally:
         itg.mesh_hit = real
     assert pool, f"the render made fewer than {CAPTURE_ITER} mesh_hit launches"
@@ -992,10 +1083,11 @@ def mesh_hit_phase(dev, card, a380):
 
 
 def integrator_phases(dev, card):
-    """Phases 7 and 8; returns the mesh_hit kernel's JSON record and the
-    counts the fused kernels' bounds are reckoned from: lane-bounces per
+    """Phases 7 and 8; returns the mesh_hit kernel's JSON record, the
+    counts the fused kernels' bounds are reckoned from (lane-bounces per
     path of the walled, a380-class and 2,097-triangle frames in gpu
-    semantics, and mesh_hit's least walk per ray."""
+    semantics, and mesh_hit's least walk per ray) and phase 8's
+    wavefront_turns records by render."""
     from raytrace_tpu_torch.models import procedural
     from raytrace_tpu_torch.models.config import ModelMember
     from raytrace_tpu_torch.models.walled import walled_scheme
@@ -1017,11 +1109,16 @@ def integrator_phases(dev, card):
         others = {k: v for k, v in counts.items() if k != "mesh_hit"}
         return counts["mesh_hit"] > 0 and not any(others.values())
 
-    r, _, counts = render("a380-class", a380_cpu, MESH_SPP)
+    # each wavefront render of the turns: its graphed and eager walls
+    turns = {}
+    full, _, counts, turns["a380-class cpu"] = wavefront_turns(
+        "paths", "a380-class cpu semantics", a380_cpu, MESH_SPP, card)
     launches = counts["mesh_hit"]
-    assert r.driver == "wavefront" and only_mesh_hit(counts), \
+    assert only_mesh_hit(counts), \
         "the main path did not launch mesh_hit, or launched another CUDA kernel"
-    _, _, dls = render("a380-class DLS", variant(a380_cpu, dir_light_samp=True), MESH_SPP)
+    _, _, dls, turns["a380-class cpu DLS"] = wavefront_turns(
+        "paths", "a380-class cpu semantics DLS", variant(a380_cpu, dir_light_samp=True),
+        MESH_SPP, card)
     assert only_mesh_hit(dls) and dls["mesh_hit"] > launches, \
         "the shadow rays did not go through mesh_hit"
 
@@ -1030,7 +1127,11 @@ def integrator_phases(dev, card):
     per_path = {}
 
     def against_fused(label, scheme, spp, name, **kw):
-        r, wf_img, counts = render(label, scheme, spp, **kw)
+        if name == "trace_tiles":
+            r, wf_img, counts, turns["walled wavefront"] = wavefront_turns(
+                "paths", label, scheme, spp, card, **kw)
+        else:
+            r, wf_img, counts = render(label, scheme, spp, **kw)
         assert counts[name] == 0 and (counts["mesh_hit"] > 0) == (name != "trace_tiles")
         w, h = scheme.render_info.width, scheme.render_info.height
         per_path[name] = r.stats["lane_bounces"] / (w * h * spp)
@@ -1049,19 +1150,22 @@ def integrator_phases(dev, card):
           flush=True)
 
     card_vs_cpu("paths", "a380-class cpu semantics", a380_cpu, 96, 48, MESH_SPP)
-    full = r  # the main path's renderer
-    resume_bitwise("paths", full, f"a380-class {MESH_W}x{MESH_H}, cpu semantics, wavefront")
 
     # the main path's render profiled with the kernel, then with the
-    # per-thread yardstick in its place (the integrator's mesh_hit wrapped)
+    # per-thread yardstick in its place (the integrator's mesh_hit wrapped;
+    # the lane pools dropped before and after, so that their graphs are
+    # captured anew around the kernel the render is to launch)
     label = f"a380-class cpu semantics {MESH_W}x{MESH_H}"
     new = profile(full, card, "mesh_hit_kernel", label)
+    turns["a380-class cpu"]["graphed_profile"] = new
     real = itg.mesh_hit
     itg.mesh_hit = mk._mesh_hit_per_thread
+    full._lanes.clear()
     try:
         old = profile(full, card, "mesh_hit_per_thread_kernel", label)
     finally:
         itg.mesh_hit = real
+        full._lanes.clear()
     if new and old:
         print(f"[profile] mesh_hit in the render: {new['ms']:.4f} ms per launch, "
               f"{new['share']:.2%} of device time ({new['device_ms']:.3f} ms); the per-thread "
@@ -1072,7 +1176,7 @@ def integrator_phases(dev, card):
            "max_abs_err": hit["max_abs_err"], "ms": hit["ms"], "plain_ms": hit["plain_ms"],
            "bound_ms": hit["bound_ms"], "bound_by": hit["bound_by"], "library_ms": None,
            "launches_per_render": launches, "in_render_ms": new["ms"] if new else None}
-    return rec, per_path, hit["walk_ops_per_ray"]
+    return rec, per_path, hit["walk_ops_per_ray"], turns
 
 
 def profile(renderer, card, kernel, label, spp=MESH_SPP):
@@ -1080,8 +1184,9 @@ def profile(renderer, card, kernel, label, spp=MESH_SPP):
     time per kernel, the share of the kernel whose name holds `kernel` and
     of the device-to-host copies, host syncs per wavefront iteration, and
     the device's idle share of an unprofiled warm render(spp). Returns
-    {ms (per launch), share, device_ms, copy_share} of that kernel, or
-    None without device time."""
+    {ms (per launch), share, device_ms, copy_share, launches} of that
+    kernel, the unprofiled render's wall_ms, the wavefront's iterations
+    and syncs_per_iteration, or None without device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1091,7 +1196,9 @@ def profile(renderer, card, kernel, label, spp=MESH_SPP):
     renderer.render(progress=False, samples=spp)  # warm, unprofiled
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone (kernels, copies, runtime calls): the
+    # host's operator events take the table longer to build than the render
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         renderer.render(progress=False, samples=spp)
         torch.cuda.synchronize()
     rows = prof.key_averages()
@@ -1121,11 +1228,14 @@ def profile(renderer, card, kernel, label, spp=MESH_SPP):
     print(f"[profile] {kernel} {hit / total:.2%} of device time, {count} launches; the "
           f"device-to-host copies {copy / total:.2%}; the elementwise work and the rest "
           f"{1 - (hit + copy) / total:.2%}", flush=True)
-    for name in ("cudaStreamSynchronize", "aten::_local_scalar_dense", "cudaLaunchKernel"):
-        c = sum(e.count for e in rows if e.key == name)
+    calls = {}
+    for name in ("cudaStreamSynchronize", "cudaLaunchKernel", "cudaGraphLaunch"):
+        calls[name] = c = sum(e.count for e in rows if e.key == name)
         print(f"[profile] {name}: {c} calls, {c / max(iters, 1):.1f} per iteration", flush=True)
     return {"ms": hit / 1e3 / max(count, 1), "share": hit / total, "device_ms": total / 1e3,
-            "copy_share": copy / total}
+            "copy_share": copy / total, "wall_ms": wall_ms, "launches": count,
+            "iterations": iters, "syncs_per_iteration":
+                calls["cudaStreamSynchronize"] / max(iters, 1)}
 
 
 SASS_DIR = os.path.join(ROOT, "raytrace_tpu_torch", "_build", "sass")
@@ -1647,11 +1757,11 @@ def sky_mesh(dev, card, a380, surface):
     resume_bitwise("sky", r, f"a380-class + sky {MESH_W}x{MESH_H}")
     # cpu semantics through the wavefront: mesh_hit and no fused kernel
     cpu = variant(a380, use_gpu=False)
-    r, _, counts = sky_render("a380-class + sky", cpu, MESH_SPP, card)
-    assert r.driver == "wavefront" and {k for k, v in counts.items() if v} == {"mesh_hit"}, \
+    _, _, counts, out["wavefront"] = wavefront_turns("sky", "a380-class + sky cpu semantics", cpu,
+                                                     MESH_SPP, card)
+    assert {k for k, v in counts.items() if v} == {"mesh_hit"}, \
         f"the cpu-semantics sky render launched {counts}"
     card_vs_cpu("sky", "a380-class + sky cpu semantics", cpu, 96, 48, SKY_WF_SPP)
-    resume_bitwise("sky", r, f"a380-class + sky {MESH_W}x{MESH_H}, cpu semantics")
     return out
 
 
@@ -3185,6 +3295,9 @@ def profile_child(what, card) -> int:
     if what == "diff":
         print(json.dumps({"a380-class differentiable": profile_diff(card)}), flush=True)
         return 0
+    if what in ("wavefront", "wavefront-all"):
+        print(json.dumps(profile_wavefront(card, every=what == "wavefront-all")), flush=True)
+        return 0
     if what == "fleet":
         renderer = Renderer(fleet_scheme(), device="cuda")
         renderer.render(progress=False, samples=1)  # loads the kernel (the parent's build)
@@ -3210,6 +3323,70 @@ def profile_child(what, card) -> int:
                                      f"{label} {renderer.width}x{renderer.height}", spp=spp)
     print(json.dumps(results), flush=True)
     return 0
+
+
+def profile_wavefront(card, every=False):
+    """The wavefront renders of the turns (phases 8 and 9: the a380-class
+    frame in cpu semantics, with DLS and under the sky, the faces written
+    anew, and walled through the wavefront), each warm (its graph
+    captured), profiled graphed but the main path (its graphed table is
+    phase 8's), and the main path eager (Lanes._run_eager in Lanes.run's
+    place); `every` (`chip_smoke.py --profile wavefront-all <card>`):
+    every render both ways. Each profile starts from a fresh target, so
+    the graphed and eager renders take the same sample ids. Returns
+    {"<label> graphed" / "<label> eager": profile's result}."""
+    from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.models.walled import walled_scheme
+    from raytrace_tpu_torch.render import wavefront as wf
+    from raytrace_tpu_torch.render.renderer import Renderer
+    from raytrace_tpu_torch.render.target import RenderTarget
+
+    results = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_sky_") as face_dir:
+        a380 = variant(procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP), use_gpu=False)
+        a380_sky = procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP)
+        a380_sky.scene_members.append(procedural.sky_cubemap(face_dir))
+        runs = (("a380-class cpu", a380, MESH_SPP, {}),
+                ("a380-class cpu DLS", variant(a380, dir_light_samp=True), MESH_SPP, {}),
+                ("walled wavefront", walled_scheme(W, H), WALLED_WF_SPP, dict(use_fused=False)),
+                ("a380-class + sky cpu", variant(a380_sky, use_gpu=False), MESH_SPP, {}))
+        for label, scheme, spp, kw in runs:
+            r = Renderer(scheme, device="cuda", **kw)
+            r.render(progress=False, samples=spp)  # captures the graph (the parent's build)
+            main = label == "a380-class cpu"
+            for turn in ("graphed", "eager") if every else ("eager",) if main else ("graphed",):
+                r.target = RenderTarget(r.width, r.height)
+                real = wf.Lanes.run
+                if turn == "eager":
+                    wf.Lanes.run = wf.Lanes._run_eager
+                try:
+                    results[f"{label} {turn}"] = profile(
+                        r, card, "mesh_hit_kernel", f"{label} {turn} {r.width}x{r.height}", spp)
+                finally:
+                    wf.Lanes.run = real
+    return results
+
+
+def wavefront_summary(turns, profiles, card):
+    """Each wavefront render's graphed and eager wall ms (the turns, in
+    this process) beside its device ms, idle share and host syncs an
+    iteration (profile_wavefront's tables, in a child, and the main
+    path's graphed table of phase 8)."""
+    for label, t in turns.items():
+        line = [f"[wavefront] {label}: {t['iterations']} iterations, {t['lane_bounces']} "
+                f"lane-bounces, {t['mesh_hit']} mesh_hit launches; graph capture + instantiate "
+                f"{t['capture_s']:.3f} s"]
+        for turn in ("graphed", "eager"):
+            p = profiles.get(f"{label} {turn}") or t.get(f"{turn}_profile")
+            wall = t[f"{turn}_ms"]
+            if not p:
+                line.append(f"{turn}: wall {wall:.3f} ms, device time not measured")
+                continue
+            dev_ms = p["device_ms"]
+            line.append(f"{turn}: wall {wall:.3f} ms, device {dev_ms:.3f} ms (wall {wall / dev_ms:.2f}x "
+                        f"device, idle {1 - dev_ms / wall:.1%}), {p['syncs_per_iteration']:.2f} "
+                        f"host syncs an iteration, mesh_hit {p['launches']} kernels in the trace")
+        print("; ".join(line) + f" [{card}]", flush=True)
 
 
 def profile_in_child(what, card):
@@ -3377,7 +3554,7 @@ def main() -> int:
     mesh_records, mesh_shape = mesh_phases(dev, card, variants)
     kernels += mesh_records
     shape.update(mesh_shape)
-    hit_record, per_path, walk_ops = integrator_phases(dev, card)
+    hit_record, per_path, walk_ops, wf_turns = integrator_phases(dev, card)
     walled_profile = profile_in_child("walled", card)["walled"]
     if walled_profile:
         kernels[0]["in_render_ms"] = walled_profile["ms"]
@@ -3386,6 +3563,8 @@ def main() -> int:
     for rec, label in ((kernels[0], "outdoor + sky"), (kernels[1], "a380-class + sky")):
         if sky_profiles[label]:
             rec["sky_in_render_ms"] = sky_profiles[label]["ms"]
+    wavefront_summary(dict(wf_turns, **{"a380-class + sky cpu": sky["wavefront"]}),
+                      profile_in_child("wavefront", card), card)
 
     # ---- the fused kernels' bounds: their timed launches' lane-bounces
     # (the wavefront's lane-bounces per path of the same frame, phase 8)

@@ -120,11 +120,12 @@ def make_wavefront_render_step(mesh, width: int, pool: int):
     samples a pixel."""
     _, _, n_tile, n_spp, t_rank, s_rank = _mesh_coords(mesh)
     flat_rank = t_rank * n_spp + s_rank
+    lanes = {}  # the lane pools (and CUDA graphs) between steps
 
     def step(scene: SceneTensors, params: IntegratorParams, xs, ys, sample_base: int,
              n_samples: int) -> torch.Tensor:
         img = wavefront_batch(scene, params, xs, ys, sample_base + flat_rank * n_samples,
-                              n_samples, width, pool)
+                              n_samples, width, pool, cache=lanes)
         dist.all_reduce(img)
         return img
 

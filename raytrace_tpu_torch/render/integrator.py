@@ -34,7 +34,9 @@ Only what is bit-identical is shared with the kernels' plain versions:
 the CPU. The cube map: a lane that misses records its direction and
 weight (`miss_d`, `miss_w`; a path misses at most once, and then ends),
 resolved once after the loop through `ops/cubemap.sample`
-(:1034-1040); debug_single_ray samples the sky in its one bounce.
+(:1034-1040; the wavefront's retiring lanes through `resolve_sky_dense`,
+which needs no host sync); debug_single_ray samples the sky in its one
+bounce.
 
 The differentiable tier (`IntegratorParams.differentiable`, the JAX
 :75): torch autograd records the bounce loop as it runs, so the loop
@@ -126,6 +128,20 @@ def resolve_sky(scene, L, miss_d, miss_w, lanes=None):
     mi = missed.nonzero()[:, 0]
     sky = scene.sky.sample(*(c[mi] for c in miss_d))
     return tuple(L[k].index_put((mi,), L[k][mi] + miss_w[k][mi] * sky[k]) for k in range(3))
+
+
+def resolve_sky_dense(scene, L, miss_d, miss_w, lanes):
+    """resolve_sky(scene, L, miss_d, miss_w, lanes=lanes) without the
+    gather's `nonzero` (a host sync): the sky sampled on every lane, the
+    term kept where the lane resolves, the same arithmetic a lane, so
+    bitwise the same. A lane that does not resolve looks up the fixed
+    direction +z: its miss_d may be 0, whose face uv is 0/0, a NaN texel
+    index."""
+    missed = (miss_w[0] > 0.0) | (miss_w[1] > 0.0) | (miss_w[2] > 0.0)
+    missed = missed & lanes
+    zero = torch.zeros_like(miss_d[0])
+    sky = scene.sky.sample(*_where3(missed, miss_d, (zero, zero, torch.ones_like(zero))))
+    return tuple(torch.where(missed, L[k] + miss_w[k] * sky[k], L[k]) for k in range(3))
 
 
 def _where3(mask, a, b):

@@ -11,7 +11,9 @@ Port of `raytrace_tpu/render/renderer.py` (:394-427, :606-628, `render`
 3. `wavefront.wavefront_batch`: every other forward render (cpu
    semantics, direct-light sampling, debug_single_ray, more than 64
    spheres or free triangles), the XLA integrator over a lane pool, its
-   mesh intersection through the `mesh_hit` kernel;
+   mesh intersection through the `mesh_hit` kernel; on the card one
+   iteration is a CUDA graph, captured once per batch shape and kept
+   with its lane pool by the Renderer;
 4. `sample_batch` (:64-122): the plain integrator over all pixels, one
    sample at a time; the wavefront's oracle, and the one driver of a
    differentiable render (`differentiable=True`, the JAX
@@ -243,6 +245,7 @@ class Renderer:
             flat = tile_order(self.width, self.height)
             self._unscramble = torch.from_numpy(flat).to(self.device)
             self.pool = min(POOL_CAP, -(-n_pix // 1024) * 1024)
+            self._lanes = {}  # the wavefront's lane pools (and CUDA graphs) by batch shape
         self._xs = torch.from_numpy((flat % self.width).astype(np.int32)).to(self.device)
         self._ys = torch.from_numpy((flat // self.width).astype(np.int32)).to(self.device)
         self._step = self._batch
@@ -260,7 +263,7 @@ class Renderer:
         for s0 in range(0, n_samples, samples_per_launch):
             img, st = wavefront_batch(tables, params, xs, ys, sample_base + s0,
                                       min(samples_per_launch, n_samples - s0), self.width,
-                                      self.pool, return_stats=True)
+                                      self.pool, return_stats=True, cache=self._lanes)
             for k in st:
                 self.stats[k] += st[k]
             acc = img if acc is None else acc + img

@@ -2,7 +2,7 @@
 
 Port of `raytrace_tpu/render/wavefront.py::wavefront_batch` (:61-300).
 A fixed pool of lanes runs the integrator's `_bounce_step`, and every
-iteration:
+iteration (`Lanes._iteration`):
 
   1. one bounce for the whole pool (the same formulas and the same
      per-(pixel, sample) streams as `trace_paths`);
@@ -10,118 +10,268 @@ iteration:
      them a pending direct-light term, as trace_paths drops pendings at
      its loop's end); lanes whose path ended retire their radiance, with
      the cube map's term where the path missed (trace_paths' post-loop
-     resolve, :212-230);
+     resolve, :212-230, in its dense form `resolve_sky_dense`);
   3. dead lanes take the next work units off a queue counter: ranked by
      a prefix sum over the pool, handed out sample-major over the
      tile-ordered pixel table, seeded from (x, y, sample) and raygen'd
      in place, with a cleared direct-light state and miss record.
 
-The loop ends when the queue is drained and the last path has died: its
-condition is one `.any()` per iteration, a sync with the host (the
-iteration count is in `return_stats`). Not ported: `sort_lanes`
-(measured a loss on the TPU, :105-115), `ablate` (profiling stubs) and
-the sky resolve's 8192-lane tiles under `lax.cond` (a TPU gather trick,
-:228-248): the retiring lanes that missed are gathered (`nonzero`, with
-a sky a second sync an iteration) and their sky sampled in one pass.
+The JAX driver runs that loop as one `lax.while_loop` on the device
+(:296). Here the lane state lives in static buffers (`Lanes`), allocated
+once per (scene, params, pixel tables, n_samples, width, pool), and
+`_iteration` writes every result back into them in place, so its inputs
+and outputs keep their addresses. On CUDA tensors one iteration is
+captured once as a CUDA graph and replayed; the host reads one flag (any
+lane active) after each replay, and counts nothing itself: the
+iterations and lane-bounces are counted on the device. Every value that
+differs between batches (the first sample id) is a device buffer,
+written before the batch's replays. On CPU tensors the same
+`_iteration` runs eagerly in the same loop, so the CPU tests run the
+body the card captures. A cached `Lanes` assumes that the scene's
+tensors keep their storage and its Python constants (the camera row,
+the emitters) do not change between calls.
+
+Not ported: `sort_lanes` (measured a loss on the TPU, :105-115), `ablate`
+(profiling stubs) and the sky resolve's 8192-lane tiles under `lax.cond`
+(a TPU gather trick, :228-248): the sky is sampled on every lane and
+kept where a retiring lane missed.
 
 Accumulation is deterministic, without atomics: a retiring lane writes
 its radiance into its work unit's own (sample, pixel) slot (each unit
 retires exactly once; lanes that do not retire write a discard row), and
 the slots are summed over the samples in order, 0, 1, ..., as
-`renderer.sample_batch` sums. So two runs, and a resumed render, are
-bitwise equal on the card too. The slots take n_samples * n_pix * 12
-bytes.
+`renderer.sample_batch` sums. So two runs, a resumed render, and the
+graphed and eager loops are bitwise equal on the card too. The slots
+take n_samples * n_pix * 12 bytes.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
+from ..ops import mesh_kernel as mk
 from ..ops import raygen, rng
-from .integrator import (IntegratorParams, _bounce_step, init_lanes, max_depth, resolve_sky,
-                         tracks_miss, uses_dls)
+from .integrator import (IntegratorParams, _bounce_step, init_lanes, max_depth,
+                         resolve_sky_dense, tracks_miss, uses_dls)
+
+CACHED_LANES = 2  # a render's batch shapes: its full chunk and its last
+
+
+def _leaves(tree):
+    """The tensors of a lane-state tree (dicts of tensors, tuples and
+    dicts), in a fixed order."""
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, tuple)):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone(v) for v in tree)
+    return tree.clone()
+
+
+class Lanes:
+    """The lane pool of `wavefront_batch` for one (scene, params, pixel
+    tables, n_samples, width, pool), in static buffers: the lane state of
+    `init_lanes` (`st`), each lane's work unit, the queue counter, the
+    (sample, pixel) slots, the batch's first sample id, the device's
+    iteration and lane-bounce counts and the any-lane-active flag. On
+    the card the iteration's CUDA graph is captured at the first replay
+    and kept (`graph`, with the mesh_hit launches it holds,
+    `graph_launches`, and the host seconds of its capture and
+    instantiation, `capture_s`)."""
+
+    def __init__(self, scene, params: IntegratorParams, xs_tab, ys_tab, n_samples: int,
+                 width: int, pool: int):
+        if params.differentiable:
+            raise ValueError("the wavefront does not take a differentiable render")
+        self.scene, self.params = scene, params
+        self.xs, self.ys = xs_tab, ys_tab
+        self.dev = dev = xs_tab.device
+        self.n_samples, self.n_pix = n_samples, xs_tab.numel()
+        self.n_work = self.n_pix * n_samples
+        self.pool = pool
+        self.cap = max_depth(params)
+        self.dls = uses_dls(scene, params)
+        self.sky = tracks_miss(scene, params)
+        self.flat = (ys_tab * width + xs_tab).long()
+        self.zeros = torch.zeros((pool,), dtype=torch.float32, device=dev)
+        self.ones = torch.ones_like(self.zeros)
+        self.st = _clone(self._fresh())  # init_lanes shares tensors between fields
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.unit = torch.zeros((pool,), **i64)
+        self.discard = torch.full((pool,), self.n_work, **i64)  # the slots' discard row
+        self.q, self.sample_base = torch.zeros((), **i64), torch.zeros((), **i64)
+        self.iters, self.lane_bounces = torch.zeros((), **i64), torch.zeros((), **i64)
+        self.flag = torch.zeros((), dtype=torch.bool, device=dev)
+        self.slots = torch.zeros((self.n_work + 1, 3), dtype=torch.float32, device=dev)
+        self.graph, self.graph_launches, self.capture_s = None, {}, None
+
+    def _fresh(self):
+        """The lane state of an empty pool (every lane dead)."""
+        z, one = self.zeros, self.ones
+        st = init_lanes(self.scene, self.params, (z, z, z), (z, z, one),
+                        torch.zeros((self.pool,), dtype=torch.int64, device=self.dev))
+        st["active"] = torch.zeros_like(st["active"])
+        return st
+
+    def _start(self, sample_base: int):
+        """Empty the pool, zero the counters and slots, set the first
+        sample id, and hand out the first work units."""
+        for buf, v in zip(_leaves(self.st), _leaves(self._fresh())):
+            buf.copy_(v)
+        for t in (self.unit, self.q, self.iters, self.lane_bounces, self.slots):
+            t.zero_()
+        self.sample_base.fill_(sample_base)
+        self._assign(self.st)
+
+    def _assign(self, new):
+        """Write the lane state `new` (the bounce's, or the buffers
+        themselves) into the buffers, with the next work units handed to
+        every dead lane; advance q and set the flag."""
+        st, where = self.st, torch.where
+        n_work, n_pix = self.n_work, self.n_pix
+        need = ~new["active"]
+        ranks = torch.cumsum(need.to(torch.int64), 0)
+        ids = self.q + ranks - 1
+        valid = need & (ids < n_work)
+        self.q.copy_(torch.clamp(self.q + ranks[-1], max=n_work))
+        ids = ids.clamp(0, max(n_work - 1, 0))
+        pix = ids % n_pix
+        x, y = self.xs[pix], self.ys[pix]
+        state0, ro0, rd0 = raygen.generate_paths(
+            rng.init_state(x, y, self.sample_base + ids // n_pix), x, y, self.scene.cam,
+            self.scene.has_lens, self.params.generator)
+        z, one = self.zeros, self.ones
+        fresh = dict(ro=ro0, rd=rd0, L=(z, z, z), ci=(one, one, one), inten=one, rng=state0,
+                     bounce=torch.zeros_like(st["bounce"]))
+        if self.sky:  # a fresh work unit must not inherit a miss record (:287-288)
+            fresh.update(miss_d=(z, z, z), miss_w=(z, z, z))
+        for k, v in fresh.items():
+            for out, a, b in zip(_leaves((st[k],)), _leaves((v,)), _leaves((new[k],))):
+                where(valid, a, b, out=out)
+        if self.dls:  # nor a pending direct-light term
+            torch.logical_and(new["dls"]["active"], ~valid, out=st["dls"]["active"])
+        where(valid, ids, self.unit, out=self.unit)
+        torch.logical_or(new["active"], valid, out=st["active"])
+        self.flag.copy_(st["active"].any())
+
+    def _iteration(self):
+        """One iteration over the buffers: bounce, cap, retire, assign."""
+        st, where = self.st, torch.where
+        was_active = st["active"]  # overwritten last, by _assign
+        new = _bounce_step(self.scene, self.params, st)
+        new["active"] = new["active"] & (new["bounce"] < self.cap)
+        if self.dls:
+            new["dls"]["active"] = new["dls"]["active"] & new["active"]
+        term = was_active & ~new["active"]
+        L = new["L"]
+        if self.sky:  # a retiring path that missed adds its sky term
+            L = resolve_sky_dense(self.scene, L, new["miss_d"], new["miss_w"], term)
+        self.slots.index_put_((where(term, self.unit, self.discard),), torch.stack(L, dim=1))
+        self.iters.add_(was_active.any())
+        self.lane_bounces.add_(was_active.sum())
+        # a dead lane keeps its state: the bounce leaves every field of
+        # such a lane as it was but its stream and the direct-light
+        # record, which it rewrites
+        new["rng"] = where(was_active, new["rng"], st["rng"])
+        if self.dls:
+            for k in ("pos", "norm", "ci", "self_idx"):
+                for out, a in zip(_leaves((st["dls"][k],)), _leaves((new["dls"][k],))):
+                    where(was_active, a, out, out=out)
+        self._assign(new)
+
+    def _capture(self):
+        """The first replay: one eager iteration on a side stream (the
+        warm-up the capture needs, a real iteration of the render), then
+        the capture of the next, with the mesh_hit launches it holds
+        taken back out of mk.LAUNCHES (they are counted at each replay)."""
+        with torch.cuda.device(self.dev):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._iteration()
+            torch.cuda.current_stream().wait_stream(side)
+            before = dict(mk.LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._iteration()
+            self.capture_s = time.perf_counter() - t0
+        self.graph_launches = {k: n - before.get(k, 0) for k, n in mk.LAUNCHES.items()
+                               if n != before.get(k, 0)}
+        mk.LAUNCHES.update(before)
+        self.graph = graph
+
+    def _replay(self):
+        if self.graph is None:
+            self._capture()
+            return
+        self.graph.replay()
+        for k, n in self.graph_launches.items():
+            mk.LAUNCHES[k] += n
+
+    def _loop(self, step, sample_base: int) -> torch.Tensor:
+        self._start(sample_base)
+        while bool(self.flag):
+            step()
+        return self._image()
+
+    def _image(self) -> torch.Tensor:
+        """The slots summed over the samples, by flat pixel."""
+        per_sample = self.slots[:self.n_work].view(self.n_samples, self.n_pix, 3)
+        acc = torch.zeros((self.n_pix, 3), dtype=torch.float32, device=self.dev)
+        for s in range(self.n_samples):  # sample_batch's order
+            acc = acc + per_sample[s]
+        return torch.empty_like(acc).index_copy_(0, self.flat, acc)
+
+    def run(self, sample_base: int) -> torch.Tensor:
+        """The batch from sample id sample_base: the graph's replays on
+        the card, the eager loop on the CPU. Returns wavefront_batch's
+        image."""
+        return self._loop(self._replay if self.dev.type == "cuda" else self._iteration,
+                          sample_base)
+
+    def _run_eager(self, sample_base: int) -> torch.Tensor:
+        """`run` by the eager loop on any device: on the card, the
+        yardstick that chip_smoke.py times the graph against."""
+        return self._loop(self._iteration, sample_base)
+
+    def stats(self) -> dict:
+        """The last batch's {"iterations", "lane_bounces"}, from the
+        device's counts."""
+        iterations, lane_bounces = torch.stack((self.iters, self.lane_bounces)).tolist()
+        return {"iterations": iterations, "lane_bounces": lane_bounces}
 
 
 def wavefront_batch(scene, params: IntegratorParams, xs_tab, ys_tab, sample_base: int,
-                    n_samples: int, width: int, pool: int, return_stats: bool = False):
+                    n_samples: int, width: int, pool: int, return_stats: bool = False,
+                    cache: dict | None = None):
     """Radiance SUM over sample ids sample_base .. sample_base+n_samples-1
     of every pixel of the (n_pix,) int32 tables xs_tab, ys_tab (dispatch
     order, e.g. 32x32 tiles) on the scene's device. Returns the (n_pix, 3)
     f32 sums indexed by the flat pixel y * width + x (with
     return_stats, also {"iterations", "lane_bounces"}: the loop's
-    iterations and the lanes active at their starts, summed). Raises on
-    a differentiable render, as the JAX package's wavefront.supports
+    iterations and the lanes active at their starts, summed). `cache`: a
+    dict that keeps the `Lanes` (and on the card their CUDA graphs)
+    between calls, the last CACHED_LANES made; without one, each call
+    allocates its own (and captures its graph anew). Raises on a
+    differentiable render, as the JAX package's wavefront.supports
     refuses one (:57-58): that tier renders through
     `renderer.sample_batch`."""
-    if params.differentiable:
-        raise ValueError("the wavefront does not take a differentiable render")
-    dev = xs_tab.device
-    n_pix = xs_tab.numel()
-    n_work = n_pix * n_samples
-    cam, has_lens = scene.cam, scene.has_lens
-    cap = max_depth(params)
-    dls = uses_dls(scene, params)
-    sky = tracks_miss(scene, params)
-
-    zeros = torch.zeros((pool,), dtype=torch.float32, device=dev)
-    ones = torch.ones_like(zeros)
-    st = init_lanes(scene, params, (zeros, zeros, zeros), (zeros, zeros, ones),
-                    torch.zeros((pool,), dtype=torch.int64, device=dev))
-    st["active"] = torch.zeros_like(st["active"])
-    unit = torch.zeros((pool,), dtype=torch.int64, device=dev)
-    q = torch.zeros((), dtype=torch.int64, device=dev)
-    slots = torch.zeros((n_work + 1, 3), dtype=torch.float32, device=dev)  # row n_work: discard
-
-    def assign(st, unit, q):
-        """Hand the next work units to every dead lane; advance q."""
-        need = ~st["active"]
-        ranks = torch.cumsum(need.to(torch.int64), 0)
-        ids = q + ranks - 1
-        valid = need & (ids < n_work)
-        q = torch.clamp(q + ranks[-1], max=n_work)
-        ids = ids.clamp(0, max(n_work - 1, 0))
-        pix = ids % n_pix
-        x, y = xs_tab[pix], ys_tab[pix]
-        state0, ro0, rd0 = raygen.generate_paths(
-            rng.init_state(x, y, sample_base + ids // n_pix), x, y, cam, has_lens,
-            params.generator)
-        where = torch.where
-        st = dict(st, ro=tuple(where(valid, ro0[k], st["ro"][k]) for k in range(3)),
-                  rd=tuple(where(valid, rd0[k], st["rd"][k]) for k in range(3)),
-                  L=tuple(where(valid, zeros, c) for c in st["L"]),
-                  ci=tuple(where(valid, ones, c) for c in st["ci"]),
-                  inten=where(valid, ones, st["inten"]), rng=where(valid, state0, st["rng"]),
-                  active=st["active"] | valid,
-                  bounce=where(valid, torch.zeros_like(st["bounce"]), st["bounce"]))
-        if dls:  # a fresh work unit must not inherit a pending direct-light term
-            st["dls"] = dict(st["dls"], active=st["dls"]["active"] & ~valid)
-        if sky:  # nor a miss record (:287-288)
-            for k in ("miss_d", "miss_w"):
-                st[k] = tuple(where(valid, zeros, c) for c in st[k])
-        return st, where(valid, ids, unit), q
-
-    st, unit, q = assign(st, unit, q)
-    iterations, lane_bounces = 0, torch.zeros((), dtype=torch.int64, device=dev)
-    while bool(st["active"].any()):
-        iterations += 1
-        was_active = st["active"]
-        lane_bounces = lane_bounces + was_active.sum()
-        st = _bounce_step(scene, params, st)
-        st["active"] = st["active"] & (st["bounce"] < cap)
-        if dls:
-            st["dls"]["active"] = st["dls"]["active"] & st["active"]
-        term = was_active & ~st["active"]
-        L = st["L"]
-        if sky:  # a retiring path that missed adds its sky term
-            L = resolve_sky(scene, L, st["miss_d"], st["miss_w"], lanes=term)
-        slot = torch.where(term, unit, torch.full_like(unit, n_work))
-        slots.index_put_((slot,), torch.stack(L, dim=1))
-        st, unit, q = assign(st, unit, q)
-
-    per_sample = slots[:n_work].view(n_samples, n_pix, 3)
-    acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
-    for s in range(n_samples):  # sample_batch's order
-        acc = acc + per_sample[s]
-    img = torch.empty_like(acc).index_copy_(0, (ys_tab * width + xs_tab).long(), acc)
-    if return_stats:
-        return img, {"iterations": iterations, "lane_bounces": int(lane_bounces)}
-    return img
+    key = (id(scene), params, id(xs_tab), id(ys_tab), n_samples, width, pool)
+    lanes = None if cache is None else cache.get(key)
+    if lanes is None:  # it holds scene and tables, so their ids stay theirs
+        lanes = Lanes(scene, params, xs_tab, ys_tab, n_samples, width, pool)
+        if cache is not None:
+            cache[key] = lanes
+            while len(cache) > CACHED_LANES:
+                cache.pop(next(iter(cache)))
+    img = lanes.run(sample_base)
+    return (img, lanes.stats()) if return_stats else img
