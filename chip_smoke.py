@@ -6,16 +6,17 @@
 Drives raytrace_tpu_torch's paths on the card and checks them:
 
 1. environment: the card's name and power limit, CUDA and nvcc versions;
-2. build: compiles csrc/trace_kernel.cu and csrc/mesh_kernel.cu with nvcc
-   for sm_90a, with copies of mesh_kernel.cu at 8, 16 and 32 threads per
-   ray for the group sweep of phase 5, all at once (timed), and prints
-   ptxas's registers / shared memory / stack / spills of every kernel
-   (both trace_tiles entries among them) and trace_kernel.cu's SASS
-   instruction counts (cuobjdump, into raytrace_tpu_torch/_build/sass/),
-   with the registers of each trace_tiles_kernel<kSky, kPcg>, and
-   mesh_kernel.cu's, with the registers of each mesh_trace_kernel<kBrute,
-   kInst, kSky, kPcg> (scripts/torch_mesh_sass.py puts them beside another
-   checkout's);
+2. build: compiles csrc/trace_kernel.cu, csrc/mesh_kernel.cu and
+   csrc/bounce_kernel.cu with nvcc for sm_90a, with copies of
+   mesh_kernel.cu at 8, 16 and 32 threads per ray for the group sweep of
+   phase 5, all at once (timed), and prints ptxas's registers / shared
+   memory / stack / spills of every kernel (both trace_tiles entries and
+   the two bounce entries among them) and each file's SASS instruction
+   counts (cuobjdump, into raytrace_tpu_torch/_build/sass/), with the
+   registers of each trace_tiles_kernel<kSky, kPcg>, of each
+   mesh_trace_kernel<kBrute, kInst, kSky, kPcg> (scripts/torch_mesh_sass.py
+   puts them beside another checkout's) and of bounce_prims and
+   bounce_shade;
 3. kernel vs plain, both on the card: `trace_tiles` (the CUDA kernel) and
    its first design `trace_tiles_per_thread` (the yardstick) against
    `trace_tiles_reference` (plain torch) on the walled scene at 1200x600
@@ -81,21 +82,42 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    per-thread, per-thread, kernel, plain, beside the bound: the walk any
    exact traversal needs on those rays (`walk_work`) in FP32 operations,
    and the bytes of the tables and rays;
+7b. the bounce kernels on the card: `bounce_prims` (with direct-light
+   sampling also on each emitter's shadow rays) and `bounce_shade` (the
+   CUDA entries of csrc/bounce_kernel.cu) against their plain versions
+   (ops/bounce_kernel.prims_reference, shadow_reference,
+   shade_reference: the integrator's torch pieces) on in-render lane
+   states, each the 131,072-lane pool as the render's 20th iteration
+   finds it (driven eagerly): the main path's (a380-class 1216x608 in
+   cpu semantics), with direct-light sampling, under the sky in cpu
+   semantics, walled 1200x600 through the wavefront in gpu semantics and
+   in cpu semantics with direct-light sampling. The lanes that differ in
+   each output are printed (bitwise the aim), under 1% of lanes may be
+   off by more than 1e-3 relative; kernel and plain timed with CUDA
+   events in turns plain, kernel, kernel, plain (bounce_shade on a copy
+   of the state restored before each launch) beside the bound: the lane
+   state's bytes read and written once at 3.35 TB/s against the FP32
+   instructions of the state's lane-bounces at 33.5 T/s (BOUNCE_*_OPS);
 8. the integrator paths at full width, each render with the launch
    counts reset just before and read just after, with paths/s, the
    wavefront's iterations and lane-bounces, and the card's name and
    power limit: Renderer(a380-class 1216x608 in cpu semantics,
-   "cuda").render(16), the slice's main path (the wavefront, mesh_hit
-   launches > 0, no other kernel); the same with direct-light sampling
-   (its shadow rays add mesh_hit launches); each of these two, walled
-   through the wavefront and phase 9's cpu-semantics sky render in turns
-   graphed (the Renderer's loop: an iteration a CUDA graph replay, one
-   flag read), eager (the yardstick: the same iteration op by op),
-   eager, graphed, every turn's image bitwise the first's with equal
-   iterations, lane-bounces and launches, a bitwise resume, the graph's
-   capture + instantiate seconds, and (after phase 9, in a child
-   process) each render's device ms, idle share and host syncs an
-   iteration, graphed and eager; the a380-class frame and
+   "cuda").render(16), the slice's main path (the wavefront: bounce_prims,
+   mesh_hit and bounce_shade once an iteration, no other CUDA kernel);
+   the same with direct-light sampling (bounce_prims and mesh_hit once
+   more an iteration and emitter); each of these two, walled through the
+   wavefront and phase 9's cpu-semantics sky render in turns graphed (the
+   Renderer's loop: an iteration a CUDA graph replay of the bounce
+   kernels, mesh_hit and the torch assign, one flag read), torch (the
+   yardstick: the graph of the same iteration with the bounce in torch,
+   Lanes._torch_iteration), eager (the graphed iteration op by op),
+   eager, torch, graphed, every graphed and eager turn's image bitwise
+   the first's with equal iterations, lane-bounces and launches, the
+   torch bounce's bitwise too or else under the lane gate (printed), a
+   bitwise resume, the graph's capture + instantiate seconds, and (after
+   phase 9, in a child process) each render's device ms, idle share,
+   host syncs and kernels an iteration and each bounce kernel's share,
+   graphed and torch; the a380-class frame and
    the 2,097-triangle surface in gpu semantics through the wavefront
    (use_mesh_fused=False) against mesh_trace's and mesh_trace_brute's
    images (the surface on the brute route whatever the gate says), and
@@ -125,8 +147,9 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    with the sky bitwise on the 2,097-triangle cut at 16, each timed
    against its launch without the sky in turns; render(16) with paths/s
    and a torch.profiler table, against the wavefront and a bitwise resume; then in cpu semantics
-   through the wavefront: render(16) in phase 8's turns with mesh_hit
-   launches, a 96x48 frame on the card against the CPU. A sky scene
+   through the wavefront: render(16) in phase 8's turns with the bounce
+   kernels' and mesh_hit's launches, a 96x48 frame on the card against
+   the CPU. A sky scene
    on the card must launch the sky instantiations (their launch counts).
    Every resume loads its checkpoint into a new Renderer. Prints the
    phase's seconds;
@@ -244,7 +267,12 @@ the plain version's counts of the sky launch, plus SKY_INSTR a fetch and
 the distinct 32-byte sectors of the sky pool its fetches read) and
 sky_launches_per_render; the mesh_hit record its launches a
 differentiable a380-class render (diff_launches_per_render) and its ms a
-launch there (diff_in_render_ms, phase 10's profiler table). Phase 13
+launch there (diff_in_render_ms, phase 10's profiler table). Phase 7b
+adds the records bounce_prims and bounce_shade (replaces: the JAX
+integrator functions they stand for, XLA-fused code, not a Pallas
+kernel): their ms, plain ms and bound on the main path's in-render
+state, their launches and ms a launch inside the graphed main render,
+and whether they were bitwise on every state. Phase 13
 adds the records mesh_trace_instanced, mesh_trace_instanced_sky and
 mesh_trace_instanced_pcg, the first with its yardstick's ms and share and
 the large fleet's ms; every record carries `share`, bound_ms / ms.
@@ -273,12 +301,22 @@ SMS = 132  # the H100 SXM's streaming multiprocessors
 
 def reset_launches():
     """Every CUDA entry's launch count to 0."""
+    from raytrace_tpu_torch.ops import bounce_kernel as bk
     from raytrace_tpu_torch.ops import mesh_kernel as mk
     from raytrace_tpu_torch.ops import trace_kernel as tk
 
-    for counts in (tk.LAUNCHES, mk.LAUNCHES):
+    for counts in (tk.LAUNCHES, mk.LAUNCHES, bk.LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def launch_counts():
+    """Every CUDA entry's launch count, by name."""
+    from raytrace_tpu_torch.ops import bounce_kernel as bk
+    from raytrace_tpu_torch.ops import mesh_kernel as mk
+    from raytrace_tpu_torch.ops import trace_kernel as tk
+
+    return dict(mk.LAUNCHES, **tk.LAUNCHES, **bk.LAUNCHES)
 
 
 def lane_gate(ours, ref):
@@ -380,7 +418,7 @@ def warm_render(tag, label, scheme, spp, card, route=None, **kw):
     img = r.render(progress=False, samples=spp)  # ends in a device -> host copy
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(mk.LAUNCHES, **tk.LAUNCHES)
+    counts = launch_counts()
     w, h = r.width, r.height
     print(f"[{tag}] Renderer({label} {w}x{h}, cuda{''.join(f', {k}={v}' for k, v in kw.items())})"
           f".render({spp}): {dt:.4f} s, {w * h * spp / dt:.1f} paths/s, {r.mode} semantics, "
@@ -391,26 +429,48 @@ def warm_render(tag, label, scheme, spp, card, route=None, **kw):
     return r, img, counts, dt
 
 
-WF_TURNS = ("graphed", "eager", "eager", "graphed")  # the wavefront's loops, in turns
+# the wavefront's loops, in turns: "graphed", the Renderer's own (an
+# iteration a CUDA graph replay of the bounce kernels, mesh_hit and the
+# torch assign); "torch", its yardstick (the graph of Lanes._torch_iteration:
+# the bounce in torch, as before the bounce kernels); "eager", the graphed
+# iteration launched op by op (Lanes._run_eager)
+WF_TURNS = ("graphed", "torch", "eager", "eager", "torch", "graphed")
+# the kernels a mesh scene's wavefront iteration launches, each once (with
+# direct-light sampling, bounce_prims and mesh_hit once more an emitter)
+WAVEFRONT_MESH = ("bounce_prims", "mesh_hit", "bounce_shade")
+
+
+def torch_bounce_renderer(scheme, spp, **kw):
+    """Renderer(scheme, "cuda", **kw) whose wavefront graph is the torch
+    bounce's (Lanes._torch_iteration captured by a first render(spp)):
+    the yardstick the bounce kernels are timed against."""
+    from raytrace_tpu_torch.render import wavefront as wf
+    from raytrace_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(scheme, device="cuda", **kw)
+    real = wf.Lanes._iteration
+    wf.Lanes._iteration = wf.Lanes._torch_iteration
+    try:
+        r.render(progress=False, samples=spp)  # captures the batch shape's graph
+    finally:
+        wf.Lanes._iteration = real
+    return r
 
 
 def wavefront_turns(tag, label, scheme, spp, card, **kw):
-    """A wavefront render(spp) on the card in WF_TURNS: "graphed", the
-    Renderer's own loop (an iteration a CUDA graph replay), and "eager",
-    its yardstick (wavefront.Lanes._run_eager in Lanes.run's place: the
-    same iteration launched op by op), each warm (the batch shape's graph
-    captured by a first render), into a fresh target, with the launch
-    counts reset just before and read just after. Every turn's image must
-    be bitwise the first's, with equal iterations, lane-bounces and
-    launches; then a bitwise resume. Prints each turn's wall ms and the
-    graph's capture + instantiate seconds. Returns (renderer, image,
-    launches, {graphed_ms, eager_ms, capture_s, iterations, lane_bounces,
-    mesh_hit})."""
+    """A wavefront render(spp) on the card in WF_TURNS, each warm (the
+    batch shape's graph captured by a first render), into a fresh target,
+    with the launch counts reset just before and read just after. Every
+    graphed and eager turn's image must be bitwise the first's, with equal
+    iterations, lane-bounces and launches; every torch turn's bitwise too,
+    or else under the lane gate (its pixels), printed either way; then a
+    bitwise resume. Prints each turn's wall ms and the graph's capture +
+    instantiate seconds. Returns (renderer, image, launches, {graphed_ms,
+    torch_ms, eager_ms, capture_s, iterations, lane_bounces, launches,
+    torch_bitwise})."""
     import numpy as np
     import torch
 
-    from raytrace_tpu_torch.ops import mesh_kernel as mk
-    from raytrace_tpu_torch.ops import trace_kernel as tk
     from raytrace_tpu_torch.render import wavefront as wf
     from raytrace_tpu_torch.render.renderer import Renderer
     from raytrace_tpu_torch.render.target import RenderTarget
@@ -422,9 +482,11 @@ def wavefront_turns(tag, label, scheme, spp, card, **kw):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     (lanes,) = r._lanes.values()
+    yard = torch_bounce_renderer(scheme, spp, **kw)
     runs = {}
     for turn in WF_TURNS:
-        r.target = RenderTarget(r.width, r.height)
+        rr = yard if turn == "torch" else r
+        rr.target = RenderTarget(rr.width, rr.height)
         real = wf.Lanes.run
         if turn == "eager":
             wf.Lanes.run = wf.Lanes._run_eager
@@ -432,36 +494,49 @@ def wavefront_turns(tag, label, scheme, spp, card, **kw):
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
-            img = r.render(progress=False, samples=spp)  # ends in a device -> host copy
+            img = rr.render(progress=False, samples=spp)  # ends in a device -> host copy
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
         finally:
             wf.Lanes.run = real
-        counts = dict(mk.LAUNCHES, **tk.LAUNCHES)
-        runs.setdefault(turn, []).append(dict(img=img, stats=dict(r.stats), counts=counts, ms=ms))
+        counts = {k: v for k, v in launch_counts().items() if v}
+        runs.setdefault(turn, []).append(dict(img=img, stats=dict(rr.stats), counts=counts, ms=ms))
         print(f"[{tag}] {label} {r.width}x{r.height} render({spp}), {turn}: {ms:.3f} ms wall, "
-              f"stats {r.stats}, launches {({k: v for k, v in counts.items() if v})} [{card}]",
-              flush=True)
+              f"stats {rr.stats}, launches {counts} [{card}]", flush=True)
     ref = runs["graphed"][0]
     assert ref["img"].shape == (r.height, r.width, 3) and np.isfinite(ref["img"]).all(), \
         f"{label}: bad image"
+    bitwise = True
     for turn, rs in runs.items():
         for run in rs:
+            if turn == "torch":
+                same = np.array_equal(run["img"], ref["img"]) and run["stats"] == ref["stats"]
+                bitwise &= same
+                if not same:
+                    frac, err = lane_gate(torch.from_numpy(run["img"]),
+                                          torch.from_numpy(ref["img"]))
+                    print(f"[{tag}] {label}: the torch bounce's image differs, {frac:.6f} of "
+                          f"pixels off by > 1e-3 relative, max |d| {err:.3e}, stats "
+                          f"{run['stats']} against {ref['stats']}", flush=True)
+                    assert frac < 0.01, f"{label}: the torch bounce's image is off the gate"
+                continue
             assert np.array_equal(run["img"], ref["img"]), f"{label}: {turn} image differs"
             assert run["stats"] == ref["stats"] and run["counts"] == ref["counts"], \
                 f"{label}: {turn} stats {run['stats']} / launches {run['counts']} differ"
     ms = {k: sum(run["ms"] for run in v) / len(v) for k, v in runs.items()}
-    print(f"[{tag}] {label}: graphed {ms['graphed']:.3f} ms against eager {ms['eager']:.3f} ms "
-          f"({ms['eager'] / ms['graphed']:.2f}x), every turn's image bitwise the first's, equal "
-          f"stats and launches; the first render {first_s:.3f} s, its graph's capture + "
-          f"instantiate {lanes.capture_s:.3f} s, launches captured {lanes.graph_launches} "
+    print(f"[{tag}] {label}: graphed {ms['graphed']:.3f} ms against the torch bounce's graph "
+          f"{ms['torch']:.3f} ms ({ms['torch'] / ms['graphed']:.2f}x) and eager "
+          f"{ms['eager']:.3f} ms ({ms['eager'] / ms['graphed']:.2f}x); the torch bounce's image "
+          f"{'bitwise' if bitwise else 'NOT bitwise'} the kernels', graphed and eager bitwise "
+          f"with equal stats and launches; the first render {first_s:.3f} s, its graph's capture "
+          f"+ instantiate {lanes.capture_s:.3f} s, launches captured {lanes.graph_launches} "
           f"[{card}]", flush=True)
     print(f"[{tag}] {label} image mean per channel {ref['img'].mean(axis=(0, 1)).tolist()}",
           flush=True)
     resume_bitwise(tag, r, label)
     return r, ref["img"], ref["counts"], dict(
-        graphed_ms=ms["graphed"], eager_ms=ms["eager"], capture_s=lanes.capture_s,
-        mesh_hit=ref["counts"]["mesh_hit"], **ref["stats"])
+        graphed_ms=ms["graphed"], torch_ms=ms["torch"], eager_ms=ms["eager"],
+        capture_s=lanes.capture_s, launches=ref["counts"], torch_bitwise=bitwise, **ref["stats"])
 
 
 def mixed_scheme(width, height):
@@ -821,7 +896,8 @@ CAPTURE_ITER = 20  # the wavefront iteration whose mesh_hit launch is the in-ren
 FP32_PEAK = 67e12  # FP32 FLOP/s, an FMA two
 FP32_SINGLE = 33.5e12  # FP32 instructions/s (132 SMs x 128 lanes x 1.98 GHz)
 FP32_CEILING = {"trace_tiles": FP32_SINGLE, "mesh_trace": FP32_SINGLE,
-                "mesh_trace_brute": FP32_SINGLE, "mesh_hit": FP32_SINGLE}
+                "mesh_trace_brute": FP32_SINGLE, "mesh_hit": FP32_SINGLE,
+                "bounce_prims": FP32_SINGLE, "bounce_shade": FP32_SINGLE}
 HBM_RATE = 3.35e12  # bytes/s
 SLAB_OPS = 25  # mesh_kernel.cu slab_span (6 sub, 6 mul, 10 min/max) + 3 compares
 TRI_OPS = 55  # path_common.cuh tri_hit (53) + the t_min and running-best compares
@@ -956,12 +1032,12 @@ def in_render_pool(scheme):
                      r.width, r.pool)
     real, calls, pool = itg.mesh_hit, [0], {}
 
-    def capture(o, d, seed, tables, *, t_min):
+    def capture(o, d, seed, tables, *, t_min, **kw):
         calls[0] += 1
         if calls[0] == CAPTURE_ITER:
             pool.update(o=tuple(c.clone() for c in o), d=tuple(c.clone() for c in d),
                         seed=seed.clone(), t_min=t_min, tables=tables)
-        return real(o, d, seed, tables, t_min=t_min)
+        return real(o, d, seed, tables, t_min=t_min, **kw)
 
     itg.mesh_hit = capture
     try:
@@ -1082,12 +1158,310 @@ def mesh_hit_phase(dev, card, a380):
                 bound_by=b_by, walk_ops_per_ray=walk_ops_per_ray)
 
 
+BOUNCE_KERNELS = {  # entry point -> the JAX function it stands for (XLA-fused, no Pallas)
+    "bounce_prims": "raytrace_tpu/render/integrator.py:219",
+    "bounce_shade": "raytrace_tpu/render/integrator.py:857",
+}
+BOUNCE_REPS = 10  # timed replays a turn of each bounce entry's graph (graph_ms)
+BOUNCE_GRAPH_K = 10  # launches of a bounce entry (or plain calls) in that graph
+# FP32 work of the bounce entries, counted from csrc/bounce_kernel.cu along
+# the branch a lane takes, each multiply, add, compare, min / max, divide,
+# square root, sine and cosine one (loads, selects and integer work none):
+# a sphere test (sphere_t, the guard and the running-best compare), a free
+# triangle's (tri_hit's 53 and two compares); the shade of a lane by the
+# kind of its hit: a mesh hit (its attributes with three texel fetches 96,
+# the point and the next origin 13, the PBR divert's two directions,
+# reflectance and scatter 120, 8 draws, the radiance and roulette 14), a
+# sphere or free-triangle hit (its normal 13, the point 13, a lobe 55, 5
+# draws, the radiance and roulette 14), a miss (the point and the miss
+# record 12); a direct-light term (the ray's normalize, light_dot and the
+# add) an emitter and live lane; the sky's fetch (SKY_INSTR) a retiring
+# lane that missed
+BOUNCE_SPH_OPS, BOUNCE_FT_OPS = 24, 55
+BOUNCE_SHADE_OPS = {"mesh": 251, "prim": 100, "miss": 12}
+BOUNCE_DLS_OPS = 26
+
+
+def bounce_state(scheme, it=CAPTURE_ITER, **kw):
+    """The lane pool of Renderer(scheme, "cuda", **kw)'s render(MESH_SPP)'s
+    first batch as its it-th iteration finds it: the pool driven eagerly
+    (Lanes._iteration) through the first it - 1."""
+    from raytrace_tpu_torch.render import wavefront as wf
+    from raytrace_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(scheme, device="cuda", **kw)
+    lanes = wf.Lanes(r.tables, r.params, r._xs, r._ys, min(MESH_SPP, r.samples_per_launch),
+                     r.width, r.pool)
+    lanes._start(0)
+    for _ in range(it - 1):
+        lanes._iteration()
+    assert bool(lanes.flag), f"the render ended before iteration {it}"
+    return lanes
+
+
+def tree_diff(a, b):
+    """{leaf: (lanes that differ, lanes off the lane gate, max |d|)} of two
+    lane-state trees of (N,) tensors (NaN equal to NaN)."""
+    import torch
+
+    out = {}
+    for k in a:
+        if isinstance(a[k], dict):
+            out.update({f"dls.{x}": v for x, v in tree_diff(a[k], b[k]).items()})
+            continue
+        xs = a[k] if isinstance(a[k], tuple) else (a[k],)
+        ys = b[k] if isinstance(b[k], tuple) else (b[k],)
+        for c, (x, y) in enumerate(zip(xs, ys)):
+            name = f"{k}[{c}]" if isinstance(a[k], tuple) else k
+            if x.is_floating_point():
+                same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+                d = torch.where(same, torch.zeros_like(x), (x - y).abs())
+                gate = d / (y.abs() + 1e-3) > 1e-3
+                out[name] = (~same, gate, float(d.max()) if d.numel() else 0.0)
+            else:
+                ne = x != y
+                out[name] = (ne, ne, float(ne.any()))
+    return out
+
+
+def graph_ms(fn, k=BOUNCE_GRAPH_K):
+    """Device ms of one fn() call: k calls captured in one CUDA graph (after
+    a warm-up call), the graph replayed BOUNCE_REPS times between CUDA
+    events, so that the host's launch work (the wrapper's arguments, a
+    plain version's thousand launches) is not timed."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(k):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(BOUNCE_REPS):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (BOUNCE_REPS * k)
+
+
+def time_turns(label, card, fns, reset=None):
+    """Each (kind, fn) of `fns` timed by graph_ms in the given turns; with
+    `reset` (which fn needs before each call), the time of fn after reset
+    less reset's own. Returns the mean ms a call of each kind."""
+    t = {}
+    base = graph_ms(reset) if reset else 0.0
+    for kind, fn in fns:
+        call = (lambda f=fn: (reset(), f())) if reset else fn
+        t.setdefault(kind, []).append(graph_ms(call) - base)
+    ms = {k: sum(v) / len(v) for k, v in t.items()}
+    print(f"[timing] {label}: " + ", ".join(f"{k} {v:.5f} ms/launch (turns {t[k]})"
+                                            for k, v in ms.items())
+          + (f"; the state's restore {base:.5f} ms, taken out" if reset else "")
+          + f" [{card}]", flush=True)
+    return ms
+
+
+def bounce_parity(label, lanes, card):
+    """bounce_prims (with direct-light sampling, each emitter's shadow
+    rays) and bounce_shade against their plain versions on the card, on
+    the lane state of `lanes`: the lanes that differ (a dead lane's hit is
+    not compared: the kernel writes a miss there, which nothing reads),
+    the lanes off the lane gate (|a - b| / (|b| + 1e-3) > 1e-3, under 1%
+    or raise), kernel and plain timed in turns, the bound and the share
+    reached. Returns {entry: {max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, bitwise}}."""
+    import torch
+
+    from raytrace_tpu_torch.ops import bounce_kernel as bk
+    from raytrace_tpu_torch.render import integrator as itg
+    from raytrace_tpu_torch.render import wavefront as wf
+
+    scene, params, st = lanes.scene, lanes.params, lanes.st
+    saved, slots0 = wf._clone(st), lanes.slots.clone()
+    act = st["active"]
+    n, live = act.numel(), int(act.sum())
+    out = {}
+
+    # ---- bounce_prims: the lanes' own rays ----
+    kp = bk.bounce_prims(scene, params, st["ro"], st["rd"], act)
+    pp = bk.prims_reference(scene, params, st["ro"], st["rd"], act)
+    names = ("t", "kind", "idx", "bu", "bv", "seed")
+    off = torch.zeros_like(act)
+    gated, err = torch.zeros_like(act), 0.0
+    for k, (x, y) in enumerate(zip(kp, pp)):
+        m = act if k < 5 else torch.ones_like(act)
+        ne = (x != y) & m
+        off |= ne
+        if x.is_floating_point():
+            d = torch.where(m & torch.isfinite(y), (x - y).abs(), torch.zeros_like(x))
+            gated |= d / (y.abs() + 1e-3) > 1e-3
+            err = max(err, float(d.max()))
+        else:
+            gated |= ne
+    mesh = (itg.mesh_of(scene, params, st["ro"], st["rd"], kp[5]) if scene.n_mesh_tris
+            else None)
+    shadow_k = shadow_p = None
+    s_off = 0
+    if lanes.dls:
+        emitters, fk, gk = lanes.shadow
+        fp, gp = torch.zeros_like(fk), None if gk is None else torch.zeros_like(gk)
+        for j in range(len(scene.emitters)):
+            dk, sk = bk.shadow_prims(scene, params, st["dls"], kp, mesh, j, fk[j])
+            dp, sp = bk.shadow_reference(scene, params, st["dls"], kp, mesh, j, fp[j])
+            cand = sp > -float("inf")
+            ne = (fk[j] != fp[j]) | (sk != sp)
+            for x, y in zip(dk, dp):
+                ne |= (x != y) & cand
+            s_off += int(ne.sum())
+            gated |= ne
+            if gk is not None:
+                itg.mesh_of(scene, params, st["dls"]["pos"], dk, sk, gid_out=gk[j])
+                itg.mesh_of(scene, params, st["dls"]["pos"], dp, sp, gid_out=gp[j])
+        shadow_k, shadow_p = (emitters, fk, gk), (emitters, fp, gp)
+    bad = float(gated.float().mean())
+    print(f"[bounce] {label}: {live} live lanes of {n}; bounce_prims: {int(off.sum())} lanes "
+          f"differ from the plain version (" + ", ".join(
+              f"{nm} {int(((x != y) & (act if k < 5 else torch.ones_like(act))).sum())}"
+              for k, (nm, x, y) in enumerate(zip(names, kp, pp)))
+          + f"), shadow rays {s_off}; lanes off the gate {bad:.6f}, max |d| {err:.3e}",
+          flush=True)
+    assert bad < 0.01, f"{label}: bounce_prims is off the lane gate on {bad:.4f} of lanes"
+    out["bounce_prims"] = dict(max_abs_err=err, bitwise=int(off.sum()) + s_off == 0)
+
+    # ---- bounce_shade: on two copies of the state ----
+    a, b = wf._clone(saved), wf._clone(saved)
+    sa, sb = slots0.clone(), slots0.clone()
+    bk.bounce_shade(scene, params, a, kp, mesh, shadow_k, lanes.unit, sa, lanes.cap)
+    bk.shade_reference(scene, params, b, kp, mesh, shadow_p, lanes.unit, sb, lanes.cap)
+    diffs = tree_diff(a, b)
+    any_off = torch.zeros_like(act)
+    any_gate = torch.zeros_like(act)
+    for ne, g, _ in diffs.values():
+        any_off |= ne
+        any_gate |= g
+    slot_off = int((sa[:-1] != sb[:-1]).any(1).sum())
+    serr = max([v[2] for v in diffs.values()] + [float((sa[:-1] - sb[:-1]).abs().max())])
+    sbad = float(any_gate.float().mean())
+    retiring = int((act & ~a["active"]).sum())
+    print(f"[bounce] {label}: bounce_shade: {int(any_off.sum())} lanes differ ("
+          + ", ".join(f"{k} {int(v[0].sum())}" for k, v in diffs.items() if bool(v[0].any()))
+          + f"), {slot_off} slots of {retiring} retiring lanes differ; lanes off the gate "
+          f"{sbad:.6f}, max |d| {serr:.3e}", flush=True)
+    assert sbad < 0.01, f"{label}: bounce_shade is off the lane gate on {sbad:.4f} of lanes"
+    out["bounce_shade"] = dict(max_abs_err=serr, bitwise=int(any_off.sum()) + slot_off == 0)
+
+    # ---- each entry and its plain version in turns (graphs of launches;
+    # bounce_shade on a state restored before each launch) ----
+    work = wf._clone(saved)
+    slots = slots0.clone()
+
+    def reset():
+        for dst, src in zip(wf._leaves(work), wf._leaves(saved)):
+            dst.copy_(src)
+        slots.copy_(slots0)
+
+    prims_ms = time_turns(f"bounce_prims {label}", card, [
+        ("plain", lambda: bk.prims_reference(scene, params, st["ro"], st["rd"], act)),
+        ("kernel", lambda: bk.bounce_prims(scene, params, st["ro"], st["rd"], act)),
+        ("kernel", lambda: bk.bounce_prims(scene, params, st["ro"], st["rd"], act)),
+        ("plain", lambda: bk.prims_reference(scene, params, st["ro"], st["rd"], act))])
+    shade = lambda: bk.bounce_shade(scene, params, work, kp, mesh, shadow_k, lanes.unit, slots,
+                                    lanes.cap)
+    plain = lambda: bk.shade_reference(scene, params, work, kp, mesh, shadow_p, lanes.unit, slots,
+                                       lanes.cap)
+    shade_ms = time_turns(f"bounce_shade {label}", card, [
+        ("plain", plain), ("kernel", shade), ("kernel", shade), ("plain", plain)], reset)
+
+    # ---- the bounds, from this state's data ----
+    hit = bk._merged(scene, params, pp, mesh)
+    kind = hit[1][act]
+    n_mesh, n_miss = int((kind == itg.KIND_MESHTRI).sum()), int((kind == itg.KIND_NONE).sum())
+    n_prim = live - n_mesh - n_miss
+    ops = live * (scene.n_spheres * BOUNCE_SPH_OPS + scene.n_free_tris * BOUNCE_FT_OPS)
+    per_lane = sum(t.element_size() for t in wf._leaves(saved))  # the lane's state, once
+    n_emit = len(scene.emitters) if lanes.dls else 0
+    cols = sum(tensor_bytes([getattr(scene, k)]) for k in ("sph_c", "sph_r", "ft_v0", "ft_e1",
+                                                          "ft_e2"))
+    # the timed launch's: active read, the hit written, the live rays read
+    # (the shadow rays are launches of their own)
+    nbytes = n * (1 + 32) + live * 24 + cols
+    out["bounce_prims"].update(ms=prims_ms["kernel"], plain_ms=prims_ms["plain"],
+                               **dict(zip(("bound_ms", "bound_by"),
+                                          bound(ops, nbytes, "bounce_prims"))))
+    mw = a.get("miss_w")  # the retiring lanes that fetch the sky
+    misses = int((act & ~a["active"] & ((mw[0] > 0) | (mw[1] > 0) | (mw[2] > 0))).sum()) if mw \
+        else 0
+    s_ops = (n_mesh * BOUNCE_SHADE_OPS["mesh"] + n_prim * BOUNCE_SHADE_OPS["prim"]
+             + n_miss * BOUNCE_SHADE_OPS["miss"] + live * n_emit * BOUNCE_DLS_OPS
+             + misses * SKY_INSTR)
+    s_bytes = (n + live * (32 + (16 if mesh is not None else 0) + 2 * per_lane + 8
+                           + n_emit * (1 + (4 if mesh is not None else 0)))
+               + retiring * 12 + n_mesh * (48 + 9) * 4)
+    out["bounce_shade"].update(ms=shade_ms["kernel"], plain_ms=shade_ms["plain"],
+                               **dict(zip(("bound_ms", "bound_by"),
+                                          bound(s_ops, s_bytes, "bounce_shade"))))
+    for name, (o, nb) in (("bounce_prims", (ops, nbytes)), ("bounce_shade", (s_ops, s_bytes))):
+        r = out[name]
+        print(f"[bound] {name} {label}: {o:.4g} FP32 instructions ({o / FP32_SINGLE * 1e3:.5f} "
+              f"ms at 33.5 T/s), {nb:.4g} bytes ({nb / HBM_RATE * 1e3:.5f} ms at 3.35 TB/s): "
+              f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}; kernel {r['ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.2%} of the bound reached), plain {r['plain_ms']:.4f} "
+              f"ms; bitwise {r['bitwise']} [{card}]", flush=True)
+    return out
+
+
+def bounce_phase(dev, card, a380_cpu):
+    """Phase 7b: the bounce kernels against their plain versions on the
+    card (bounce_parity) on in-render lane states, each the pool as its
+    CAPTURE_ITER-th iteration finds it: the main path's (the a380-class
+    1216x608 frame in cpu semantics), with direct-light sampling (its one
+    emitter, the sun), under the sky in cpu semantics (the faces written to
+    a temporary directory), walled 1200x600 through the wavefront in gpu
+    semantics and in cpu semantics with direct-light sampling (two
+    emitters). Returns the two entries' JSON records: the main path's
+    state's times and bounds, the largest max_abs_err of all."""
+    from raytrace_tpu_torch.models import procedural
+    from raytrace_tpu_torch.models.walled import walled_scheme
+
+    t_phase = time.perf_counter()
+    res = {"a380-class cpu": bounce_parity("a380-class cpu", bounce_state(a380_cpu), card)}
+    res["a380-class cpu DLS"] = bounce_parity(
+        "a380-class cpu DLS", bounce_state(variant(a380_cpu, dir_light_samp=True)), card)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_sky_") as face_dir:
+        sky = copy.copy(a380_cpu)
+        sky.scene_members = a380_cpu.scene_members + [procedural.sky_cubemap(face_dir)]
+        res["a380-class + sky cpu"] = bounce_parity("a380-class + sky cpu", bounce_state(sky),
+                                                     card)
+    walled = walled_scheme(W, H)
+    res["walled wavefront gpu"] = bounce_parity(
+        "walled wavefront gpu", bounce_state(walled, use_fused=False), card)
+    res["walled cpu DLS"] = bounce_parity(
+        "walled cpu DLS", bounce_state(variant(walled, use_gpu=False, dir_light_samp=True)), card)
+    main = res["a380-class cpu"]
+    records = []
+    for name, replaces in BOUNCE_KERNELS.items():
+        r = main[name]
+        records.append({"name": name, "route": "cuda",
+                        "source": "raytrace_tpu_torch/csrc/bounce_kernel.cu",
+                        "replaces": replaces, "launches": 0,
+                        "max_abs_err": max(v[name]["max_abs_err"] for v in res.values()),
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "bitwise": all(v[name]["bitwise"] for v in res.values())})
+    print(f"[bounce] phase 7b in {time.perf_counter() - t_phase:.1f} s; bitwise on every state: "
+          f"{ {r['name']: r['bitwise'] for r in records} }", flush=True)
+    return records
+
+
 def integrator_phases(dev, card):
-    """Phases 7 and 8; returns the mesh_hit kernel's JSON record, the
-    counts the fused kernels' bounds are reckoned from (lane-bounces per
-    path of the walled, a380-class and 2,097-triangle frames in gpu
-    semantics, and mesh_hit's least walk per ray) and phase 8's
-    wavefront_turns records by render."""
+    """Phases 7, 7b and 8; returns the JSON records of mesh_hit and the
+    bounce kernels, the counts the fused kernels' bounds are reckoned from
+    (lane-bounces per path of the walled, a380-class and 2,097-triangle
+    frames in gpu semantics, and mesh_hit's least walk per ray) and phase
+    8's wavefront_turns records by render."""
     from raytrace_tpu_torch.models import procedural
     from raytrace_tpu_torch.models.config import ModelMember
     from raytrace_tpu_torch.models.walled import walled_scheme
@@ -1100,27 +1474,34 @@ def integrator_phases(dev, card):
     # ---- 7. mesh_hit against its plain version on the card ----
     hit = mesh_hit_phase(dev, card, a380_cpu)
 
+    # ---- 7b. the bounce kernels against their plain versions ----
+    bounce = bounce_phase(dev, card, a380_cpu)
+
     # ---- 8. the integrator paths at full width ----
     def render(label, scheme, spp, route=None, **kw):
         return warm_render("paths", label, scheme, spp, card, route, **kw)[:3]
 
-    # the slice's main path: cpu semantics through the wavefront
-    def only_mesh_hit(counts):
-        others = {k: v for k, v in counts.items() if k != "mesh_hit"}
-        return counts["mesh_hit"] > 0 and not any(others.values())
+    def wavefront_only(counts, iterations, emitters=0):
+        """The launches of a mesh scene's wavefront render: the bounce
+        kernels and mesh_hit, and no other CUDA kernel."""
+        want = {"bounce_prims": (1 + emitters) * iterations, "mesh_hit": (1 + emitters) * iterations,
+                "bounce_shade": iterations}
+        return {k: v for k, v in counts.items() if v} == want
 
-    # each wavefront render of the turns: its graphed and eager walls
+    # the slice's main path: cpu semantics through the wavefront; each
+    # render of the turns: its graphed, torch-bounce and eager walls
     turns = {}
     full, _, counts, turns["a380-class cpu"] = wavefront_turns(
         "paths", "a380-class cpu semantics", a380_cpu, MESH_SPP, card)
     launches = counts["mesh_hit"]
-    assert only_mesh_hit(counts), \
-        "the main path did not launch mesh_hit, or launched another CUDA kernel"
-    _, _, dls, turns["a380-class cpu DLS"] = wavefront_turns(
+    assert wavefront_only(counts, turns["a380-class cpu"]["iterations"]), \
+        f"the main path launched {counts}, not bounce_prims, mesh_hit and bounce_shade an iteration"
+    r_dls, _, dls, turns["a380-class cpu DLS"] = wavefront_turns(
         "paths", "a380-class cpu semantics DLS", variant(a380_cpu, dir_light_samp=True),
         MESH_SPP, card)
-    assert only_mesh_hit(dls) and dls["mesh_hit"] > launches, \
-        "the shadow rays did not go through mesh_hit"
+    assert wavefront_only(dls, turns["a380-class cpu DLS"]["iterations"],
+                          len(r_dls.tables.emitters)), \
+        f"the shadow rays did not go through bounce_prims and mesh_hit: {dls}"
 
     # gpu semantics through the wavefront against the fused mesh kernels;
     # the wavefront's lane-bounces per path set the fused kernels' bounds
@@ -1132,12 +1513,13 @@ def integrator_phases(dev, card):
                 "paths", label, scheme, spp, card, **kw)
         else:
             r, wf_img, counts = render(label, scheme, spp, **kw)
-        assert counts[name] == 0 and (counts["mesh_hit"] > 0) == (name != "trace_tiles")
+        assert counts.get(name, 0) == 0 and counts["bounce_shade"] > 0
+        assert (counts.get("mesh_hit", 0) > 0) == (name != "trace_tiles")
         w, h = scheme.render_info.width, scheme.render_info.height
         per_path[name] = r.stats["lane_bounces"] / (w * h * spp)
         route = MESH_KERNELS[name][0] if name in MESH_KERNELS else None
         _, fused_img, counts = render(label, scheme, spp, route=route)
-        assert counts[name] > 0 and counts["mesh_hit"] == 0
+        assert counts[name] > 0 and counts["mesh_hit"] == 0 == counts["bounce_shade"]
         gate("paths", f"{label} {w}x{h}x{spp} wavefront vs {name}", wf_img, fused_img)
 
     against_fused("a380-class", a380, MESH_SPP, "mesh_trace", use_mesh_fused=False)
@@ -1176,7 +1558,10 @@ def integrator_phases(dev, card):
            "max_abs_err": hit["max_abs_err"], "ms": hit["ms"], "plain_ms": hit["plain_ms"],
            "bound_ms": hit["bound_ms"], "bound_by": hit["bound_by"], "library_ms": None,
            "launches_per_render": launches, "in_render_ms": new["ms"] if new else None}
-    return rec, per_path, hit["walk_ops_per_ray"], turns
+    for b in bounce:  # the main path's launches and ms a launch inside its graphed render
+        b["launches"] = b["launches_per_render"] = counts[b["name"]]
+        b["in_render_ms"] = new["by_kernel"][b["name"]]["ms"] if new else None
+    return [rec] + bounce, per_path, hit["walk_ops_per_ray"], turns
 
 
 def profile(renderer, card, kernel, label, spp=MESH_SPP):
@@ -1228,6 +1613,21 @@ def profile(renderer, card, kernel, label, spp=MESH_SPP):
     print(f"[profile] {kernel} {hit / total:.2%} of device time, {count} launches; the "
           f"device-to-host copies {copy / total:.2%}; the elementwise work and the rest "
           f"{1 - (hit + copy) / total:.2%}", flush=True)
+    # the wavefront's kernels by name, and everything else (the torch assign,
+    # or the torch bounce in its yardstick graph)
+    by_kernel, named = {}, 0.0
+    for name in WAVEFRONT_MESH:
+        rows = [e for e in kernels if f"{name}_kernel" in e.key]
+        us, n = sum(dev_us(e) for e in rows), sum(e.count for e in rows)
+        named += us
+        by_kernel[name] = {"ms": us / 1e3 / max(n, 1), "share": us / total, "launches": n}
+    n_kernels = sum(e.count for e in kernels if "Memcpy" not in e.key and "Memset" not in e.key)
+    if iters:  # a wavefront render
+        print(f"[profile] {n_kernels / iters:.1f} kernels an iteration; "
+              + ", ".join(f"{k} {v['share']:.2%} ({v['launches']}x, {v['ms']:.4f} ms a launch)"
+                          for k, v in by_kernel.items())
+              + f", the other kernels (the torch work) {1 - (named + copy) / total:.2%} [{card}]",
+              flush=True)
     calls = {}
     for name in ("cudaStreamSynchronize", "cudaLaunchKernel", "cudaGraphLaunch"):
         calls[name] = c = sum(e.count for e in rows if e.key == name)
@@ -1235,7 +1635,9 @@ def profile(renderer, card, kernel, label, spp=MESH_SPP):
     return {"ms": hit / 1e3 / max(count, 1), "share": hit / total, "device_ms": total / 1e3,
             "copy_share": copy / total, "wall_ms": wall_ms, "launches": count,
             "iterations": iters, "syncs_per_iteration":
-                calls["cudaStreamSynchronize"] / max(iters, 1)}
+                calls["cudaStreamSynchronize"] / max(iters, 1), "by_kernel": by_kernel,
+            "kernels_per_iteration": n_kernels / max(iters, 1),
+            "other_share": 1 - (named + copy) / total}
 
 
 SASS_DIR = os.path.join(ROOT, "raytrace_tpu_torch", "_build", "sass")
@@ -1759,7 +2161,7 @@ def sky_mesh(dev, card, a380, surface):
     cpu = variant(a380, use_gpu=False)
     _, _, counts, out["wavefront"] = wavefront_turns("sky", "a380-class + sky cpu semantics", cpu,
                                                      MESH_SPP, card)
-    assert {k for k, v in counts.items() if v} == {"mesh_hit"}, \
+    assert {k for k, v in counts.items() if v} == set(WAVEFRONT_MESH), \
         f"the cpu-semantics sky render launched {counts}"
     card_vs_cpu("sky", "a380-class + sky cpu semantics", cpu, 96, 48, SKY_WF_SPP)
     return out
@@ -2304,7 +2706,8 @@ def pcg_renders(dev, card, a380, surface):
         r, _, counts, _ = warm_render("pcg", f"{label} pcg", scheme, spp, card, generator="pcg",
                                       **kw)
         launched = {k for k, v in counts.items() if v}
-        assert launched == {entry}, f"{label}: the pcg render launched {counts}"
+        assert launched == (set(WAVEFRONT_MESH) if entry == "mesh_hit" else {entry}), \
+            f"{label}: the pcg render launched {counts}"
         launches[entry] = counts[entry]
         if label == "walled":
             card_vs_cpu("pcg", "walled pcg", walled, 128, 64, 16, generator="pcg")
@@ -2584,7 +2987,7 @@ def timed_sharded(r, spp):
     r.render(progress=False, samples=spp)  # ends in a device -> host copy
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return ms, {k: v for k, v in dict(mk.LAUNCHES, **tk.LAUNCHES).items() if v}
+    return ms, {k: v for k, v in launch_counts().items() if v}
 
 
 def dist_child(backend, out, card) -> int:
@@ -3330,11 +3733,13 @@ def profile_wavefront(card, every=False):
     frame in cpu semantics, with DLS and under the sky, the faces written
     anew, and walled through the wavefront), each warm (its graph
     captured), profiled graphed but the main path (its graphed table is
-    phase 8's), and the main path eager (Lanes._run_eager in Lanes.run's
-    place); `every` (`chip_smoke.py --profile wavefront-all <card>`):
-    every render both ways. Each profile starts from a fresh target, so
-    the graphed and eager renders take the same sample ids. Returns
-    {"<label> graphed" / "<label> eager": profile's result}."""
+    phase 8's), and each with the torch bounce's graph (the yardstick,
+    torch_bounce_renderer); `every` (`chip_smoke.py --profile
+    wavefront-all <card>`): the main path graphed too, and every render
+    eager (Lanes._run_eager in Lanes.run's place). Each profile starts
+    from a fresh target, so every turn takes the same sample ids. Returns
+    {"<label> graphed" / "<label> torch" / "<label> eager": profile's
+    result}."""
     from raytrace_tpu_torch.models import procedural
     from raytrace_tpu_torch.models.walled import walled_scheme
     from raytrace_tpu_torch.render import wavefront as wf
@@ -3353,30 +3758,35 @@ def profile_wavefront(card, every=False):
         for label, scheme, spp, kw in runs:
             r = Renderer(scheme, device="cuda", **kw)
             r.render(progress=False, samples=spp)  # captures the graph (the parent's build)
+            yard = torch_bounce_renderer(scheme, spp, **kw)
             main = label == "a380-class cpu"
-            for turn in ("graphed", "eager") if every else ("eager",) if main else ("graphed",):
-                r.target = RenderTarget(r.width, r.height)
+            turns = ("graphed", "torch", "eager") if every else ("torch",) if main else (
+                "graphed", "torch")
+            for turn in turns:
+                rr = yard if turn == "torch" else r
+                rr.target = RenderTarget(rr.width, rr.height)
                 real = wf.Lanes.run
                 if turn == "eager":
                     wf.Lanes.run = wf.Lanes._run_eager
                 try:
                     results[f"{label} {turn}"] = profile(
-                        r, card, "mesh_hit_kernel", f"{label} {turn} {r.width}x{r.height}", spp)
+                        rr, card, "mesh_hit_kernel", f"{label} {turn} {r.width}x{r.height}", spp)
                 finally:
                     wf.Lanes.run = real
     return results
 
 
 def wavefront_summary(turns, profiles, card):
-    """Each wavefront render's graphed and eager wall ms (the turns, in
-    this process) beside its device ms, idle share and host syncs an
-    iteration (profile_wavefront's tables, in a child, and the main
-    path's graphed table of phase 8)."""
+    """Each wavefront render's graphed, torch-bounce and eager wall ms (the
+    turns, in this process) beside its device ms, idle share, host syncs
+    and kernels an iteration (profile_wavefront's tables, in a child, and
+    the main path's graphed table of phase 8)."""
     for label, t in turns.items():
         line = [f"[wavefront] {label}: {t['iterations']} iterations, {t['lane_bounces']} "
-                f"lane-bounces, {t['mesh_hit']} mesh_hit launches; graph capture + instantiate "
-                f"{t['capture_s']:.3f} s"]
-        for turn in ("graphed", "eager"):
+                f"lane-bounces, launches {t['launches']}, the torch bounce's image "
+                f"{'bitwise' if t['torch_bitwise'] else 'NOT bitwise'}; graph capture + "
+                f"instantiate {t['capture_s']:.3f} s"]
+        for turn in ("graphed", "torch", "eager"):
             p = profiles.get(f"{label} {turn}") or t.get(f"{turn}_profile")
             wall = t[f"{turn}_ms"]
             if not p:
@@ -3385,7 +3795,9 @@ def wavefront_summary(turns, profiles, card):
             dev_ms = p["device_ms"]
             line.append(f"{turn}: wall {wall:.3f} ms, device {dev_ms:.3f} ms (wall {wall / dev_ms:.2f}x "
                         f"device, idle {1 - dev_ms / wall:.1%}), {p['syncs_per_iteration']:.2f} "
-                        f"host syncs an iteration, mesh_hit {p['launches']} kernels in the trace")
+                        f"host syncs and {p['kernels_per_iteration']:.1f} kernels an iteration, "
+                        + ", ".join(f"{k} {v['share']:.2%}" for k, v in p["by_kernel"].items())
+                        + f", the other kernels {p['other_share']:.2%}")
         print("; ".join(line) + f" [{card}]", flush=True)
 
 
@@ -3444,7 +3856,7 @@ def main() -> int:
     import torch_mesh_trace_groups as groups
 
     t0 = time.perf_counter()
-    names = ("trace_kernel", "mesh_kernel")
+    names = ("trace_kernel", "mesh_kernel", "bounce_kernel")
     with ThreadPoolExecutor(len(names) + len(groups.GROUPS)) as pool:
         copies = pool.map(groups.build_variant, groups.GROUPS)
         builds = list(pool.map(build.build, names))
@@ -3463,6 +3875,11 @@ def main() -> int:
 
     for fn, n in counts.get("mesh_kernel", {}).items():
         print(f"[sass] {mesh_label(fn)}: {n} instructions, {mesh_regs.get(fn, '?')} registers",
+              flush=True)
+    bounce_regs = ptxas_registers(builds[2].log)
+    for fn, n in counts.get("bounce_kernel", {}).items():
+        name = next((k for k in BOUNCE_KERNELS if f"{k}_kernel" in fn), fn)
+        print(f"[sass] {name}: {n} instructions, {bounce_regs.get(fn, '?')} registers",
               flush=True)
     regs = ptxas_registers(builds[0].log)
     for fn, n in counts.get("trace_kernel", {}).items():
@@ -3554,7 +3971,7 @@ def main() -> int:
     mesh_records, mesh_shape = mesh_phases(dev, card, variants)
     kernels += mesh_records
     shape.update(mesh_shape)
-    hit_record, per_path, walk_ops, wf_turns = integrator_phases(dev, card)
+    (hit_record, *bounce_records), per_path, walk_ops, wf_turns = integrator_phases(dev, card)
     walled_profile = profile_in_child("walled", card)["walled"]
     if walled_profile:
         kernels[0]["in_render_ms"] = walled_profile["ms"]
@@ -3611,7 +4028,7 @@ def main() -> int:
     diff_profile = profile_in_child("diff", card)["a380-class differentiable"]
     hit_record["diff_launches_per_render"] = diff["a380"]["launches"]
     hit_record["diff_in_render_ms"] = diff_profile["ms"] if diff_profile else None
-    kernels.append(hit_record)
+    kernels += [hit_record, *bounce_records]
 
     # ---- 11. pcg on every path, animation, the host remainder ----
     pcg = pcg_phase(dev, card)
@@ -3628,7 +4045,10 @@ def main() -> int:
     for rec in kernels:
         label, key = {"trace_tiles": ("walled", "trace_tiles"),
                       "mesh_trace": ("a380-class", "mesh_trace"),
-                      "mesh_hit": ("a380-class cpu", "mesh_hit")}.get(rec["name"], (None, None))
+                      "mesh_hit": ("a380-class cpu", "mesh_hit"),
+                      "bounce_prims": ("a380-class cpu", "bounce_prims"),
+                      "bounce_shade": ("a380-class cpu", "bounce_shade")}.get(rec["name"],
+                                                                             (None, None))
         if label:
             rec.update(dist_launches_per_rank=dist[label][key], dist_backend="gloo")
     kernels[0]["nccl_launches"] = dist["nccl"]["trace_tiles"]

@@ -206,6 +206,7 @@
 #include <math_constants.h>
 
 #include "cubemap.cuh"
+#include "mesh_common.cuh"
 #include "path_common.cuh"
 
 namespace {
@@ -216,7 +217,6 @@ constexpr int kThreads = 256;
 constexpr int kGroup = 16;   // clusters per supercluster
 constexpr int kSGroup = 8;   // superclusters per supergroup
 constexpr int kBruteChunk = 64;
-constexpr int kAttrCols = 48;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 constexpr int kRayGroup = 16;    // mesh_hit: threads per ray
@@ -343,36 +343,10 @@ __device__ void brute(const Mesh& m, const Ray& r, bool active, float4* s_tri, i
   }
 }
 
-// sqrt-then-divide normalize (the JAX package's ops/vec.normalize)
-__device__ __forceinline__ void vnorm(float& x, float& y, float& z, float eps) {
-  const float n2 = x * x + y * y + z * z;
-  float n = sqrtf(n2 > 1e-30f ? n2 : 1e-30f);
-  if (eps > 0.f) n = fmaxf(n, eps);
-  const float inv = 1.f / n;
-  x *= inv;
-  y *= inv;
-  z *= inv;
-}
-
-// the three components at flat offset base3 of the texture pool
-__device__ __forceinline__ float3 texel(const Mesh& m, int base3) {
-  return pool_texel(m.pool, m.pool_kind, m.pool_len, base3);
-}
-
-// nearest fetch of descriptor d = [offset, width, height] (uv_image.rs:10-23):
-// false (and black) when the width is 0
+// the nearest fetch of descriptor d from the mesh's pool (mesh_common.cuh)
 __device__ __forceinline__ bool fetch(const Mesh& m, const int* d, float u, float v,
                                       float3& rgb) {
-  const int off = __ldg(d), wid = __ldg(d + 1), hei = __ldg(d + 2);
-  if (wid <= 0) {
-    rgb = make_float3(0.f, 0.f, 0.f);
-    return false;
-  }
-  const float wf = static_cast<float>(wid), hf = static_cast<float>(hei);
-  const int px = static_cast<int>(fminf(fmaxf(u * wf, 0.f), fmaxf(wf - 1.f, 0.f)));
-  const int py = static_cast<int>(fminf(fmaxf(v * hf, 0.f), fmaxf(hf - 1.f, 0.f)));
-  rgb = texel(m, off + 3 * (px + py * wid));
-  return true;
+  return fetch(MeshShade{m.attr, m.desc, m.pool, m.pool_kind, m.pool_len}, d, u, v, rgb);
 }
 
 // Shade a mesh hit (integrator.mesh_attrs_dense + fused_mesh._mesh_shade):
@@ -381,7 +355,7 @@ __device__ bool shade_mesh(Path& p, const Mesh& m, int gid, float t, float bu, f
                            float u0, float u1, float u2, float u4, float u5, float u6,
                            float u7, int assured, float max_thres, float inv_thres) {
   const float* a = m.attr + static_cast<size_t>(gid) * kAttrCols;
-  const int* d = m.desc + static_cast<size_t>(gid) * 9;
+  const int* d = m.desc + static_cast<size_t>(gid) * kDescCols;
   const float b0 = 1.f - bu - bv;
   auto interp = [&](int c, float& uu, float& vv) {
     uu = b0 * __ldg(a + c) + bu * __ldg(a + c + 2) + bv * __ldg(a + c + 4);

@@ -18,7 +18,10 @@ surface (random texture coordinates per vertex) picks another texel on
 1.2% of the full frame's paths at one sample per lane and 3.9% at four
 (H100 80GB HBM3, 700 W), over the 1% kernel-vs-plain gate. Without
 contraction it equals its plain version bitwise, at 8% (walk) and 9%
-(brute) more time per 1216x608 launch of 16 samples per lane.
+(brute) more time per 1216x608 launch of 16 samples per lane. The
+bounce kernel (the integrator's bounce for the wavefront) builds with
+-fmad=false too: it is held bitwise against the integrator's torch
+pieces, whose sums and products round one by one.
 trace_kernel keeps contraction: it passes the gate with it (0.44% of
 lanes at worst), and without it its walled launch takes 14% longer.
 A failed build raises; nothing falls back to another path. Processes
@@ -43,7 +46,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-EXTRA_FLAGS = {"mesh_kernel": ["-fmad=false"]}  # see the module docstring
+EXTRA_FLAGS = {"mesh_kernel": ["-fmad=false"], "bounce_kernel": ["-fmad=false"]}  # the docstring
 
 
 @dataclass

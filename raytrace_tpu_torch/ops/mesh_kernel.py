@@ -886,7 +886,7 @@ def _mesh_trace_yardstick(xs, ys, samp, tables: MeshTables, *, assured: int, max
 # --- the nearest hit alone: the integrator's mesh intersection -------------
 
 
-def _launch_hit(o, d, t_seed, tables, t_min, entry="mesh_hit"):
+def _launch_hit(o, d, t_seed, tables, t_min, entry="mesh_hit", gid_out=None):
     from ..kernels import build
 
     dev = t_seed.device
@@ -902,7 +902,11 @@ def _launch_hit(o, d, t_seed, tables, t_min, entry="mesh_hit"):
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float]
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
     t_out, u_out, v_out = (torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3))
-    gid_out = torch.empty(n, dtype=torch.int32, device=dev)
+    if gid_out is None:
+        gid_out = torch.empty(n, dtype=torch.int32, device=dev)
+    elif gid_out.dtype != torch.int32 or gid_out.device != dev or gid_out.shape != (n,) or \
+            not gid_out.is_contiguous():
+        raise ValueError(f"gid_out must be contiguous ({n},) int32 on {dev}")
     tb = tables
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -917,7 +921,7 @@ def _launch_hit(o, d, t_seed, tables, t_min, entry="mesh_hit"):
     return t_out, gid_out, u_out, v_out
 
 
-def mesh_hit(o, d, t_seed, tables: MeshTables, *, t_min: float):
+def mesh_hit(o, d, t_seed, tables: MeshTables, *, t_min: float, gid_out=None):
     """The nearest mesh hit of each ray (the contract of the JAX
     `mesh_hit_tiles`, mesh_hit_kernel.py:268-276): o, d 3-tuples of (N,)
     f32 tensors, t_seed (N,) f32 the best t so far; a hit counts at
@@ -932,10 +936,11 @@ def mesh_hit(o, d, t_seed, tables: MeshTables, *, t_min: float):
     entry first, pruned by the group's running best) or raise."""
     t_min = float(np.float32(t_min))
     if t_seed.device.type == "cuda":
-        return _launch_hit(o, d, t_seed, tables, t_min)
+        return _launch_hit(o, d, t_seed, tables, t_min, gid_out=gid_out)
     if t_seed.device.type == "cpu":
         t, gid, u, v = mesh_hit_walk(o, d, t_seed, tables, t_min=t_min)
-        return t, gid.to(torch.int32), u, v
+        gid = gid.to(torch.int32) if gid_out is None else gid_out.copy_(gid)
+        return t, gid, u, v
     raise ValueError(f"mesh_hit runs on cpu or cuda tensors, not {t_seed.device}")
 
 

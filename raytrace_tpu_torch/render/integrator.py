@@ -38,6 +38,15 @@ resolved once after the loop through `ops/cubemap.sample`
 which needs no host sync); debug_single_ray samples the sky in its one
 bounce.
 
+A bounce is split where the wavefront's CUDA kernels split it
+(ops/bounce_kernel.py): `prims_hit` (the sphere / free-triangle hit, the
+`bounce_prims` entry's plain version), `mesh_of` (the `mesh_hit` launch),
+`merge_mesh`, `shadow_ray` (direct-light sampling's rays) and
+`shade_step` (everything after the hit, the `bounce_shade` entry's plain
+version). `closest_hit` and `_bounce_step` compose them, as one
+formulation: the CPU, `trace_paths` and the differentiable tier run
+them.
+
 The differentiable tier (`IntegratorParams.differentiable`, the JAX
 :75): torch autograd records the bounce loop as it runs, so the loop
 keeps its all-dead exit, where the JAX package scans all max_depth
@@ -183,12 +192,12 @@ def sphere_t(ro, rd, c, r, mode: str):
     return torch.where(pos, torch.where(near > 0.0, near, torch.where(far > 0.0, far, inf)), inf)
 
 
-def closest_hit(scene, params: IntegratorParams, ro, rd, active=None):
-    """Nearest hit over spheres, then free triangles, then the mesh
-    seeded with that best t (integrator.py:219-368), each stage updating
-    on strict <. Returns (t, kind, idx, bu, bv), (N,) each; idx is the
-    sphere / free-triangle row or the mesh-triangle id. `active`: dead
-    lanes seed the mesh with DEAD_SEED, so the walk skips their rays."""
+def prims_hit(scene, params: IntegratorParams, ro, rd, active=None):
+    """The nearest hit over spheres, then free triangles (the first two
+    stages of `closest_hit`), each stage updating on strict <. Returns
+    ((t, kind, idx, bu, bv), seed): (N,) each; seed is the mesh walk's
+    seed, t where the lane is active and DEAD_SEED elsewhere (dead lanes
+    reach no cluster). The `bounce_prims` kernel's plain version."""
     n = ro[0].shape[0]
     dev = ro[0].device
     t_best = torch.full((n,), INF, dtype=torch.float32, device=dev)
@@ -221,26 +230,52 @@ def closest_hit(scene, params: IntegratorParams, ro, rd, active=None):
         idx = torch.where(better, amin, idx)
         bu = torch.where(better, us.gather(0, amin[None])[0], bu)
         bv = torch.where(better, ws.gather(0, amin[None])[0], bv)
+    seed = t_best if active is None else torch.where(
+        active, t_best, torch.full_like(t_best, DEAD_SEED))
+    return (t_best, kind, idx, bu, bv), seed
 
-    if scene.n_mesh_tris:
-        seed = t_best if active is None else torch.where(
-            active, t_best, torch.full_like(t_best, DEAD_SEED))
-        # mesh_hit takes no gradient (the kernel has no backward)
-        tm, gm, um, vm = mesh_hit(tuple(c.detach() for c in ro), tuple(c.detach() for c in rd),
-                                  seed.detach(), scene.mesh, t_min=CPU_GUARD if cpu else EPS)
-        won = gm >= 0
-        if params.differentiable:
-            # the winner's (t, u, v) again, from the vertex tables the walk's
-            # rows copy: the same floats, with the gradient
-            g = gm.long().clamp(min=0)
-            tri = [take(getattr(scene, k), g).unbind(1) for k in ("mt_v0", "mt_e1", "mt_e2")]
-            tm, um, vm = triangle_tuv(*ro, *rd, *tri)
-        t_best = torch.where(won, tm, t_best)
-        kind = torch.where(won, KIND_MESHTRI, kind)
-        idx = torch.where(won, gm.long(), idx)
-        bu = torch.where(won, um, bu)
-        bv = torch.where(won, vm, bv)
+
+def mesh_of(scene, params: IntegratorParams, ro, rd, seed, gid_out=None):
+    """`mesh_hit` of the rays over the scene's mesh, seeded with `seed`
+    (t_min EPS, or the cpu semantics' guard): (t, gid int32, u, v).
+    `gid_out`: an (N,) int32 buffer that receives gid. No gradient (the
+    kernel has no backward)."""
+    kw = {} if gid_out is None else dict(gid_out=gid_out)
+    return mesh_hit(tuple(c.detach() for c in ro), tuple(c.detach() for c in rd), seed.detach(),
+                    scene.mesh, t_min=CPU_GUARD if params.mode == "cpu" else EPS, **kw)
+
+
+def merge_mesh(scene, params: IntegratorParams, ro, rd, hit, mesh):
+    """The mesh's hit `mesh` (mesh_of's) over the sphere / free-triangle
+    hit `hit` (prims_hit's) where a triangle beat its seed. Returns (t,
+    kind, idx, bu, bv)."""
+    t_best, kind, idx, bu, bv = hit
+    tm, gm, um, vm = mesh
+    won = gm >= 0
+    if params.differentiable:
+        # the winner's (t, u, v) again, from the vertex tables the walk's
+        # rows copy: the same floats, with the gradient
+        g = gm.long().clamp(min=0)
+        tri = [take(getattr(scene, k), g).unbind(1) for k in ("mt_v0", "mt_e1", "mt_e2")]
+        tm, um, vm = triangle_tuv(*ro, *rd, *tri)
+    t_best = torch.where(won, tm, t_best)
+    kind = torch.where(won, KIND_MESHTRI, kind)
+    idx = torch.where(won, gm.long(), idx)
+    bu = torch.where(won, um, bu)
+    bv = torch.where(won, vm, bv)
     return t_best, kind, idx, bu, bv
+
+
+def closest_hit(scene, params: IntegratorParams, ro, rd, active=None):
+    """Nearest hit over spheres, then free triangles, then the mesh
+    seeded with that best t (integrator.py:219-368), each stage updating
+    on strict <. Returns (t, kind, idx, bu, bv), (N,) each; idx is the
+    sphere / free-triangle row or the mesh-triangle id. `active`: dead
+    lanes seed the mesh with DEAD_SEED, so the walk skips their rays."""
+    hit, seed = prims_hit(scene, params, ro, rd, active)
+    if scene.n_mesh_tris:
+        hit = merge_mesh(scene, params, ro, rd, hit, mesh_of(scene, params, ro, rd, seed))
+    return hit
 
 
 # --- shading ----------------------------------------------------------------
@@ -387,11 +422,30 @@ def init_lanes(scene, params, ro, rd, state):
     return st
 
 
-def _bounce_step(scene, params: IntegratorParams, st):
-    """One bounce for all lanes (integrator.py:857-983). st: the lane
-    state dict of init_lanes; returns the next one."""
+def shadow_ray(scene, pd, kind, idx, e: int):
+    """Direct-light sampling's shadow ray toward emitter e (a sphere
+    index) from the pending hit pd (the lane state's "dls"), given this
+    bounce's hit (kind, idx): (d_l, light_dot, cand), cand the lanes whose
+    ray is cast. The emitter that made the pending hit and the one this
+    bounce hit are omitted (radiance.rs:46-52)."""
+    center = scene.sph_c[e].unbind()
+    d_l = normalize(*(center[k] - pd["pos"][k] for k in range(3)), eps=1e-20)
+    light_dot = _dot(d_l, pd["norm"])
+    omit = (pd["self_idx"] == e) | ((kind == KIND_SPHERE) & (idx == e))
+    return d_l, light_dot, pd["active"] & (light_dot > 0.0) & ~omit
+
+
+def shade_step(scene, params: IntegratorParams, st, hit, dls_terms=()):
+    """One bounce after its closest hit (integrator.py:862-983): the
+    draws, the shading, the gpu or cpu radiance update and roulette, the
+    miss record, the direct-light terms and debug_single_ray. hit: (t,
+    kind, idx, bu, bv), closest_hit's; dls_terms: with direct-light
+    sampling, (light_dot, ok) for each of scene.emitters in order, ok the
+    lanes whose shadow ray reaches that emitter. Returns the next lane
+    state. The `bounce_shade` kernel's plain version, with the
+    wavefront's cap and retire (ops/bounce_kernel.py)."""
     ro, rd, active = st["ro"], st["rd"], st["active"]
-    t, kind, idx, bu, bv = closest_hit(scene, params, ro, rd, active=active)
+    t, kind, idx, bu, bv = hit
     if scene.n_mesh_tris:
         state, draws = rng.next_f32_n(st["rng"], 8, params.generator)
         u7 = draws[7]
@@ -436,25 +490,14 @@ def _bounce_step(scene, params: IntegratorParams, st):
         ci = _where3(survive, tuple(ci[k] * (sh["rgb"][k] * w) for k in range(3)), ci)
     new_active = survive
 
-    dls = uses_dls(scene, params)
-    if dls:
-        # direct-light sampling at the PREVIOUS bounce's diffuse hit
-        # (radiance.rs:89-120): for each emissive sphere, a shadow ray
-        # toward its center; light_dot * emissive / (30 pi) when its
-        # nearest hit IS that sphere; the emitter that made the pending
-        # hit and the one this bounce hit are omitted (radiance.rs:46-52)
-        pd = st["dls"]
-        for e in scene.emitters:
-            center, em = scene.sph_c[e].unbind(), scene.sph_emissive[e].unbind()
-            d_l = normalize(*(center[k] - pd["pos"][k] for k in range(3)), eps=1e-20)
-            light_dot = _dot(d_l, pd["norm"])
-            omit = (pd["self_idx"] == e) | ((kind == KIND_SPHERE) & (idx == e))
-            cand = pd["active"] & (light_dot > 0.0) & ~omit
-            # lanes outside `cand` add nothing: they seed the mesh dead
-            _, ks, is_, _, _ = closest_hit(scene, params, pd["pos"], d_l, active=cand)
-            ok = cand & (ks == KIND_SPHERE) & (is_ == e)
-            s = light_dot * DLS_NORMZE
-            L = tuple(L[k] + torch.where(ok, pd["ci"][k] * (em[k] * s), zero) for k in range(3))
+    # direct-light sampling at the PREVIOUS bounce's diffuse hit
+    # (radiance.rs:89-120): light_dot * emissive / (30 pi) from each
+    # emitter whose shadow ray reaches it
+    pd = st.get("dls")
+    for e, (light_dot, ok) in zip(scene.emitters, dls_terms):
+        em = scene.sph_emissive[e].unbind()
+        s = light_dot * DLS_NORMZE
+        L = tuple(L[k] + torch.where(ok, pd["ci"][k] * (em[k] * s), zero) for k in range(3))
 
     if params.debug_single_ray:
         # first-hit emissive only (radiance.rs:31-33); a miss shows the sky,
@@ -467,11 +510,27 @@ def _bounce_step(scene, params: IntegratorParams, st):
     out = dict(ro=_where3(new_active, sh["pos"], ro), rd=_where3(new_active, sh["new_d"], rd),
                L=L, ci=ci, inten=inten, rng=state, active=new_active,
                bounce=st["bounce"] + new_active.to(torch.int32), **miss_rec)
-    if dls:
+    if uses_dls(scene, params):
         out["dls"] = dict(active=new_active & sh["should_dls"], pos=sh["pos"], norm=sh["norm"],
                           ci=ci, self_idx=torch.where(kind == KIND_SPHERE, idx,
                                                       torch.full_like(idx, -1)))
     return out
+
+
+def _bounce_step(scene, params: IntegratorParams, st):
+    """One bounce for all lanes (integrator.py:857-983). st: the lane
+    state dict of init_lanes; returns the next one."""
+    hit = closest_hit(scene, params, st["ro"], st["rd"], active=st["active"])
+    terms = []
+    if uses_dls(scene, params):
+        # a shadow ray toward each emissive sphere's center; lanes outside
+        # `cand` add nothing: they seed the mesh dead
+        pd = st["dls"]
+        for e in scene.emitters:
+            d_l, light_dot, cand = shadow_ray(scene, pd, hit[1], hit[2], e)
+            _, ks, is_, _, _ = closest_hit(scene, params, pd["pos"], d_l, active=cand)
+            terms.append((light_dot, cand & (ks == KIND_SPHERE) & (is_ == e)))
+    return shade_step(scene, params, st, hit, terms)
 
 
 def max_depth(params: IntegratorParams) -> int:

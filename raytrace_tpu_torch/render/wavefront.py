@@ -1,11 +1,17 @@
 """Wavefront path tracing with lane regeneration.
 
 Port of `raytrace_tpu/render/wavefront.py::wavefront_batch` (:61-300).
-A fixed pool of lanes runs the integrator's `_bounce_step`, and every
-iteration (`Lanes._iteration`):
+A fixed pool of lanes runs the integrator's bounce, and every iteration
+(`Lanes._iteration`):
 
   1. one bounce for the whole pool (the same formulas and the same
-     per-(pixel, sample) streams as `trace_paths`);
+     per-(pixel, sample) streams as `trace_paths`): the sphere /
+     free-triangle hit (`ops/bounce_kernel.bounce_prims`), the mesh hit
+     (`mesh_hit`), with direct-light sampling each emitter's shadow rays
+     through the same two, then the shading (`bounce_kernel.bounce_shade`,
+     which also does step 2); the CUDA kernels on the card, the
+     integrator's pieces (`prims_hit`, `merge_mesh`, `shade_step`) on the
+     CPU;
   2. the per-lane bounce cap kills lanes at max_depth bounces (and with
      them a pending direct-light term, as trace_paths drops pendings at
      its loop's end); lanes whose path ended retire their radiance, with
@@ -50,12 +56,14 @@ import time
 
 import torch
 
+from ..ops import bounce_kernel as bk
 from ..ops import mesh_kernel as mk
 from ..ops import raygen, rng
-from .integrator import (IntegratorParams, _bounce_step, init_lanes, max_depth,
+from .integrator import (IntegratorParams, _bounce_step, init_lanes, max_depth, mesh_of,
                          resolve_sky_dense, tracks_miss, uses_dls)
 
 CACHED_LANES = 2  # a render's batch shapes: its full chunk and its last
+_COUNTS = (mk.LAUNCHES, bk.LAUNCHES)  # the launch counts a graph's replays add to
 
 
 def _leaves(tree):
@@ -83,7 +91,7 @@ class Lanes:
     (sample, pixel) slots, the batch's first sample id, the device's
     iteration and lane-bounce counts and the any-lane-active flag. On
     the card the iteration's CUDA graph is captured at the first replay
-    and kept (`graph`, with the mesh_hit launches it holds,
+    and kept (`graph`, with the kernel launches it holds,
     `graph_launches`, and the host seconds of its capture and
     instantiation, `capture_s`)."""
 
@@ -111,6 +119,14 @@ class Lanes:
         self.iters, self.lane_bounces = torch.zeros((), **i64), torch.zeros((), **i64)
         self.flag = torch.zeros((), dtype=torch.bool, device=dev)
         self.slots = torch.zeros((self.n_work + 1, 3), dtype=torch.float32, device=dev)
+        self.shadow = None
+        if self.dls:  # each emitter's shadow-ray flags and mesh gids (bounce_shade's input)
+            n_emit = len(scene.emitters)
+            self.shadow = (
+                torch.tensor(scene.emitters, dtype=torch.int32, device=dev),
+                torch.zeros((n_emit, pool), dtype=torch.bool, device=dev),
+                torch.zeros((n_emit, pool), dtype=torch.int32, device=dev)
+                if scene.n_mesh_tris else None)
         self.graph, self.graph_launches, self.capture_s = None, {}, None
 
     def _fresh(self):
@@ -163,7 +179,29 @@ class Lanes:
         self.flag.copy_(st["active"].any())
 
     def _iteration(self):
-        """One iteration over the buffers: bounce, cap, retire, assign."""
+        """One iteration over the buffers: the bounce's kernels (bounce
+        and cap, retire), then assign."""
+        st, scene, params = self.st, self.scene, self.params
+        self.iters.add_(st["active"].any())
+        self.lane_bounces.add_(st["active"].sum())
+        prims = bk.bounce_prims(scene, params, st["ro"], st["rd"], st["active"])
+        mesh = (mesh_of(scene, params, st["ro"], st["rd"], prims[5]) if scene.n_mesh_tris
+                else None)
+        if self.dls:
+            _, flags, gids = self.shadow
+            for j in range(len(scene.emitters)):
+                d_l, seed = bk.shadow_prims(scene, params, st["dls"], prims, mesh, j, flags[j])
+                if gids is not None:
+                    mesh_of(scene, params, st["dls"]["pos"], d_l, seed, gid_out=gids[j])
+        bk.bounce_shade(scene, params, st, prims, mesh, self.shadow, self.unit, self.slots,
+                        self.cap)
+        self._assign(st)
+
+    def _torch_iteration(self):
+        """The iteration with the bounce in torch (`_bounce_step`, an
+        operation a launch), cap and retire as torch operations: on the
+        card, the yardstick that chip_smoke.py times the bounce's kernels
+        against. No render takes it."""
         st, where = self.st, torch.where
         was_active = st["active"]  # overwritten last, by _assign
         new = _bounce_step(self.scene, self.params, st)
@@ -190,23 +228,25 @@ class Lanes:
     def _capture(self):
         """The first replay: one eager iteration on a side stream (the
         warm-up the capture needs, a real iteration of the render), then
-        the capture of the next, with the mesh_hit launches it holds
-        taken back out of mk.LAUNCHES (they are counted at each replay)."""
+        the capture of the next, with the kernel launches it holds taken
+        back out of mk.LAUNCHES and bk.LAUNCHES (they are counted at each
+        replay)."""
         with torch.cuda.device(self.dev):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 self._iteration()
             torch.cuda.current_stream().wait_stream(side)
-            before = dict(mk.LAUNCHES)
+            before = [dict(counts) for counts in _COUNTS]
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._iteration()
             self.capture_s = time.perf_counter() - t0
-        self.graph_launches = {k: n - before.get(k, 0) for k, n in mk.LAUNCHES.items()
-                               if n != before.get(k, 0)}
-        mk.LAUNCHES.update(before)
+        self.graph_launches = {k: n - b[k] for counts, b in zip(_COUNTS, before)
+                               for k, n in counts.items() if n != b[k]}
+        for counts, b in zip(_COUNTS, before):
+            counts.update(b)
         self.graph = graph
 
     def _replay(self):
@@ -214,8 +254,9 @@ class Lanes:
             self._capture()
             return
         self.graph.replay()
-        for k, n in self.graph_launches.items():
-            mk.LAUNCHES[k] += n
+        for counts in _COUNTS:
+            for k in counts.keys() & self.graph_launches.keys():
+                counts[k] += self.graph_launches[k]
 
     def _loop(self, step, sample_base: int) -> torch.Tensor:
         self._start(sample_base)
@@ -240,7 +281,9 @@ class Lanes:
 
     def _run_eager(self, sample_base: int) -> torch.Tensor:
         """`run` by the eager loop on any device: on the card, the
-        yardstick that chip_smoke.py times the graph against."""
+        yardstick that chip_smoke.py times the graph against (with
+        `_torch_iteration` in `_iteration`'s place at a capture, the other:
+        the bounce in torch)."""
         return self._loop(self._iteration, sample_base)
 
     def stats(self) -> dict:
