@@ -4,7 +4,8 @@ paths resolved against the scheme's directory), static or animated.
 
     python -m raytrace_tpu_torch.cli <scheme.yml> [no_ui] --device cuda \
         [--mode gpu|cpu] [--generator weyl|pcg] --samples N --out render_out.png \
-        [--checkpoint ck.npz] [--resume ck.npz] [--preview PORT] [--backend nccl|gloo]
+        [--checkpoint ck.npz] [--resume ck.npz] [--preview PORT] [--backend nccl|gloo] \
+        [--spans spans.json]
 
 A static scheme renders to a PNG, rewritten (with the checkpoint, when
 asked) after every sample batch, as the reference's no-ui output loop
@@ -17,6 +18,9 @@ scene of frame k+1 built on a builder thread while frame k renders
 frames ahead), then encodes them to animation.mp4 (utils/video.py's
 ladder; an MJPEG-AVI beside it when no mp4 encoder is there).
 `--generator` picks the counter RNG's family (the JAX package's RTPU_RNG).
+`--spans PATH` switches on the span recorder (utils/profiling.py) and
+writes its spans and counters to PATH at the end, on time.time_ns's
+scale, so they lie over a torch.profiler trace of the same process.
 
 Under torchrun (`torchrun --nproc-per-node N -m raytrace_tpu_torch.cli
 scheme.yml no_ui`) every rank joins the process group first
@@ -39,6 +43,7 @@ import torch
 
 from .ops.rng import GENERATORS
 from .parallel import multihost
+from .utils import profiling
 
 ANIM_DIR = "./anim_frames"  # the reference's frame directory (main.rs:51)
 
@@ -63,13 +68,32 @@ def main(argv=None):
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                     help="torch.distributed backend under torchrun (default: nccl on cuda, gloo "
                          "on cpu; NCCL takes one rank a card, gloo more)")
+    ap.add_argument("--spans", default=None, metavar="PATH",
+                    help="record the program's spans and counters and write them to PATH at the "
+                         "end, as Chrome trace events (under torchrun one file a rank: "
+                         "PATH with .rank<r> before its suffix)")
     args = ap.parse_args(argv)
     joined = multihost.init(args.backend, device=torch.device(args.device).type)
+    if args.spans is not None:
+        profiling.enable()
     try:
         return _main(args)
     finally:
+        if args.spans is not None:
+            profiling.enable(False)
+            profiling.export(_rank_path(args.spans))
         if joined:
             torch.distributed.destroy_process_group()
+
+
+def _rank_path(path: str) -> str:
+    """path, or under a process group of more than one rank this rank's
+    file: path with .rank<r> before its suffix."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1):
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{dist.get_rank()}{ext}"
 
 
 def _rank() -> int:

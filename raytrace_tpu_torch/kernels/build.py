@@ -41,6 +41,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from ..utils import profiling
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -72,6 +74,11 @@ def build(name: str) -> Built:
     """Compile csrc/<name>.cu (cached by content) and load it."""
     if name in _LOADED:
         return _LOADED[name]
+    with profiling.span("kernels.build", name=name):
+        return _build(name)
+
+
+def _build(name: str) -> Built:
     src = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
     h = hashlib.sha256(" ".join(flags).encode())

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import profiling
 from . import gltf
 from .config import (FACE_ORDER, CubeMapMember, FreeTriangleMember, ModelMember, Scheme,
                      SphereMember, resolve_asset_path)
@@ -306,7 +307,8 @@ def _mesh_fields(mt: dict) -> dict:
     v0, v1, v2 = mt["v0"], mt["v1"], mt["v2"]
     lo3 = np.minimum(np.minimum(v0, v1), v2).astype(np.float32)
     hi3 = np.maximum(np.maximum(v0, v1), v2).astype(np.float32)
-    cp, cl_lo, cl_hi = build_clusters_bvh(lo3, hi3, leaf_target=64)
+    with profiling.span("scene.clusters"):
+        cp, cl_lo, cl_hi = build_clusters_bvh(lo3, hi3, leaf_target=64)
     safe = np.maximum(cp, 0)
     attr = np.zeros((M, ATTR_COLS), np.float32)
     attr[:, 0:3] = mt["const_norm"]
@@ -345,7 +347,8 @@ def _asset_clusters(lv0, lv1, lv2) -> dict:
     e2 = (lv2 - lv0).astype(np.float32)
     lo3 = np.minimum(np.minimum(l0, l0 + e1), l0 + e2)
     hi3 = np.maximum(np.maximum(l0, l0 + e1), l0 + e2)
-    cp, cl_lo, cl_hi = build_clusters_bvh(lo3, hi3, leaf_target=64)
+    with profiling.span("scene.clusters"):
+        cp, cl_lo, cl_hi = build_clusters_bvh(lo3, hi3, leaf_target=64)
     safe = np.maximum(cp, 0)
     return dict(inst_cl_v0=l0[safe], inst_cl_e1=e1[safe], inst_cl_e2=e2[safe],
                 inst_cl_idx=cp.astype(np.int32), inst_cl_lo=cl_lo, inst_cl_hi=cl_hi)
@@ -424,6 +427,11 @@ def _sky_fields(cubemap: CubeMapMember, scheme_dir: str) -> dict:
 def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
     """Members -> SceneArrays (spheres, free triangles, glTF meshes, the
     cube map: the last one, as the reference keeps only one)."""
+    with profiling.span("scene.build"):
+        return _build_scene(scheme, pad_small)
+
+
+def _build_scene(scheme: Scheme, pad_small: int) -> SceneArrays:
     spheres, tris, meshes, model_members = [], [], [], []
     cubemap = None
     image_cache: dict = {}  # one decode per (file, image) across instances
@@ -465,12 +473,18 @@ def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
     sm = _mat_cols([s.mat for s in spheres], Sp)
     fm = _mat_cols([t.mat for t in tris], Fp)
     f32 = lambda a, n: _pad(a.astype(np.float32), n)
-    pool = _TexPool()
-    mt = _mesh_triangle_arrays(meshes, pool)
+    with profiling.span("scene.meshes"):
+        pool = _TexPool()
+        mt = _mesh_triangle_arrays(meshes, pool)
+        tex_pool = pool.finalize()
     mesh = _mesh_fields(mt) if mt else {}
     if mt:
-        mesh.update(_try_build_instancing(model_members, mt, scheme.cam.o) or {})
-    sky = _sky_fields(cubemap, scheme.scheme_dir) if cubemap is not None else {}
+        with profiling.span("scene.instancing"):
+            mesh.update(_try_build_instancing(model_members, mt, scheme.cam.o) or {})
+    sky = {}
+    if cubemap is not None:
+        with profiling.span("scene.sky"):
+            sky = _sky_fields(cubemap, scheme.scheme_dir)
     return SceneArrays(
         sph_c=f32(sph_c, Sp), sph_r=_pad(sph_r, Sp), sph_rgb=f32(sph_rgb, Sp),
         sph_emissive=sm[0], sph_has_em=sm[1], sph_kind=sm[2],
@@ -483,7 +497,7 @@ def build_scene(scheme: Scheme, pad_small: int = 8) -> SceneArrays:
         ft_emissive=fm[0], ft_has_em=fm[1], ft_kind=fm[2],
         ft_diffp=fm[3], ft_n_out=fm[4], ft_n_in=fm[5],
         ft_valid=_pad(np.ones((F,), bool), Fp),
-        tex_pool=pool.finalize(),
+        tex_pool=tex_pool,
         n_spheres=S, n_free_tris=F, has_cubemap=cubemap is not None,
         **mesh, **sky,
     )

@@ -45,6 +45,7 @@ from ..ops.texture import pool_to_f32_flat
 from ..render.integrator import IntegratorParams
 from ..render.renderer import sample_batch
 from ..render.wavefront import wavefront_batch
+from ..utils import profiling
 
 # the scene fields that take gradients (the JAX package's list, :128-133);
 # integer and bool tables (kinds, masks, texture descriptors) take none
@@ -150,7 +151,8 @@ def make_spp_sharded_step(group, inner: Callable):
     def step(*args, sample_base: int, n_samples: int, **kw) -> torch.Tensor:
         offset, count = sample_slice(n_samples, size, rank)
         out = inner(*args, sample_base=sample_base + offset, n_samples=count, **kw)
-        dist.all_reduce(out, group=group)
+        with profiling.span("dist.allreduce"):
+            dist.all_reduce(out, group=group)
         return out
 
     return step, size

@@ -75,6 +75,7 @@ from ..ops import mesh_kernel as mk
 from ..ops import raygen, rng
 from ..ops import trace_kernel as tk
 from ..utils.hooks import AsyncHook
+from ..utils import profiling
 from ..utils.profiling import Throughput
 from .integrator import IntegratorParams, trace_paths
 from .target import RenderTarget
@@ -199,60 +200,64 @@ class Renderer:
                  use_mesh_fused: Optional[bool] = None, use_wavefront: Optional[bool] = None,
                  differentiable: bool = False, scene: Optional[SceneArrays] = None,
                  generator: str = "weyl", group=None):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' was asked for but torch.cuda.is_available() is False")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device} (cuda or cpu)")
-        if samples_per_launch < 1:
-            raise ValueError("samples_per_launch must be >= 1")
-        dist = torch.distributed
-        if group is None and dist.is_available() and dist.is_initialized() and \
-                dist.get_world_size() > 1:
-            group = dist.group.WORLD
-        self.group = group
-        if group is not None and differentiable and dist.get_world_size(group) > 1:
-            raise NotImplementedError(
-                "a differentiable Renderer runs in one process; the distributed "
-                "differentiable path is parallel.distributed.make_train_step")
-        self.scheme = scheme
-        info = scheme.render_info
-        self.width, self.height = info.width, info.height
-        self.params = dataclasses.replace(params_from_scheme(scheme, mode),
-                                          differentiable=differentiable, generator=generator)
-        self.mode = self.params.mode
-        self.scene = scene if scene is not None else build_scene(scheme)
-        self.samples_per_launch = samples_per_launch
-        self.camera = build_camera(scheme.cam, self.width, self.height)
-        self.target = RenderTarget(self.width, self.height)
-        self.stats = {"iterations": 0, "lane_bounces": 0}
-        self.driver = _pick_driver(
-            {"fused": use_fused, "mesh_fused": use_mesh_fused, "wavefront": use_wavefront},
-            {"fused": tk.supports(self.scene, self.params),
-             "mesh_fused": mk.supports(self.scene, self.params),
-             "wavefront": not differentiable, "plain": True})
-        max_thres = self.params.max_thres
-        n_pix = self.width * self.height
-        # the scene is uploaded once per Renderer, not per render() call
-        if self.driver in ("fused", "mesh_fused"):
-            tables = tk.SceneTables if self.driver == "fused" else mk.MeshTables
-            self.tables = tables(self.scene, self.camera, max_thres).to(self.device)
-            self._batch = sample_batch_fused if self.driver == "fused" else sample_batch_mesh
-            flat = np.arange(n_pix)
-        else:
-            self.tables = SceneTensors(self.scene, self.camera, max_thres).to(self.device)
-            self._batch = self._wavefront if self.driver == "wavefront" else self._plain
-            flat = tile_order(self.width, self.height)
-            self._unscramble = torch.from_numpy(flat).to(self.device)
-            self.pool = min(POOL_CAP, -(-n_pix // 1024) * 1024)
-            self._lanes = {}  # the wavefront's lane pools (and CUDA graphs) by batch shape
-        self._xs = torch.from_numpy((flat % self.width).astype(np.int32)).to(self.device)
-        self._ys = torch.from_numpy((flat // self.width).astype(np.int32)).to(self.device)
-        self._step = self._batch
-        if group is not None:
-            from ..parallel.distributed import make_spp_sharded_step
+        with profiling.span("renderer.init"):
+            self.device = torch.device(device)
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    "device='cuda' was asked for but torch.cuda.is_available() is False")
+            if self.device.type not in ("cuda", "cpu"):
+                raise ValueError(f"unsupported device {self.device} (cuda or cpu)")
+            if samples_per_launch < 1:
+                raise ValueError("samples_per_launch must be >= 1")
+            dist = torch.distributed
+            if group is None and dist.is_available() and dist.is_initialized() and \
+                    dist.get_world_size() > 1:
+                group = dist.group.WORLD
+            self.group = group
+            if group is not None and differentiable and dist.get_world_size(group) > 1:
+                raise NotImplementedError(
+                    "a differentiable Renderer runs in one process; the distributed "
+                    "differentiable path is parallel.distributed.make_train_step")
+            self.scheme = scheme
+            info = scheme.render_info
+            self.width, self.height = info.width, info.height
+            self.params = dataclasses.replace(params_from_scheme(scheme, mode),
+                                              differentiable=differentiable, generator=generator)
+            self.mode = self.params.mode
+            self.scene = scene if scene is not None else build_scene(scheme)
+            self.samples_per_launch = samples_per_launch
+            self.camera = build_camera(scheme.cam, self.width, self.height)
+            self.target = RenderTarget(self.width, self.height)
+            self.stats = {"iterations": 0, "lane_bounces": 0}
+            self.driver = _pick_driver(
+                {"fused": use_fused, "mesh_fused": use_mesh_fused, "wavefront": use_wavefront},
+                {"fused": tk.supports(self.scene, self.params),
+                 "mesh_fused": mk.supports(self.scene, self.params),
+                 "wavefront": not differentiable, "plain": True})
+            max_thres = self.params.max_thres
+            n_pix = self.width * self.height
+            # the scene is uploaded once per Renderer, not per render() call
+            with profiling.span("renderer.tables"):
+                if self.driver in ("fused", "mesh_fused"):
+                    tables = tk.SceneTables if self.driver == "fused" else mk.MeshTables
+                    self.tables = tables(self.scene, self.camera, max_thres).to(self.device)
+                    self._batch = (sample_batch_fused if self.driver == "fused"
+                                   else sample_batch_mesh)
+                    flat = np.arange(n_pix)
+                else:
+                    self.tables = SceneTensors(self.scene, self.camera, max_thres).to(self.device)
+                    self._batch = self._wavefront if self.driver == "wavefront" else self._plain
+                    flat = tile_order(self.width, self.height)
+                    self._unscramble = torch.from_numpy(flat).to(self.device)
+                    self.pool = min(POOL_CAP, -(-n_pix // 1024) * 1024)
+                    self._lanes = {}  # the wavefront's lane pools (and CUDA graphs) by batch shape
+                self._xs = torch.from_numpy((flat % self.width).astype(np.int32)).to(self.device)
+                self._ys = torch.from_numpy((flat // self.width).astype(np.int32)).to(self.device)
+            self._step = self._batch
+            if group is not None:
+                from ..parallel.distributed import make_spp_sharded_step
 
-            self._step, _ = make_spp_sharded_step(group, self._batch)
+                self._step, _ = make_spp_sharded_step(group, self._batch)
 
     def _plain(self, tables, params, xs, ys, sample_base, n_samples, *, samples_per_launch):
         out = sample_batch(tables, params, xs, ys, sample_base, n_samples)
@@ -285,6 +290,16 @@ class Renderer:
         total = samples if samples is not None else info.samps_per_pix
         b = batch or (info.render_batch if update_hook is not None else None) or total
         b = max(1, min(b, total)) if total > 0 else 1
+        with profiling.call("render", samples=total, batch=b, driver=self.driver):
+            profiling.count("render.calls")
+            self._render(total, b, update_hook, progress, async_hook)
+            with profiling.span("render.mean"):
+                return self.target.mean_image()
+
+    def _render(self, total, b, update_hook, progress, async_hook):
+        """render's batches: each one `_step` (the chosen driver's batch), the
+        copy of its sums to the host, the add into the target and the hook."""
+        span = profiling.span
         self.stats = {"iterations": 0, "lane_bounces": 0}
         bar = None
         if progress:
@@ -301,18 +316,26 @@ class Renderer:
         try:
             while rendered < total:
                 n = min(b, total - rendered)
-                out = self._step(
-                    self.tables, self.params, self._xs, self._ys, sample_base=self.target.count,
-                    n_samples=n, samples_per_launch=self.samples_per_launch,
-                )
-                self.target.add(out.cpu().numpy(), n)
+                with span("render.step"):
+                    out = self._step(
+                        self.tables, self.params, self._xs, self._ys,
+                        sample_base=self.target.count, n_samples=n,
+                        samples_per_launch=self.samples_per_launch,
+                    )
+                with span("render.copy"):  # waits for the step's kernels
+                    sums = out.cpu().numpy()
+                with span("render.add"):
+                    self.target.add(sums, n)
+                profiling.count("render.batches")
+                profiling.count("render.dtoh_bytes", sums.nbytes)
                 rendered += n
                 meter.add(n * n_pix)
                 if bar is not None:
                     bar.update(n)
                     bar.set_postfix_str(f"{meter.mpaths_per_s:.1f} Mpaths/s")
                 if hook is not None:
-                    hook(self.target)
+                    with span("render.hook"):
+                        hook(self.target)
         finally:
             if bar is not None:
                 bar.close()
@@ -322,4 +345,3 @@ class Renderer:
             st = torch.tensor([self.stats[k] for k in self.stats], device=self.device)
             torch.distributed.all_reduce(st, group=self.group)
             self.stats = dict(zip(self.stats, st.tolist()))
-        return self.target.mean_image()

@@ -8,13 +8,16 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import profiling
+
 
 class RenderTarget:
     def __init__(self, width: int, height: int):
-        self.width = width
-        self.height = height
-        self.acc = np.zeros((height * width, 3), np.float32)
-        self.count = 0
+        with profiling.span("target.new"):
+            self.width = width
+            self.height = height
+            self.acc = np.zeros((height * width, 3), np.float32)
+            self.count = 0
 
     def add(self, radiance_sum: np.ndarray, n_samples: int):
         self.acc += radiance_sum

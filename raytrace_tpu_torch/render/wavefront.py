@@ -59,6 +59,7 @@ import torch
 from ..ops import bounce_kernel as bk
 from ..ops import mesh_kernel as mk
 from ..ops import raygen, rng
+from ..utils import profiling
 from .integrator import (IntegratorParams, _bounce_step, init_lanes, max_depth, mesh_of,
                          resolve_sky_dense, tracks_miss, uses_dls)
 
@@ -239,10 +240,12 @@ class Lanes:
             torch.cuda.current_stream().wait_stream(side)
             before = [dict(counts) for counts in _COUNTS]
             graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
+            t0 = time.time_ns()
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._iteration()
-            self.capture_s = time.perf_counter() - t0
+            t1 = time.time_ns()
+        self.capture_s = (t1 - t0) / 1e9
+        profiling.interval("wavefront.capture", t0, t1)
         self.graph_launches = {k: n - b[k] for counts, b in zip(_COUNTS, before)
                                for k, n in counts.items() if n != b[k]}
         for counts, b in zip(_COUNTS, before):
@@ -260,9 +263,27 @@ class Lanes:
 
     def _loop(self, step, sample_base: int) -> torch.Tensor:
         self._start(sample_base)
-        while bool(self.flag):
-            step()
-        return self._image()
+        if profiling.enabled():
+            self._spanned_loop(step)
+        else:
+            while bool(self.flag):
+                step()
+        with profiling.span("wavefront.image"):
+            return self._image()
+
+    def _spanned_loop(self, step):
+        """The loop with each flag read (the host's wait for the launch
+        before it) and each launch spanned."""
+        span, launches = profiling.span, 0
+        while True:
+            with span("wavefront.flag"):
+                go = bool(self.flag)
+            if not go:
+                break
+            with span("wavefront.launch"):
+                step()
+            launches += 1
+        profiling.count("wavefront.launches", launches)
 
     def _image(self) -> torch.Tensor:
         """The slots summed over the samples, by flat pixel."""
@@ -289,7 +310,10 @@ class Lanes:
     def stats(self) -> dict:
         """The last batch's {"iterations", "lane_bounces"}, from the
         device's counts."""
-        iterations, lane_bounces = torch.stack((self.iters, self.lane_bounces)).tolist()
+        with profiling.span("wavefront.stats"):
+            iterations, lane_bounces = torch.stack((self.iters, self.lane_bounces)).tolist()
+        profiling.count("wavefront.iterations", iterations)
+        profiling.count("wavefront.lane_bounces", lane_bounces)
         return {"iterations": iterations, "lane_bounces": lane_bounces}
 
 
@@ -308,13 +332,14 @@ def wavefront_batch(scene, params: IntegratorParams, xs_tab, ys_tab, sample_base
     differentiable render, as the JAX package's wavefront.supports
     refuses one (:57-58): that tier renders through
     `renderer.sample_batch`."""
-    key = (id(scene), params, id(xs_tab), id(ys_tab), n_samples, width, pool)
-    lanes = None if cache is None else cache.get(key)
-    if lanes is None:  # it holds scene and tables, so their ids stay theirs
-        lanes = Lanes(scene, params, xs_tab, ys_tab, n_samples, width, pool)
-        if cache is not None:
-            cache[key] = lanes
-            while len(cache) > CACHED_LANES:
-                cache.pop(next(iter(cache)))
-    img = lanes.run(sample_base)
-    return (img, lanes.stats()) if return_stats else img
+    with profiling.span("wavefront.batch"):
+        key = (id(scene), params, id(xs_tab), id(ys_tab), n_samples, width, pool)
+        lanes = None if cache is None else cache.get(key)
+        if lanes is None:  # it holds scene and tables, so their ids stay theirs
+            lanes = Lanes(scene, params, xs_tab, ys_tab, n_samples, width, pool)
+            if cache is not None:
+                cache[key] = lanes
+                while len(cache) > CACHED_LANES:
+                    cache.pop(next(iter(cache)))
+        img = lanes.run(sample_base)
+        return (img, lanes.stats()) if return_stats else img

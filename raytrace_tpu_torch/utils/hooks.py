@@ -18,6 +18,7 @@ from __future__ import annotations
 import threading
 
 from ..render.target import RenderTarget
+from . import profiling
 
 
 class AsyncHook:
@@ -51,7 +52,8 @@ class AsyncHook:
                     return
                 snap, self._latest = self._latest, None
             try:
-                self._hook(snap)
+                with profiling.span("hook.run"):
+                    self._hook(snap)
             except BaseException as e:  # surfaced at close()
                 self._exc = e
 

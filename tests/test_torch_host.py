@@ -2,7 +2,7 @@
 read-back, the MJPEG-AVI writer byte-equal to the JAX one, the mp4 ladder
 through its OpenCV rung (read back with cv2.VideoCapture) and its
 MJPEG-AVI fallback, AsyncHook (latest-wins, the final snapshot, the
-re-raise), Phases / Throughput / the torch.profiler trace, LivePreview
+re-raise), Throughput / the span recorder's export, LivePreview
 serving /frame, the Renderer's prebuilt scene, its progress bar and the
 async hook's error, and the CLI (render(samples=k) on every driver, with
 and without the async hook, is test_torch_renderer's): the animation branch (frames bitwise
@@ -29,7 +29,8 @@ from raytrace_tpu_torch.render.target import RenderTarget
 from raytrace_tpu_torch.utils import image, video
 from raytrace_tpu_torch.utils.hooks import AsyncHook
 from raytrace_tpu_torch.utils.preview import LivePreview
-from raytrace_tpu_torch.utils.profiling import Phases, Throughput, trace
+from raytrace_tpu_torch.utils import profiling
+from raytrace_tpu_torch.utils.profiling import Throughput
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -135,23 +136,29 @@ def test_render_closes_the_hook_and_reraises():
 
 
 def test_phases_throughput_and_trace(tmp_path):
-    ph = Phases()
-    with ph.phase("a"):
-        time.sleep(0.01)
-    with ph.phase("a"):
-        pass
-    assert ph.totals["a"] >= 0.01 and "a" in ph.report()
+    """The meter, and the span recorder in Phases' and trace's place: a
+    render's spans accumulate while it is on and export as Chrome trace
+    events."""
     meter = Throughput()
     meter.add(2_000_000)
     assert meter.mpaths_per_s > 0
-    with trace(None) as prof:
-        assert prof is None
-    with trace(str(tmp_path / "tr")) as prof:
+    profiling.reset()
+    profiling.enable()
+    try:
+        with profiling.span("a"):
+            time.sleep(0.01)
         Renderer(walled_scheme(16, 8), device="cpu").render(samples=1, progress=False)
-    files = os.listdir(tmp_path / "tr")
-    assert len(files) == 1 and files[0].endswith(".json")
-    events = json.load(open(tmp_path / "tr" / files[0]))["traceEvents"]
-    assert events
+        a = profiling.records()[0]
+        assert a.name == "a" and a.end - a.start >= 10_000_000
+        path = tmp_path / "tr.json"
+        profiling.export(str(path))
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    events = json.load(open(path))["traceEvents"]
+    assert [e["name"] for e in events][:2] == ["a", "renderer.init"]
+    assert {"render", "render.step", "render.copy", "render.add", "render.mean"} <= \
+        {e["name"] for e in events}
 
 
 def _get(url):
