@@ -98,17 +98,24 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    of the state restored before each launch) beside the bound: the lane
    state's bytes read and written once at 3.35 TB/s against the FP32
    instructions of the state's lane-bounces at 33.5 T/s (BOUNCE_*_OPS);
+   then on each state (and walled in cpu semantics through a lens with
+   pcg) the refill of that iteration, `lanes_assign` against its plain
+   version (assign_reference, the torch assign), bitwise or raise, and on
+   the main path's the two timed in turns plain, kernel, kernel, plain
+   beside its bound (the flags read twice and each refilled lane's fields
+   written once, against its raygen's FP32 instructions, ASSIGN_OPS);
 8. the integrator paths at full width, each render with the launch
    counts reset just before and read just after, with paths/s, the
    wavefront's iterations and lane-bounces, and the card's name and
    power limit: Renderer(a380-class 1216x608 in cpu semantics,
    "cuda").render(16), the slice's main path (the wavefront: bounce_prims,
-   mesh_hit and bounce_shade once an iteration, no other CUDA kernel);
+   mesh_hit, bounce_shade and lanes_assign once an iteration, lanes_assign
+   once more a batch, no other CUDA kernel);
    the same with direct-light sampling (bounce_prims and mesh_hit once
    more an iteration and emitter); each of these two, walled through the
    wavefront and phase 9's cpu-semantics sky render in turns graphed (the
    Renderer's loop: an iteration a CUDA graph replay of the bounce
-   kernels, mesh_hit and the torch assign, one flag read), torch (the
+   kernels, mesh_hit and lanes_assign, one flag read), torch (the
    yardstick: the graph of the same iteration with the bounce in torch,
    Lanes._torch_iteration), eager (the graphed iteration op by op),
    eager, torch, graphed, every graphed and eager turn's image bitwise
@@ -116,7 +123,9 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    torch bounce's bitwise too or else under the lane gate (printed), a
    bitwise resume, the graph's capture + instantiate seconds, and (after
    phase 9, in a child process) each render's device ms, idle share,
-   host syncs and kernels an iteration and each bounce kernel's share,
+   host syncs and kernels an iteration and each wavefront entry's share
+   (the graphed render's device and wall ms beside those of its graph with
+   the torch refill, WAVEFRONT_TORCH_ASSIGN),
    graphed and torch; the a380-class frame and
    the 2,097-triangle surface in gpu semantics through the wavefront
    (use_mesh_fused=False) against mesh_trace's and mesh_trace_brute's
@@ -268,9 +277,9 @@ the distinct 32-byte sectors of the sky pool its fetches read) and
 sky_launches_per_render; the mesh_hit record its launches a
 differentiable a380-class render (diff_launches_per_render) and its ms a
 launch there (diff_in_render_ms, phase 10's profiler table). Phase 7b
-adds the records bounce_prims and bounce_shade (replaces: the JAX
-integrator functions they stand for, XLA-fused code, not a Pallas
-kernel): their ms, plain ms and bound on the main path's in-render
+adds the records bounce_prims, bounce_shade and lanes_assign (replaces:
+the JAX integrator and wavefront functions they stand for, XLA-fused
+code, not a Pallas kernel): their ms, plain ms and bound on the main path's in-render
 state, their launches and ms a launch inside the graphed main render,
 and whether they were bitwise on every state. Phase 13
 adds the records mesh_trace_instanced, mesh_trace_instanced_sky and
@@ -430,14 +439,15 @@ def warm_render(tag, label, scheme, spp, card, route=None, **kw):
 
 
 # the wavefront's loops, in turns: "graphed", the Renderer's own (an
-# iteration a CUDA graph replay of the bounce kernels, mesh_hit and the
-# torch assign); "torch", its yardstick (the graph of Lanes._torch_iteration:
+# iteration a CUDA graph replay of the bounce kernels, mesh_hit and
+# lanes_assign); "torch", its yardstick (the graph of Lanes._torch_iteration:
 # the bounce in torch, as before the bounce kernels); "eager", the graphed
 # iteration launched op by op (Lanes._run_eager)
 WF_TURNS = ("graphed", "torch", "eager", "eager", "torch", "graphed")
-# the kernels a mesh scene's wavefront iteration launches, each once (with
-# direct-light sampling, bounce_prims and mesh_hit once more an emitter)
-WAVEFRONT_MESH = ("bounce_prims", "mesh_hit", "bounce_shade")
+# the entries a mesh scene's wavefront iteration launches, each once (with
+# direct-light sampling, bounce_prims and mesh_hit once more an emitter;
+# lanes_assign, two kernels, once more a batch: the start's refill)
+WAVEFRONT_MESH = ("bounce_prims", "mesh_hit", "bounce_shade", "lanes_assign")
 
 
 def torch_bounce_renderer(scheme, spp, **kw):
@@ -578,10 +588,13 @@ MESH_KERNELS = {  # entry point -> (route, the TPU kernel it replaces)
 }
 
 
-def variant(scheme, width=None, height=None, use_gpu=None, dir_light_samp=None):
-    """The scheme at another frame size or in other semantics, sharing
-    its (large) members."""
+def variant(scheme, width=None, height=None, use_gpu=None, dir_light_samp=None, lens_r=None):
+    """The scheme at another frame size, in other semantics or through a
+    lens, sharing its (large) members."""
     s = copy.copy(scheme)
+    if lens_r is not None:
+        s.cam = copy.copy(scheme.cam)
+        s.cam.lens_r = lens_r
     info = s.render_info = copy.copy(scheme.render_info)
     info.rad_info = copy.copy(info.rad_info)
     if width is not None:
@@ -897,7 +910,8 @@ FP32_PEAK = 67e12  # FP32 FLOP/s, an FMA two
 FP32_SINGLE = 33.5e12  # FP32 instructions/s (132 SMs x 128 lanes x 1.98 GHz)
 FP32_CEILING = {"trace_tiles": FP32_SINGLE, "mesh_trace": FP32_SINGLE,
                 "mesh_trace_brute": FP32_SINGLE, "mesh_hit": FP32_SINGLE,
-                "bounce_prims": FP32_SINGLE, "bounce_shade": FP32_SINGLE}
+                "bounce_prims": FP32_SINGLE, "bounce_shade": FP32_SINGLE,
+                "lanes_assign": FP32_SINGLE}
 HBM_RATE = 3.35e12  # bytes/s
 SLAB_OPS = 25  # mesh_kernel.cu slab_span (6 sub, 6 mul, 10 min/max) + 3 compares
 TRI_OPS = 55  # path_common.cuh tri_hit (53) + the t_min and running-best compares
@@ -1161,7 +1175,12 @@ def mesh_hit_phase(dev, card, a380):
 BOUNCE_KERNELS = {  # entry point -> the JAX function it stands for (XLA-fused, no Pallas)
     "bounce_prims": "raytrace_tpu/render/integrator.py:219",
     "bounce_shade": "raytrace_tpu/render/integrator.py:857",
+    "lanes_assign": "raytrace_tpu/render/wavefront.py:102",
 }
+# FP32 work of lanes_assign's refilled lane, counted from csrc/bounce_kernel.cu
+# as the bounce entries' is: the base direction 16, the jitter 14 and its
+# two draws, the normalize 11; a lens adds its two draws and 27
+ASSIGN_OPS = {False: 45, True: 74}
 BOUNCE_REPS = 10  # timed replays a turn of each bounce entry's graph (graph_ms)
 BOUNCE_GRAPH_K = 10  # launches of a bounce entry (or plain calls) in that graph
 # FP32 work of the bounce entries, counted from csrc/bounce_kernel.cu along
@@ -1413,6 +1432,84 @@ def bounce_parity(label, lanes, card):
     return out
 
 
+def assign_parity(label, lanes, card, timed):
+    """lanes_assign against its plain version (the torch assign) on the
+    card, on the refill of the pool's next iteration (the iteration run by
+    Lanes._iteration, the refill's input kept): bitwise or raise; with
+    `timed`, the two timed in turns (graphs of calls on the kept state,
+    its flags and q restored before each) beside the bound: the flags read
+    twice, each refilled lane's fields written once and its pixel read, at
+    3.35 TB/s, against its raygen's FP32 instructions at 33.5 T/s. Returns
+    {max_abs_err, bitwise, ms, plain_ms, bound_ms, bound_by}."""
+    import torch
+
+    from raytrace_tpu_torch.ops import bounce_kernel as bk
+    from raytrace_tpu_torch.render import wavefront as wf
+
+    kept, real = {}, lanes._assign
+
+    def keep(new):
+        kept.update(st=wf._clone(new), unit=lanes.unit.clone(), queue=tuple(
+            t.clone() for t in (lanes.q, lanes.sample_base, lanes.iters, lanes.lane_bounces,
+                                lanes.flag)))
+        real(new)
+
+    lanes._assign = keep
+    try:
+        lanes._iteration()
+    finally:
+        del lanes._assign
+    saved, unit0, queue0 = kept["st"], kept["unit"], kept["queue"]
+    scene, params, n = lanes.scene, lanes.params, lanes.pool
+    outs = {}
+    for kind, fn in (("kernel", bk.lanes_assign), ("plain", bk.assign_reference)):
+        st, unit, queue = wf._clone(saved), unit0.clone(), tuple(t.clone() for t in queue0)
+        fn(scene, params, st, st, unit, lanes.xs, lanes.ys, lanes.n_work, queue)
+        outs[kind] = [*wf._leaves(st), unit, *queue]
+    differ, err = 0, 0.0
+    for a, b in zip(outs["kernel"], outs["plain"]):
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() else a == b
+        differ += int((~same).sum())
+        if a.is_floating_point() and bool((~same).any()):
+            err = max(err, float((a - b)[~same].abs().max()))
+    q0, dead = int(queue0[0]), int((~saved["active"]).sum())
+    fresh = min(dead, lanes.n_work - q0)
+    print(f"[assign] {label}: {fresh} of {dead} dead lanes refilled ({n} lanes, q {q0} of "
+          f"{lanes.n_work}); lanes_assign against the torch assign: {differ} values differ, "
+          f"max |d| {err:.3e}", flush=True)
+    assert differ == 0, f"{label}: lanes_assign differs from its plain version"
+    out = dict(max_abs_err=err, bitwise=True)
+    if not timed:
+        return out
+    work, unit, queue = wf._clone(saved), unit0.clone(), tuple(t.clone() for t in queue0)
+
+    def reset():  # the refill rewrites what it wrote: only its inputs need restoring
+        work["active"].copy_(saved["active"])
+        queue[0].copy_(queue0[0])
+
+    def call(fn):
+        return lambda: fn(scene, params, work, work, unit, lanes.xs, lanes.ys, lanes.n_work,
+                          queue)
+
+    ms = time_turns(f"lanes_assign {label}", card, [
+        ("plain", call(bk.assign_reference)), ("kernel", call(bk.lanes_assign)),
+        ("kernel", call(bk.lanes_assign)), ("plain", call(bk.assign_reference))], reset)
+    written = ("ro", "rd", "L", "ci", "inten", "rng", "bounce", "active", "miss_d", "miss_w")
+    per_lane = sum(t.element_size() for k in written if k in saved
+                   for t in wf._leaves((saved[k],)))
+    per_lane += 8 + 8 + (1 if lanes.dls else 0)  # the unit, the pixel's x and y, dls.active
+    nbytes = 2 * n + fresh * per_lane
+    ops = fresh * ASSIGN_OPS[bool(scene.has_lens)]
+    b_ms, b_by = bound(ops, nbytes, "lanes_assign")
+    print(f"[bound] lanes_assign {label}: {ops:.4g} FP32 instructions "
+          f"({ops / FP32_SINGLE * 1e3:.5f} ms at 33.5 T/s), {nbytes:.4g} bytes ({nbytes / HBM_RATE * 1e3:.5f} ms at 3.35 TB/s; "
+          f"{(2 * n + n * per_lane) / 1e6:.2f} MB with every lane refilled): bound {b_ms:.5f} ms "
+          f"by {b_by}; kernel {ms['kernel']:.4f} ms ({b_ms / ms['kernel']:.2%} of the bound "
+          f"reached), plain {ms['plain']:.4f} ms ({ms['plain'] / ms['kernel']:.1f}x) [{card}]",
+          flush=True)
+    return dict(out, ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=b_ms, bound_by=b_by)
+
+
 def bounce_phase(dev, card, a380_cpu):
     """Phase 7b: the bounce kernels against their plain versions on the
     card (bounce_parity) on in-render lane states, each the pool as its
@@ -1427,19 +1524,27 @@ def bounce_phase(dev, card, a380_cpu):
     from raytrace_tpu_torch.models.walled import walled_scheme
 
     t_phase = time.perf_counter()
-    res = {"a380-class cpu": bounce_parity("a380-class cpu", bounce_state(a380_cpu), card)}
-    res["a380-class cpu DLS"] = bounce_parity(
-        "a380-class cpu DLS", bounce_state(variant(a380_cpu, dir_light_samp=True)), card)
+
+    def parity(label, lanes):
+        out = bounce_parity(label, lanes, card)
+        out["lanes_assign"] = assign_parity(label, lanes, card, timed=label == "a380-class cpu")
+        return out
+
+    res = {"a380-class cpu": parity("a380-class cpu", bounce_state(a380_cpu))}
+    res["a380-class cpu DLS"] = parity(
+        "a380-class cpu DLS", bounce_state(variant(a380_cpu, dir_light_samp=True)))
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_sky_") as face_dir:
         sky = copy.copy(a380_cpu)
         sky.scene_members = a380_cpu.scene_members + [procedural.sky_cubemap(face_dir)]
-        res["a380-class + sky cpu"] = bounce_parity("a380-class + sky cpu", bounce_state(sky),
-                                                     card)
+        res["a380-class + sky cpu"] = parity("a380-class + sky cpu", bounce_state(sky))
     walled = walled_scheme(W, H)
-    res["walled wavefront gpu"] = bounce_parity(
-        "walled wavefront gpu", bounce_state(walled, use_fused=False), card)
-    res["walled cpu DLS"] = bounce_parity(
-        "walled cpu DLS", bounce_state(variant(walled, use_gpu=False, dir_light_samp=True)), card)
+    res["walled wavefront gpu"] = parity("walled wavefront gpu",
+                                         bounce_state(walled, use_fused=False))
+    res["walled cpu DLS"] = parity(
+        "walled cpu DLS", bounce_state(variant(walled, use_gpu=False, dir_light_samp=True)))
+    res["walled cpu lens pcg"] = {"lanes_assign": assign_parity(
+        "walled cpu lens pcg", bounce_state(variant(walled, use_gpu=False, lens_r=0.15),
+                                            generator="pcg"), card, timed=False)}
     main = res["a380-class cpu"]
     records = []
     for name, replaces in BOUNCE_KERNELS.items():
@@ -1447,10 +1552,11 @@ def bounce_phase(dev, card, a380_cpu):
         records.append({"name": name, "route": "cuda",
                         "source": "raytrace_tpu_torch/csrc/bounce_kernel.cu",
                         "replaces": replaces, "launches": 0,
-                        "max_abs_err": max(v[name]["max_abs_err"] for v in res.values()),
+                        "max_abs_err": max(v[name]["max_abs_err"] for v in res.values()
+                                           if name in v),
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
-                        "bitwise": all(v[name]["bitwise"] for v in res.values())})
+                        "bitwise": all(v[name]["bitwise"] for v in res.values() if name in v)})
     print(f"[bounce] phase 7b in {time.perf_counter() - t_phase:.1f} s; bitwise on every state: "
           f"{ {r['name']: r['bitwise'] for r in records} }", flush=True)
     return records
@@ -1481,11 +1587,11 @@ def integrator_phases(dev, card):
     def render(label, scheme, spp, route=None, **kw):
         return warm_render("paths", label, scheme, spp, card, route, **kw)[:3]
 
-    def wavefront_only(counts, iterations, emitters=0):
+    def wavefront_only(counts, iterations, emitters=0, batches=1):
         """The launches of a mesh scene's wavefront render: the bounce
-        kernels and mesh_hit, and no other CUDA kernel."""
+        kernels, mesh_hit and the refill, and no other CUDA kernel."""
         want = {"bounce_prims": (1 + emitters) * iterations, "mesh_hit": (1 + emitters) * iterations,
-                "bounce_shade": iterations}
+                "bounce_shade": iterations, "lanes_assign": iterations + batches}
         return {k: v for k, v in counts.items() if v} == want
 
     # the slice's main path: cpu semantics through the wavefront; each
@@ -1495,7 +1601,8 @@ def integrator_phases(dev, card):
         "paths", "a380-class cpu semantics", a380_cpu, MESH_SPP, card)
     launches = counts["mesh_hit"]
     assert wavefront_only(counts, turns["a380-class cpu"]["iterations"]), \
-        f"the main path launched {counts}, not bounce_prims, mesh_hit and bounce_shade an iteration"
+        f"the main path launched {counts}, not bounce_prims, mesh_hit, bounce_shade and " \
+        f"lanes_assign an iteration"
     r_dls, _, dls, turns["a380-class cpu DLS"] = wavefront_turns(
         "paths", "a380-class cpu semantics DLS", variant(a380_cpu, dir_light_samp=True),
         MESH_SPP, card)
@@ -1613,12 +1720,15 @@ def profile(renderer, card, kernel, label, spp=MESH_SPP):
     print(f"[profile] {kernel} {hit / total:.2%} of device time, {count} launches; the "
           f"device-to-host copies {copy / total:.2%}; the elementwise work and the rest "
           f"{1 - (hit + copy) / total:.2%}", flush=True)
-    # the wavefront's kernels by name, and everything else (the torch assign,
-    # or the torch bounce in its yardstick graph)
+    # the wavefront's kernels by name, and everything else (the torch bounce
+    # in its yardstick graph, a batch's start and image)
     by_kernel, named = {}, 0.0
-    for name in WAVEFRONT_MESH:
+    for name in WAVEFRONT_MESH:  # lanes_assign: its two kernels, a launch each pair
         rows = [e for e in kernels if f"{name}_kernel" in e.key]
-        us, n = sum(dev_us(e) for e in rows), sum(e.count for e in rows)
+        n = sum(e.count for e in rows)
+        if name == "lanes_assign":
+            rows += [e for e in kernels if "lanes_count_kernel" in e.key]
+        us = sum(dev_us(e) for e in rows)
         named += us
         by_kernel[name] = {"ms": us / 1e3 / max(n, 1), "share": us / total, "launches": n}
     n_kernels = sum(e.count for e in kernels if "Memcpy" not in e.key and "Memset" not in e.key)
@@ -3776,11 +3886,21 @@ def profile_wavefront(card, every=False):
     return results
 
 
+# the graphed wavefront renders with the refill in torch (about 175 kernels
+# an iteration) before lanes_assign took its place: device / wall ms of the
+# same renders on an NVIDIA H100 80GB HBM3 at 700 W
+WAVEFRONT_TORCH_ASSIGN = {"a380-class cpu": (126.171, 159.200),
+                          "a380-class cpu DLS": (130.526, 168.107),
+                          "walled wavefront": (163.073, 210.746),
+                          "a380-class + sky cpu": (130.109, 169.586)}
+
+
 def wavefront_summary(turns, profiles, card):
     """Each wavefront render's graphed, torch-bounce and eager wall ms (the
     turns, in this process) beside its device ms, idle share, host syncs
     and kernels an iteration (profile_wavefront's tables, in a child, and
-    the main path's graphed table of phase 8)."""
+    the main path's graphed table of phase 8), and the graphed render's
+    device and wall ms beside those of its graph with the torch refill."""
     for label, t in turns.items():
         line = [f"[wavefront] {label}: {t['iterations']} iterations, {t['lane_bounces']} "
                 f"lane-bounces, launches {t['launches']}, the torch bounce's image "
@@ -3799,6 +3919,12 @@ def wavefront_summary(turns, profiles, card):
                         + ", ".join(f"{k} {v['share']:.2%}" for k, v in p["by_kernel"].items())
                         + f", the other kernels {p['other_share']:.2%}")
         print("; ".join(line) + f" [{card}]", flush=True)
+        p, (dev_old, wall_old) = (profiles.get(f"{label} graphed") or t.get("graphed_profile"),
+                                  WAVEFRONT_TORCH_ASSIGN[label])
+        dev_ms = f"{p['device_ms']:.3f}" if p else "not measured"
+        print(f"[wavefront] {label} graphed with lanes_assign: device {dev_ms} ms, wall "
+              f"{t['graphed_ms']:.3f} ms; with the torch refill (earlier run, H100 80GB HBM3, "
+              f"700 W): device {dev_old:.3f} ms, wall {wall_old:.3f} ms [{card}]", flush=True)
 
 
 def profile_in_child(what, card):

@@ -1,13 +1,14 @@
-// The integrator's bounce for the wavefront (Hopper, sm_90a): two entry
-// points, a thread per lane of the lane pool.
+// The integrator's bounce and the lane pool's refill for the wavefront
+// (Hopper, sm_90a): three entry points, a thread per lane of the lane pool.
 //
 // They replace no Pallas kernel. In the JAX package the bounce is XLA code
 // under jit: raytrace_tpu/render/integrator.py's closest_hit (:219-368),
 // _shade_hit (:701-850) and _bounce_step (:857-983), inside the wavefront's
-// lax.while_loop (raytrace_tpu/render/wavefront.py:195-296), which XLA
-// fuses into a few device programs. The port ran the same bounce as about
-// a thousand torch kernels an iteration; these two entries take their
-// place inside the iteration's CUDA graph (render/wavefront.Lanes):
+// lax.while_loop (raytrace_tpu/render/wavefront.py:195-296), whose assign
+// (:102-150) refills the pool; XLA fuses them into a few device programs.
+// The port ran the same bounce as about a thousand torch kernels an
+// iteration and the refill as about 175; these entries take their place
+// inside the iteration's CUDA graph (render/wavefront.Lanes):
 //
 //   bounce_prims   the brute nearest hit over every sphere and free
 //                  triangle, read from the scene's columns (no cap on
@@ -32,6 +33,22 @@
 //                  retire (a retiring lane's radiance, with
 //                  resolve_sky_dense's sky term, into its work unit's slot):
 //                  integrator.shade_step and the wavefront's cap and retire.
+//   lanes_assign   the refill (Lanes._assign; its plain version is
+//                  ops/bounce_kernel.assign_reference), two launches: the
+//                  dead lanes of each block of 1,024 (lanes_count_kernel),
+//                  then (lanes_assign_kernel) each block's offset from those
+//                  counts, its lanes ranked by a ballot scan, and each dead
+//                  lane whose work id q + rank is below n_work seeded from
+//                  (x, y, sample_base + id / n_pix) and raygen'd (the lens
+//                  and jitter draws, the sqrt-then-divide normalize of
+//                  raygen.generate_paths) with fresh radiance, throughput,
+//                  bounce count, miss record and no pending direct-light
+//                  term; block 0 advances q, sets the any-active flag and
+//                  adds the lanes active after the refill (the next
+//                  iteration's) to the device's iteration and lane-bounce
+//                  counts. The source state and the buffers are separate
+//                  arguments (the same tensors in the render; a lane that is
+//                  not refilled is copied only where they differ).
 //
 // Dead lanes: bounce_prims writes a miss and the dead seed without testing
 // anything (no later step reads a dead lane's hit: its shadow rays are
@@ -49,7 +66,13 @@
 // there on an NVIDIA H100 80GB HBM3 at 700 W: 0.0033 and 0.0209 ms a
 // launch, 67% and 61% of the bound (the plain versions 0.072 and 1.55 ms).
 // The design is the plain one: a thread per lane, coalesced column reads,
-// the scene's few rows through the uniform-load path.
+// the scene's few rows through the uniform-load path. lanes_assign at the
+// 131,072-lane pool moves at most 12 MB (the flags read twice, the 80 B of
+// a fresh lane's state written for every lane, the tables read): 3.6 us
+// at 3.35 TB/s, and far less on a pool whose lanes mostly live. Its torch
+// version was about 175 launches of a few us each; the design spends two
+// launches, reads the 1-byte flags twice rather than keeping a scan's state
+// in device memory, and writes only the lanes it refills.
 //
 // Exactness: built with -fmad=false (kernels/build.py); every sum and
 // product is taken in the plain version's order (dot products left to
@@ -61,8 +84,9 @@
 // strict-< loop below.
 //
 // Built by raytrace_tpu_torch/kernels/build.py; called through ctypes from
-// ops/bounce_kernel.py with one argument struct (BounceArgs, the field
-// order of ops/bounce_kernel._PTRS / _LONGS / _INTS / _FLOATS).
+// ops/bounce_kernel.py with one argument struct a family (BounceArgs, the
+// field order of ops/bounce_kernel._PTRS / _LONGS / _INTS / _FLOATS;
+// AssignArgs, that of _ASSIGN_PTRS and AssignArgs._fields_).
 
 #include <math_constants.h>
 
@@ -117,6 +141,35 @@ struct BounceArgs {
   int n, n_sph, n_ft, n_mesh, n_emit, pool_kind, sky_kind;
   int cpu, pcg, dls, debug, miss, assured, cap, emitter;
   float max_thres, inv_thres, t_min, dls_normze;
+};
+
+// The one argument of lanes_assign, filled by ops/bounce_kernel.py: the
+// bounce's lane state (src_*) and the buffers it is written into, each
+// miss record and direct-light flag null where the state has none.
+struct AssignArgs {
+  const float *src_ro[3], *src_rd[3], *src_L[3], *src_ci[3], *src_inten;
+  const long long* src_rng;
+  const int* src_bounce;
+  const float *src_miss_d[3], *src_miss_w[3];
+  const bool *src_dls_active, *src_active;
+  float *ro[3], *rd[3], *L[3], *ci[3], *inten;
+  long long* rng;
+  int* bounce;
+  float *miss_d[3], *miss_w[3];
+  bool *dls_active, *active;
+  // each lane's work unit; the tile-ordered pixel tables (int32)
+  long long* unit;
+  const int *xs, *ys;
+  // 0-dim device buffers: the queue counter, the batch's first sample id,
+  // the iteration and lane-bounce counts, the any-active flag
+  long long* q;
+  const long long* sample_base;
+  long long *iters, *lane_bounces;
+  bool* flag;
+  long long* scratch;  // (blocks + 1): each block's dead lanes, then q
+  long long n_work, n_pix;
+  int n, has_lens, pcg;
+  float cam[18];  // ops/trace_kernel.make_cam_vec's row
 };
 
 namespace {
@@ -582,6 +635,147 @@ __global__ void __launch_bounds__(kThreads) bounce_shade_kernel(const BounceArgs
   }
 }
 
+constexpr int kAssignThreads = 1024;
+constexpr int kAssignWarps = kAssignThreads / 32;
+
+__global__ void __launch_bounds__(kAssignThreads) lanes_count_kernel(const AssignArgs A) {
+  const int i = blockIdx.x * kAssignThreads + threadIdx.x;
+  const int dead = __syncthreads_count(i < A.n && !A.src_active[i]);
+  if (threadIdx.x == 0) {
+    A.scratch[blockIdx.x] = dead;
+    if (blockIdx.x == 0) A.scratch[gridDim.x] = *A.q;  // q as this refill found it
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void keep(T* dst, const T* src, int i) {
+  if (dst != src) dst[i] = src[i];
+}
+
+__global__ void __launch_bounds__(kAssignThreads) lanes_assign_kernel(const AssignArgs A) {
+  __shared__ long long s_before, s_total;
+  __shared__ int s_warp[kAssignWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int i = blockIdx.x * kAssignThreads + t;
+  const bool in = i < A.n;
+  const bool dead = in && !A.src_active[i];
+  const unsigned ballot = __ballot_sync(0xffffffffu, dead);
+  if (lane == 0) s_warp[warp] = __popc(ballot);
+  if (warp == 0) {  // the dead lanes of the blocks before this one, and of all
+    const int blocks = gridDim.x, me = blockIdx.x;
+    long long before = 0, total = 0;
+    for (int b = lane; b < blocks; b += 32) {
+      const long long c = A.scratch[b];
+      total += c;
+      if (b < me) before += c;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      before += __shfl_xor_sync(0xffffffffu, before, o);
+      total += __shfl_xor_sync(0xffffffffu, total, o);
+    }
+    if (lane == 0) {
+      s_before = before;
+      s_total = total;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the warps' dead lanes
+    const int c = s_warp[lane];
+    int x = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    s_warp[lane] = x - c;
+  }
+  __syncthreads();
+  const long long q0 = A.scratch[gridDim.x];
+  if (blockIdx.x == 0 && t == 0) {
+    const long long total = s_total, room = A.n_work - q0;
+    const long long fresh = total < room ? total : (room > 0 ? room : 0);
+    const long long live = A.n - total + fresh;  // the next iteration's lanes
+    *A.q = q0 + total < A.n_work ? q0 + total : A.n_work;
+    *A.flag = live > 0;
+    *A.iters += live > 0 ? 1 : 0;
+    *A.lane_bounces += live;
+  }
+  if (!in) return;
+  const long long id = q0 + s_before + s_warp[warp] + __popc(ballot & ((1u << lane) - 1u));
+  if (!dead || id >= A.n_work) {  // the lane keeps the bounce's state
+    for (int c = 0; c < 3; ++c) {
+      keep(A.ro[c], A.src_ro[c], i);
+      keep(A.rd[c], A.src_rd[c], i);
+      keep(A.L[c], A.src_L[c], i);
+      keep(A.ci[c], A.src_ci[c], i);
+      if (A.miss_d[0] != nullptr) {
+        keep(A.miss_d[c], A.src_miss_d[c], i);
+        keep(A.miss_w[c], A.src_miss_w[c], i);
+      }
+    }
+    keep(A.inten, A.src_inten, i);
+    keep(A.rng, A.src_rng, i);
+    keep(A.bounce, A.src_bounce, i);
+    if (A.dls_active != nullptr) keep(A.dls_active, A.src_dls_active, i);
+    keep(A.active, A.src_active, i);
+    return;
+  }
+  // the work unit's seed and camera ray (ops/rng.init_state, raygen.generate_paths)
+  const long long pix = id % A.n_pix;
+  const int x = A.xs[pix], y = A.ys[pix];
+  const uint32_t sid = static_cast<uint32_t>(*A.sample_base + id / A.n_pix);
+  uint32_t s = jenkins(jenkins(static_cast<uint32_t>(x) ^ (static_cast<uint32_t>(y) << 16)) ^
+                       jenkins(sid ^ 0x9E3779B9u));
+  auto draw = [&]() { return A.pcg ? next_f32_pcg(s) : next_f32(s); };
+  const float* c = A.cam;
+  const float sx = c[12] * (static_cast<float>(x) - c[14]);
+  const float sy = c[13] * (static_cast<float>(y) - c[15]);
+  float dx = c[3] + sx * c[9] + sy * c[6];
+  float dy = c[4] + sx * c[10] + sy * c[7];
+  float dz = c[5] + sx * c[11] + sy * c[8];
+  float ox = c[0], oy = c[1], oz = c[2];
+  if (A.has_lens) {
+    const float u = draw(), v = draw();
+    const float r = sqrtf(u);
+    const float th = kTwoPi * v;
+    const float lx = (r - 0.5f) * 2.0f * c[16] * cosf(th);
+    const float ly = (r - 0.5f) * 2.0f * c[16] * sinf(th);
+    const float offx = c[9] * lx + c[6] * ly, offy = c[10] * lx + c[7] * ly,
+                offz = c[11] * lx + c[8] * ly;
+    ox = offx + c[0];
+    oy = offy + c[1];
+    oz = offz + c[2];
+    dx = dx - offx;
+    dy = dy - offy;
+    dz = dz - offz;
+  }
+  const float ju = draw(), jv = draw();
+  const float jx = (ju - 0.5f) * c[12], jy = (jv - 0.5f) * c[13];
+  dx = dx + c[9] * jx + c[6] * jy;
+  dy = dy + c[10] * jx + c[7] * jy;
+  dz = dz + c[11] * jx + c[8] * jy;
+  vnorm(dx, dy, dz, 0.f);
+  A.ro[0][i] = ox;
+  A.ro[1][i] = oy;
+  A.ro[2][i] = oz;
+  A.rd[0][i] = dx;
+  A.rd[1][i] = dy;
+  A.rd[2][i] = dz;
+  for (int k = 0; k < 3; ++k) {
+    A.L[k][i] = 0.f;
+    A.ci[k][i] = 1.f;
+    if (A.miss_d[0] != nullptr) {
+      A.miss_d[k][i] = 0.f;
+      A.miss_w[k][i] = 0.f;
+    }
+  }
+  A.inten[i] = 1.f;
+  A.rng[i] = s;
+  A.bounce[i] = 0;
+  if (A.dls_active != nullptr) A.dls_active[i] = false;
+  A.active[i] = true;
+  A.unit[i] = id;
+}
+
 int launch(void (*kernel)(BounceArgs), const BounceArgs* a, void* stream) {
   if (a->n > 0) {
     const int blocks = (a->n + kThreads - 1) / kThreads;
@@ -598,4 +792,14 @@ extern "C" int bounce_prims_launch(const BounceArgs* a, void* stream) {
 
 extern "C" int bounce_shade_launch(const BounceArgs* a, void* stream) {
   return launch(bounce_shade_kernel, a, stream);
+}
+
+extern "C" int lanes_assign_launch(const AssignArgs* a, void* stream) {
+  if (a->n > 0) {
+    const int blocks = (a->n + kAssignThreads - 1) / kAssignThreads;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    lanes_count_kernel<<<blocks, kAssignThreads, 0, st>>>(*a);
+    lanes_assign_kernel<<<blocks, kAssignThreads, 0, st>>>(*a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-"""The wavefront's bounce as two CUDA entries: the sphere / free-triangle
-hit and the shade-and-retire step.
+"""The wavefront's bounce as two CUDA entries, the sphere / free-triangle
+hit and the shade-and-retire step, and its refill as a third.
 
 The JAX package runs the integrator's bounce under `jit`: `closest_hit`
 (raytrace_tpu/render/integrator.py:219-368), `_shade_hit` (:701-850) and
@@ -11,7 +11,7 @@ iteration on the card is (`render/wavefront.Lanes._iteration`):
 
     bounce_prims -> mesh_hit -> [with direct-light sampling, for each
     emitter: bounce_prims on its shadow rays -> mesh_hit] -> bounce_shade
-    -> the torch assign
+    -> lanes_assign
 
 - `bounce_prims`: the brute nearest hit over every sphere and free
   triangle of the scene's columns (no cap on their counts), in both
@@ -31,6 +31,13 @@ iteration on the card is (`render/wavefront.Lanes._iteration`):
   its whole state, its stream and direct-light record included, so a
   replay on a drained pool changes nothing; the plain version writes
   the slots' discard row, which nothing reads, and the kernel does not.
+- `lanes_assign`: the refill of the JAX wavefront's `assign` (:102-150,
+  without `sort_lanes`), two launches: each block's dead lanes, then the
+  ranks, work ids, seeds and camera rays of the lanes it refills, the
+  queue counter, the any-active flag and the device's iteration and
+  lane-bounce counts (the lanes active after the refill are the next
+  iteration's). Its plain version is `assign_reference`, the port's torch
+  assign.
 
 CPU tensors run the plain pieces; CUDA tensors launch the kernel or
 raise. The entries are built with -fmad=false (kernels/build.py) and
@@ -46,10 +53,10 @@ import numpy as np
 import torch
 
 from ..render import integrator as itg
-from . import cubemap, rng
+from . import cubemap, raygen, rng
 
 # launches of each CUDA entry point in this process (read by chip_smoke.py)
-LAUNCHES = {"bounce_prims": 0, "bounce_shade": 0}
+LAUNCHES = {"bounce_prims": 0, "bounce_shade": 0, "lanes_assign": 0}
 
 
 def _merged(scene, params, prims, mesh):
@@ -98,6 +105,26 @@ def bounce_shade(scene, params, st, prims, mesh, shadow, unit, slots, cap: int):
         shade_reference(scene, params, st, prims, mesh, shadow, unit, slots, cap)
     else:
         raise ValueError(f"bounce_shade runs on cpu or cuda tensors, not {unit.device}")
+
+
+def lanes_assign(scene, params, new, st, unit, xs, ys, n_work: int, queue):
+    """The wavefront's refill, in place: st, the lane state's buffers,
+    takes the state `new` (the bounce's, or st itself) with the next work
+    units handed to the dead lanes, ranked by position: each gets id q +
+    its rank while that is below n_work, its unit in `unit`, a stream
+    seeded from (x, y, sample_base + id // n_pix) of the (n_pix,) int32
+    tables xs, ys at id % n_pix, raygen.generate_paths' ray, fresh
+    radiance, throughput and bounce count, a cleared miss record and no
+    pending direct-light term. queue: the 0-dim device buffers (q,
+    sample_base, iters, lane_bounces, flag); q advances (at most to
+    n_work), the flag says whether a lane is active after the refill, and
+    iters and lane_bounces count those lanes, the next iteration's."""
+    if unit.device.type == "cuda":
+        _launch_assign(scene, params, new, st, unit, xs, ys, n_work, queue)
+    elif unit.device.type == "cpu":
+        assign_reference(scene, params, new, st, unit, xs, ys, n_work, queue)
+    else:
+        raise ValueError(f"lanes_assign runs on cpu or cuda tensors, not {unit.device}")
 
 
 # --- the plain versions (any device) -----------------------------------------
@@ -149,6 +176,44 @@ def shade_reference(scene, params, st, prims, mesh, shadow, unit, slots, cap):
             new["dls"][k] = _map2(lambda a, b: where(was_active, a, b), new["dls"][k],
                                   st["dls"][k])
     _copy_into(st, new)
+
+
+def assign_reference(scene, params, new, st, unit, xs, ys, n_work: int, queue):
+    """lanes_assign's plain version: a prefix sum over the pool, the
+    raygen of every lane, kept where the lane is refilled."""
+    q, sample_base, iters, lane_bounces, flag = queue
+    where, n_pix = torch.where, xs.numel()
+    need = ~new["active"]
+    ranks = torch.cumsum(need.to(torch.int64), 0)
+    ids = q + ranks - 1
+    valid = need & (ids < n_work)
+    q.copy_(torch.clamp(q + ranks[-1], max=n_work))
+    ids = ids.clamp(0, max(n_work - 1, 0))
+    pix = ids % n_pix
+    x, y = xs[pix], ys[pix]
+    state0, ro0, rd0 = raygen.generate_paths(
+        rng.init_state(x, y, sample_base + ids // n_pix), x, y, scene.cam, scene.has_lens,
+        params.generator)
+    z = torch.zeros_like(ro0[0])
+    one = torch.ones_like(z)
+    fresh = dict(ro=ro0, rd=rd0, L=(z, z, z), ci=(one, one, one), inten=one, rng=state0,
+                 bounce=torch.zeros_like(st["bounce"]))
+    if "miss_d" in st:  # a fresh work unit must not inherit a miss record (:287-288)
+        fresh.update(miss_d=(z, z, z), miss_w=(z, z, z))
+    for k, v in fresh.items():
+        for out, a, b in zip(_tup(st[k]), _tup(v), _tup(new[k])):
+            where(valid, a, b, out=out)
+    if "dls" in st:  # nor a pending direct-light term
+        torch.logical_and(new["dls"]["active"], ~valid, out=st["dls"]["active"])
+    where(valid, ids, unit, out=unit)
+    torch.logical_or(new["active"], valid, out=st["active"])
+    flag.copy_(st["active"].any())
+    iters.add_(flag)
+    lane_bounces.add_(st["active"].sum())
+
+
+def _tup(v):
+    return v if isinstance(v, tuple) else (v,)
 
 
 def _map2(fn, a, b):
@@ -342,3 +407,73 @@ def _launch_shade(scene, params, st, prims, mesh, shadow, unit, slots, cap):
     a.slots = _ptr("slots", slots, _F32, dev)
     a.cap = cap
     _run("bounce_shade", a, dev)
+
+
+# AssignArgs, csrc/bounce_kernel.cu's argument struct of lanes_assign: the
+# source state's pointers, the buffers', then the pool's, 64-bit lengths,
+# ints and the camera row
+_ASSIGN_LANE = ([f"{k}{c}" for k in ("ro", "rd", "L", "ci") for c in range(3)]
+                + ["inten", "rng", "bounce"]
+                + [f"{k}{c}" for k in ("miss_d", "miss_w") for c in range(3)]
+                + ["dls_active", "active"])
+_ASSIGN_PTRS = ([f"src_{k}" for k in _ASSIGN_LANE] + _ASSIGN_LANE
+                + ["unit", "xs", "ys", "q", "sample_base", "iters", "lane_bounces", "flag",
+                   "scratch"])
+_ASSIGN_THREADS = 1024  # the entry's block
+
+
+class AssignArgs(ctypes.Structure):
+    _fields_ = ([(k, ctypes.c_void_p) for k in _ASSIGN_PTRS]
+                + [("n_work", ctypes.c_longlong), ("n_pix", ctypes.c_longlong),
+                   ("n", ctypes.c_int), ("has_lens", ctypes.c_int), ("pcg", ctypes.c_int),
+                   ("cam", ctypes.c_float * 18)])
+
+
+def _lane_fields(tree, dev, n):
+    """{AssignArgs lane field: address} of a lane-state tree."""
+    dtypes = dict(inten=_F32, rng=_I64, bounce=_I32, active=_BOOL)
+    out = {}
+    for k in ("ro", "rd", "L", "ci", "miss_d", "miss_w"):
+        for c, t in enumerate(tree.get(k, ())):
+            out[f"{k}{c}"] = _ptr(f"{k}[{c}]", t, _F32, dev, n)
+    for k, dtype in dtypes.items():
+        out[k] = _ptr(k, tree[k], dtype, dev, n)
+    if "dls" in tree:
+        out["dls_active"] = _ptr("dls.active", tree["dls"]["active"], _BOOL, dev, n)
+    return out
+
+
+def _launch_assign(scene, params, new, st, unit, xs, ys, n_work, queue):
+    from ..kernels import build
+
+    dev, n = unit.device, unit.numel()
+    if params.generator not in rng.GENERATORS:
+        raise ValueError(f"generator must be one of {rng.GENERATORS}, not {params.generator!r}")
+    if ("miss_d" in new, "dls" in new) != ("miss_d" in st, "dls" in st):
+        raise ValueError("the source state and the buffers must hold the same fields")
+    if len(scene.cam) != 18:
+        raise ValueError("scene.cam must be make_cam_vec's 18 floats")
+    a = AssignArgs()
+    for k, v in _lane_fields(new, dev, n).items():
+        setattr(a, f"src_{k}", v)
+    for k, v in _lane_fields(st, dev, n).items():
+        setattr(a, k, v)
+    a.unit = _ptr("unit", unit, _I64, dev, n)
+    n_pix = xs.numel()
+    a.xs, a.ys = _ptr("xs", xs, _I32, dev), _ptr("ys", ys, _I32, dev, n_pix)
+    for k, t in zip(("q", "sample_base", "iters", "lane_bounces", "flag"), queue):
+        setattr(a, k, _ptr(k, t, _BOOL if k == "flag" else _I64, dev, 1))
+    blocks = -(-n // _ASSIGN_THREADS)
+    scratch = torch.empty(blocks + 1, dtype=_I64, device=dev)
+    a.scratch = scratch.data_ptr()
+    a.n_work, a.n_pix, a.n = n_work, n_pix, n
+    a.has_lens, a.pcg = int(scene.has_lens), int(params.generator == "pcg")
+    a.cam[:] = [float(v) for v in scene.cam]
+    fn = build.build("bounce_kernel").lib.lanes_assign_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(AssignArgs), ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lanes_assign kernel launch failed: CUDA error {rc}")
+    LAUNCHES["lanes_assign"] += 1

@@ -20,7 +20,9 @@ A fixed pool of lanes runs the integrator's bounce, and every iteration
   3. dead lanes take the next work units off a queue counter: ranked by
      a prefix sum over the pool, handed out sample-major over the
      tile-ordered pixel table, seeded from (x, y, sample) and raygen'd
-     in place, with a cleared direct-light state and miss record.
+     in place, with a cleared direct-light state and miss record
+     (`bounce_kernel.lanes_assign`: its CUDA entry on the card, the torch
+     assign on the CPU), and the lanes active after it are counted.
 
 The JAX driver runs that loop as one `lax.while_loop` on the device
 (:296). Here the lane state lives in static buffers (`Lanes`), allocated
@@ -58,7 +60,6 @@ import torch
 
 from ..ops import bounce_kernel as bk
 from ..ops import mesh_kernel as mk
-from ..ops import raygen, rng
 from ..utils import profiling
 from .integrator import (IntegratorParams, _bounce_step, init_lanes, max_depth, mesh_of,
                          resolve_sky_dense, tracks_miss, uses_dls)
@@ -151,40 +152,17 @@ class Lanes:
     def _assign(self, new):
         """Write the lane state `new` (the bounce's, or the buffers
         themselves) into the buffers, with the next work units handed to
-        every dead lane; advance q and set the flag."""
-        st, where = self.st, torch.where
-        n_work, n_pix = self.n_work, self.n_pix
-        need = ~new["active"]
-        ranks = torch.cumsum(need.to(torch.int64), 0)
-        ids = self.q + ranks - 1
-        valid = need & (ids < n_work)
-        self.q.copy_(torch.clamp(self.q + ranks[-1], max=n_work))
-        ids = ids.clamp(0, max(n_work - 1, 0))
-        pix = ids % n_pix
-        x, y = self.xs[pix], self.ys[pix]
-        state0, ro0, rd0 = raygen.generate_paths(
-            rng.init_state(x, y, self.sample_base + ids // n_pix), x, y, self.scene.cam,
-            self.scene.has_lens, self.params.generator)
-        z, one = self.zeros, self.ones
-        fresh = dict(ro=ro0, rd=rd0, L=(z, z, z), ci=(one, one, one), inten=one, rng=state0,
-                     bounce=torch.zeros_like(st["bounce"]))
-        if self.sky:  # a fresh work unit must not inherit a miss record (:287-288)
-            fresh.update(miss_d=(z, z, z), miss_w=(z, z, z))
-        for k, v in fresh.items():
-            for out, a, b in zip(_leaves((st[k],)), _leaves((v,)), _leaves((new[k],))):
-                where(valid, a, b, out=out)
-        if self.dls:  # nor a pending direct-light term
-            torch.logical_and(new["dls"]["active"], ~valid, out=st["dls"]["active"])
-        where(valid, ids, self.unit, out=self.unit)
-        torch.logical_or(new["active"], valid, out=st["active"])
-        self.flag.copy_(st["active"].any())
+        every dead lane; advance q, set the flag and count the lanes
+        active after it (the next iteration's) into iters and
+        lane_bounces."""
+        bk.lanes_assign(self.scene, self.params, new, self.st, self.unit, self.xs, self.ys,
+                        self.n_work,
+                        (self.q, self.sample_base, self.iters, self.lane_bounces, self.flag))
 
     def _iteration(self):
         """One iteration over the buffers: the bounce's kernels (bounce
         and cap, retire), then assign."""
         st, scene, params = self.st, self.scene, self.params
-        self.iters.add_(st["active"].any())
-        self.lane_bounces.add_(st["active"].sum())
         prims = bk.bounce_prims(scene, params, st["ro"], st["rd"], st["active"])
         mesh = (mesh_of(scene, params, st["ro"], st["rd"], prims[5]) if scene.n_mesh_tris
                 else None)
@@ -214,8 +192,6 @@ class Lanes:
         if self.sky:  # a retiring path that missed adds its sky term
             L = resolve_sky_dense(self.scene, L, new["miss_d"], new["miss_w"], term)
         self.slots.index_put_((where(term, self.unit, self.discard),), torch.stack(L, dim=1))
-        self.iters.add_(was_active.any())
-        self.lane_bounces.add_(was_active.sum())
         # a dead lane keeps its state: the bounce leaves every field of
         # such a lane as it was but its stream and the direct-light
         # record, which it rewrites

@@ -549,4 +549,5 @@ def test_graphed_render_is_the_torch_bounce_graph(case, tmp_path):
         out[kind] = (img, dict(r.stats), dict(bk.LAUNCHES))
     (img, st, n), (img_t, st_t, n_t) = out["kernels"], out["torch"]
     np.testing.assert_array_equal(img, img_t)
-    assert st == st_t and n["bounce_shade"] == st["iterations"] and not any(n_t.values())
+    assert st == st_t and n["bounce_shade"] == st["iterations"]
+    assert n_t.pop("lanes_assign") == n["lanes_assign"] > 0 and not any(n_t.values())

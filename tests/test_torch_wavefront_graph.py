@@ -7,7 +7,14 @@ the dense sky resolve is bitwise the gather form, and on a card the
 graph's replays are bitwise the eager loop. Cases: walled in cpu
 semantics, the 2,097-triangle surface in cpu semantics with direct-light
 sampling (mesh_hit and the shadow rays), outdoor spheres under a sky in
-cpu semantics. No JAX: the card test runs where the JAX package does not
+cpu semantics.
+
+The refill (`bounce_kernel.lanes_assign`): its plain version bitwise the
+torch assign it was factored from (kept below) on lane states built by
+hand, with the counts it took over; on the card the entry bitwise its
+plain version on in-render states, the graphed render bitwise the graph
+with the plain assign in its place, and a replay's kernels counted by the
+profiler. No JAX: the card tests run where the JAX package does not
 (`python -m pytest --noconftest -m cuda tests/test_torch_wavefront_graph.py`)."""
 import copy
 
@@ -18,7 +25,9 @@ import torch
 from raytrace_tpu_torch.models import procedural
 from raytrace_tpu_torch.models.config import ModelMember
 from raytrace_tpu_torch.models.walled import walled_scheme
+from raytrace_tpu_torch.ops import bounce_kernel as bk
 from raytrace_tpu_torch.ops import mesh_kernel as mk
+from raytrace_tpu_torch.ops import raygen, rng
 from raytrace_tpu_torch.render import wavefront as wf
 from raytrace_tpu_torch.render.integrator import resolve_sky, resolve_sky_dense
 from raytrace_tpu_torch.render.renderer import Renderer
@@ -28,6 +37,9 @@ CASES = ("cpu", "dls-mesh", "sky")
 
 
 def _scheme(case, face_dir):
+    """walled ("cpu"), outdoor spheres under a sky ("sky"), the
+    2,097-triangle surface with direct-light sampling ("dls-mesh") or
+    without ("mesh")."""
     if case == "cpu":
         return walled_scheme(W, H, assured=2)
     if case == "sky":
@@ -37,7 +49,7 @@ def _scheme(case, face_dir):
                                        loaded=[procedural.make_mesh(2097, n_textures=0)]))
     s.render_info = copy.copy(s.render_info)
     s.render_info.rad_info = copy.copy(s.render_info.rad_info)
-    s.render_info.rad_info.dir_light_samp = True
+    s.render_info.rad_info.dir_light_samp = case == "dls-mesh"
     return s
 
 
@@ -155,6 +167,163 @@ def test_dense_sky_resolve_is_the_gather(tmp_path):
     assert 0 < int(resolved.sum()) < n and not torch.equal(dense[0][resolved], L[0][resolved])
 
 
+# --- the refill -----------------------------------------------------------------
+
+
+def _parent_assign(self, new):
+    """Lanes._assign as it was before lanes_assign, verbatim (the counts
+    were added at the next iteration's start)."""
+    st, where = self.st, torch.where
+    n_work, n_pix = self.n_work, self.n_pix
+    need = ~new["active"]
+    ranks = torch.cumsum(need.to(torch.int64), 0)
+    ids = self.q + ranks - 1
+    valid = need & (ids < n_work)
+    self.q.copy_(torch.clamp(self.q + ranks[-1], max=n_work))
+    ids = ids.clamp(0, max(n_work - 1, 0))
+    pix = ids % n_pix
+    x, y = self.xs[pix], self.ys[pix]
+    state0, ro0, rd0 = raygen.generate_paths(
+        rng.init_state(x, y, self.sample_base + ids // n_pix), x, y, self.scene.cam,
+        self.scene.has_lens, self.params.generator)
+    z, one = self.zeros, self.ones
+    fresh = dict(ro=ro0, rd=rd0, L=(z, z, z), ci=(one, one, one), inten=one, rng=state0,
+                 bounce=torch.zeros_like(st["bounce"]))
+    if self.sky:  # a fresh work unit must not inherit a miss record (:287-288)
+        fresh.update(miss_d=(z, z, z), miss_w=(z, z, z))
+    for k, v in fresh.items():
+        for out, a, b in zip(wf._leaves((st[k],)), wf._leaves((v,)), wf._leaves((new[k],))):
+            where(valid, a, b, out=out)
+    if self.dls:  # nor a pending direct-light term
+        torch.logical_and(new["dls"]["active"], ~valid, out=st["dls"]["active"])
+    where(valid, ids, self.unit, out=self.unit)
+    torch.logical_or(new["active"], valid, out=st["active"])
+    self.flag.copy_(st["active"].any())
+
+
+# the refill's states: (scheme case, Renderer keywords, share of dead lanes,
+# where q stands: "start" 0, "mid" a third of the way, "short" fewer work
+# units left than dead lanes)
+ASSIGN_STATES = {
+    "none-dead": ("cpu", {}, 0.0, "mid"),
+    "all-dead": ("cpu", {}, 1.0, "start"),
+    "queue-runs-out": ("cpu", {}, 0.5, "short"),
+    "sky": ("sky", {}, 0.4, "mid"),
+    "dls": ("dls-mesh", {}, 0.4, "mid"),
+    "pcg": ("cpu", dict(generator="pcg"), 0.4, "mid"),
+    "lens": ("lens", {}, 0.4, "mid"),
+}
+
+
+def _hand_state(lanes, dead, g):
+    """A lane state of random values (every float field, stream, bounce
+    count, flag and unit drawn) with `dead` of its lanes dead."""
+    n = lanes.pool
+    st = wf._clone(lanes.st)
+    for t in wf._leaves(st):
+        if t.dtype == torch.float32:
+            t.copy_(torch.from_numpy(g.normal(size=n).astype(np.float32)))
+        elif t.dtype == torch.bool:
+            t.copy_(torch.from_numpy(g.uniform(size=n) < 0.5))
+        elif t.dtype == torch.int32:
+            t.copy_(torch.from_numpy(g.integers(0, 6, n).astype(np.int32)))
+        else:
+            t.copy_(torch.from_numpy(g.integers(0, 1 << 32, n)))
+    st["active"].copy_(torch.from_numpy(g.uniform(size=n) >= dead))
+    return st
+
+
+def _assign_pair(case, tmp_path, src):
+    """Two Lanes on one hand-built state (q, sample_base, units and counts
+    included), and the source states the refill reads: the buffers
+    themselves, or a separate tree (as Lanes._torch_iteration hands it)."""
+    kind, kw, dead, where = ASSIGN_STATES[case]
+    if kind == "lens":
+        scheme = walled_scheme(W, H, assured=2)
+        scheme.cam.lens_r = 0.15
+        r = Renderer(scheme, device="cpu", mode="cpu", samples_per_launch=2)
+    else:
+        r = Renderer(_scheme(kind, tmp_path), device="cpu", mode="cpu", samples_per_launch=2,
+                     **kw)
+    g = np.random.default_rng(sorted(ASSIGN_STATES).index(case))
+    pair = [_lanes(r), _lanes(r)]
+    base = _hand_state(pair[0], dead, g)
+    new = _hand_state(pair[0], dead, g) if src == "separate" else None
+    n_dead = int((~(base if new is None else new)["active"]).sum())
+    q = {"start": 0, "mid": pair[0].n_work // 3, "short": pair[0].n_work - n_dead // 2}[where]
+    unit = torch.from_numpy(g.integers(0, pair[0].n_work, pair[0].pool))
+    for lanes in pair:
+        for dst, v in zip(wf._leaves(lanes.st), wf._leaves(base)):
+            dst.copy_(v)
+        lanes.unit.copy_(unit)
+        lanes.q.fill_(q)
+        lanes.sample_base.fill_(7)
+        lanes.iters.fill_(3)
+        lanes.lane_bounces.fill_(1000)
+    srcs = [lanes.st if new is None else wf._clone(new) for lanes in pair]
+    return pair, srcs, n_dead, q
+
+
+@pytest.mark.parametrize("src", ("buffers", "separate"))
+@pytest.mark.parametrize("case", sorted(ASSIGN_STATES))
+def test_assign_plain_version_is_the_torch_assign(case, src, tmp_path):
+    """assign_reference (lanes_assign on CPU tensors) against the torch
+    assign it was factored from: every buffer, unit, q and flag bitwise;
+    iters and lane_bounces raised by the lanes active after the refill."""
+    (old, new), (src_old, src_new), n_dead, q = _assign_pair(case, tmp_path, src)
+    fresh = ~src_new["active"]  # the dead lanes, refilled if the queue lasts
+    pending = src_new["dls"]["active"].clone() if "dls" in src_new else None
+    _parent_assign(old, src_old)
+    new._assign(src_new)
+    for a, b in zip(wf._leaves(old.st), wf._leaves(new.st)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in ((old.unit, new.unit), (old.q, new.q), (old.flag, new.flag)):
+        assert torch.equal(a, b)
+    active = int(new.st["active"].sum())
+    assert int(new.iters) == 3 + int(active > 0) and int(new.lane_bounces) == 1000 + active
+    n_fresh = min(n_dead, new.n_work - q)
+    assert int(new.q) == min(q + n_dead, new.n_work) and active == new.pool - n_dead + n_fresh
+    assert {"none-dead": n_dead == 0, "all-dead": n_fresh == new.pool,
+            "queue-runs-out": 0 < n_fresh < n_dead}.get(case, 0 < n_fresh == n_dead)
+    fresh &= new.st["active"]
+    if "miss_d" in new.st:  # the refilled lanes' miss records are cleared
+        assert all(bool((t[fresh] == 0).all()) for t in new.st["miss_w"] + new.st["miss_d"])
+    if "dls" in new.st:  # and their pending direct-light terms
+        assert bool(pending[fresh].any())
+        assert not bool(new.st["dls"]["active"][fresh].any())
+
+
+def test_assign_args_follow_the_cu_struct():
+    """ops/bounce_kernel.AssignArgs lays out csrc/bounce_kernel.cu's
+    AssignArgs field by field (an array [k] as k fields, the camera row
+    as one)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(bk.__file__).parent.parent / "csrc" / "bounce_kernel.cu").read_text()
+    body = re.search(r"struct AssignArgs \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = []
+    for decl in filter(str.strip, body.split(";")):
+        decl = re.sub(r"^\s*(const\s+)?(unsigned\s+)?(long long|\w+)\s*", "", decl)
+        for part in decl.split(","):
+            m = re.fullmatch(r"\s*\**\s*(\w+)(?:\[(\d+)\])?\s*", part)
+            n = int(m.group(2) or 0)
+            names += ([m.group(1)] if not n or m.group(1) == "cam"
+                      else [f"{m.group(1)}{c}" for c in range(n)])
+    assert names == [k for k, _ in bk.AssignArgs._fields_]
+
+
+def test_lanes_assign_refuses_other_devices(tmp_path):
+    r = _renderer("cpu", tmp_path)
+    lanes = _lanes(r)
+    meta = lanes.unit.to("meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        bk.lanes_assign(r.tables, r.params, lanes.st, lanes.st, meta, lanes.xs, lanes.ys,
+                        lanes.n_work, (lanes.q, lanes.sample_base, lanes.iters,
+                                       lanes.lane_bounces, lanes.flag))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES)
 def test_graph_replays_are_bitwise_the_eager_loop(case, tmp_path):
@@ -186,3 +355,116 @@ def test_graph_replays_are_bitwise_the_eager_loop(case, tmp_path):
         b._lanes.clear()
         b.render(progress=False, samples=2)
     np.testing.assert_array_equal(a.target.acc, b.target.acc)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: lanes_assign builds with nvcc and runs on the card")
+
+
+def _entry_renderer(case, face_dir):
+    """The card's Renderer of an entry case: the a380-class frame at 152x76
+    (12 blocks of the entry), with direct-light sampling, walled with a
+    lens and pcg, outdoor spheres under a sky."""
+    kw = {}
+    if case.startswith("a380-class"):
+        scheme = procedural.a380_scheme(152, 76)
+        scheme.render_info.rad_info.dir_light_samp = case.endswith("DLS")
+    elif case == "walled lens pcg":
+        scheme = walled_scheme(96, 48, assured=2)
+        scheme.cam.lens_r = 0.15
+        kw = dict(generator="pcg")
+    else:
+        scheme = procedural.outdoor_scheme(procedural.sky_cubemap(str(face_dir), size=16), 96, 48)
+    return Renderer(scheme, device="cuda", mode="cpu", samples_per_launch=2, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("a380-class", "a380-class DLS", "walled lens pcg", "sky"))
+def test_assign_entry_is_its_plain_version(case, tmp_path):
+    """On the card: every refill of a batch (the start's all-dead pool, each
+    iteration's, the queue running out), the entry against its plain
+    version on copies of the state, bitwise: the state read from the
+    buffers themselves, and from a separate tree into buffers that hold
+    another state."""
+    _card()
+    r = _entry_renderer(case, tmp_path)
+    lanes = wf.Lanes(r.tables, r.params, r._xs, r._ys, 2, r.width, r.pool)
+    assert lanes.pool > 1024
+    real, seen = lanes._assign, {"refills": 0, "short": 0}
+
+    def both(new):
+        queue = (lanes.q, lanes.sample_base, lanes.iters, lanes.lane_bounces, lanes.flag)
+        other = wf._clone(lanes.st)
+        for t in wf._leaves(other):
+            t.copy_(t.flip(0))
+        for separate in (False, True):
+            outs = []
+            for fn in (bk.lanes_assign, bk.assign_reference):
+                st = wf._clone(other if separate else new)
+                src = wf._clone(new) if separate else st
+                unit, qs = lanes.unit.clone(), tuple(t.clone() for t in queue)
+                n0 = bk.LAUNCHES["lanes_assign"]
+                fn(r.tables, r.params, src, st, unit, lanes.xs, lanes.ys, lanes.n_work, qs)
+                assert bk.LAUNCHES["lanes_assign"] - n0 == (fn is bk.lanes_assign)
+                outs.append([*wf._leaves(st), unit, *qs])
+            for a, b in zip(*outs):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        seen["refills"] += 1
+        seen["short"] += int(lanes.q) + int((~new["active"]).sum()) > lanes.n_work
+        real(new)
+
+    lanes._assign = both
+    lanes._start(11)
+    while bool(lanes.flag):
+        lanes._iteration()
+    assert seen["refills"] > 3 and seen["short"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_graphed_render_is_the_plain_assign_graph(case, tmp_path, monkeypatch):
+    """On the card: render(4) in batches of 2 through the graph with the
+    entry against the same graph with the plain assign captured in its
+    place: images bitwise, stats equal, every other launch count equal."""
+    _card()
+    out = {}
+    for kind in ("entry", "plain"):
+        if kind == "plain":
+            monkeypatch.setattr(bk, "lanes_assign", bk.assign_reference)
+        r = _renderer(case, tmp_path, "cuda")
+        for counts in (mk.LAUNCHES, bk.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        img = r.render(progress=False, samples=4)
+        assert all(lanes.graph is not None for lanes in r._lanes.values())
+        out[kind] = (img, dict(r.stats), dict(mk.LAUNCHES, **bk.LAUNCHES))
+    (img, st, n), (img_p, st_p, n_p) = out["entry"], out["plain"]
+    np.testing.assert_array_equal(img, img_p)
+    assert st == st_p and n.pop("lanes_assign") == st["iterations"] + 2
+    assert n_p.pop("lanes_assign") == 0 and n == n_p and n["bounce_shade"] == st["iterations"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("cpu", "mesh"))
+def test_graph_replay_kernels_counted_by_the_profiler(case, tmp_path):
+    """On the card: the kernels of one replay of a captured iteration, by
+    torch.profiler: the launches the graph holds (the refill's two
+    kernels), at most 5 (walled: bounce_prims, bounce_shade and the
+    refill's; the surface: mesh_hit besides)."""
+    _card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    r = _renderer(case, tmp_path, "cuda")
+    r.render(progress=False, samples=2)  # captures the graph
+    (lanes,) = r._lanes.values()
+    held = sum(lanes.graph_launches.values()) + lanes.graph_launches["lanes_assign"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lanes.graph.replay()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(kernels) == held <= 5, kernels
+    assert sum("lanes_" in k for k in kernels) == 2
