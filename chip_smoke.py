@@ -109,13 +109,14 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    wavefront's iterations and lane-bounces, and the card's name and
    power limit: Renderer(a380-class 1216x608 in cpu semantics,
    "cuda").render(16), the slice's main path (the wavefront: bounce_prims,
-   mesh_hit, bounce_shade and lanes_assign once an iteration, lanes_assign
-   once more a batch, no other CUDA kernel);
+   mesh_hit, bounce_shade and lanes_assign once an iteration launched,
+   STEP_ITERATIONS a replay, the drained ones past the pool's last live
+   iteration too, lanes_assign once more a batch, no other CUDA kernel);
    the same with direct-light sampling (bounce_prims and mesh_hit once
    more an iteration and emitter); each of these two, walled through the
    wavefront and phase 9's cpu-semantics sky render in turns graphed (the
-   Renderer's loop: an iteration a CUDA graph replay of the bounce
-   kernels, mesh_hit and lanes_assign, one flag read), torch (the
+   Renderer's loop: STEP_ITERATIONS iterations of the bounce kernels,
+   mesh_hit and lanes_assign a CUDA graph replay, one flag read), torch (the
    yardstick: the graph of the same iteration with the bounce in torch,
    Lanes._torch_iteration), eager (the graphed iteration op by op),
    eager, torch, graphed, every graphed and eager turn's image bitwise
@@ -438,9 +439,9 @@ def warm_render(tag, label, scheme, spp, card, route=None, **kw):
     return r, img, counts, dt
 
 
-# the wavefront's loops, in turns: "graphed", the Renderer's own (an
-# iteration a CUDA graph replay of the bounce kernels, mesh_hit and
-# lanes_assign); "torch", its yardstick (the graph of Lanes._torch_iteration:
+# the wavefront's loops, in turns: "graphed", the Renderer's own (a step
+# of STEP_ITERATIONS iterations of the bounce kernels, mesh_hit and
+# lanes_assign a CUDA graph replay); "torch", its yardstick (the graph of Lanes._torch_iteration:
 # the bounce in torch, as before the bounce kernels); "eager", the graphed
 # iteration launched op by op (Lanes._run_eager)
 WF_TURNS = ("graphed", "torch", "eager", "eager", "torch", "graphed")
@@ -510,7 +511,9 @@ def wavefront_turns(tag, label, scheme, spp, card, **kw):
         finally:
             wf.Lanes.run = real
         counts = {k: v for k, v in launch_counts().items() if v}
-        runs.setdefault(turn, []).append(dict(img=img, stats=dict(rr.stats), counts=counts, ms=ms))
+        (turn_lanes,) = rr._lanes.values()
+        runs.setdefault(turn, []).append(dict(img=img, stats=dict(rr.stats), counts=counts, ms=ms,
+                                              steps=turn_lanes.steps))
         print(f"[{tag}] {label} {r.width}x{r.height} render({spp}), {turn}: {ms:.3f} ms wall, "
               f"stats {rr.stats}, launches {counts} [{card}]", flush=True)
     ref = runs["graphed"][0]
@@ -531,8 +534,9 @@ def wavefront_turns(tag, label, scheme, spp, card, **kw):
                     assert frac < 0.01, f"{label}: the torch bounce's image is off the gate"
                 continue
             assert np.array_equal(run["img"], ref["img"]), f"{label}: {turn} image differs"
-            assert run["stats"] == ref["stats"] and run["counts"] == ref["counts"], \
-                f"{label}: {turn} stats {run['stats']} / launches {run['counts']} differ"
+            assert run["stats"] == ref["stats"] and run["counts"] == ref["counts"] and \
+                run["steps"] == ref["steps"], f"{label}: {turn} stats {run['stats']} / " \
+                f"launches {run['counts']} / steps {run['steps']} differ"
     ms = {k: sum(run["ms"] for run in v) / len(v) for k, v in runs.items()}
     print(f"[{tag}] {label}: graphed {ms['graphed']:.3f} ms against the torch bounce's graph "
           f"{ms['torch']:.3f} ms ({ms['torch'] / ms['graphed']:.2f}x) and eager "
@@ -546,7 +550,8 @@ def wavefront_turns(tag, label, scheme, spp, card, **kw):
     resume_bitwise(tag, r, label)
     return r, ref["img"], ref["counts"], dict(
         graphed_ms=ms["graphed"], torch_ms=ms["torch"], eager_ms=ms["eager"],
-        capture_s=lanes.capture_s, launches=ref["counts"], torch_bitwise=bitwise, **ref["stats"])
+        capture_s=lanes.capture_s, launches=ref["counts"], torch_bitwise=bitwise,
+        launched=wf.STEP_ITERATIONS * ref["steps"], **ref["stats"])
 
 
 def mixed_scheme(width, height):
@@ -1573,6 +1578,7 @@ def integrator_phases(dev, card):
     from raytrace_tpu_torch.models.walled import walled_scheme
     from raytrace_tpu_torch.ops import mesh_kernel as mk
     from raytrace_tpu_torch.render import integrator as itg
+    from raytrace_tpu_torch.render import wavefront as wf
 
     a380 = procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP)
     a380_cpu = variant(a380, use_gpu=False)
@@ -1587,12 +1593,16 @@ def integrator_phases(dev, card):
     def render(label, scheme, spp, route=None, **kw):
         return warm_render("paths", label, scheme, spp, card, route, **kw)[:3]
 
-    def wavefront_only(counts, iterations, emitters=0, batches=1):
-        """The launches of a mesh scene's wavefront render: the bounce
-        kernels, mesh_hit and the refill, and no other CUDA kernel."""
-        want = {"bounce_prims": (1 + emitters) * iterations, "mesh_hit": (1 + emitters) * iterations,
-                "bounce_shade": iterations, "lanes_assign": iterations + batches}
-        return {k: v for k, v in counts.items() if v} == want
+    def wavefront_only(counts, turn, emitters=0, batches=1):
+        """The launches of a mesh scene's wavefront render of one batch: the
+        bounce kernels, mesh_hit and the refill once an iteration launched
+        (STEP_ITERATIONS a replay: the live iterations and fewer than
+        STEP_ITERATIONS past them a batch), and no other CUDA kernel."""
+        launched = turn["launched"]
+        want = {"bounce_prims": (1 + emitters) * launched, "mesh_hit": (1 + emitters) * launched,
+                "bounce_shade": launched, "lanes_assign": launched + batches}
+        return ({k: v for k, v in counts.items() if v} == want
+                and 0 <= launched - turn["iterations"] < wf.STEP_ITERATIONS * batches)
 
     # the slice's main path: cpu semantics through the wavefront; each
     # render of the turns: its graphed, torch-bounce and eager walls
@@ -1600,13 +1610,13 @@ def integrator_phases(dev, card):
     full, _, counts, turns["a380-class cpu"] = wavefront_turns(
         "paths", "a380-class cpu semantics", a380_cpu, MESH_SPP, card)
     launches = counts["mesh_hit"]
-    assert wavefront_only(counts, turns["a380-class cpu"]["iterations"]), \
+    assert wavefront_only(counts, turns["a380-class cpu"]), \
         f"the main path launched {counts}, not bounce_prims, mesh_hit, bounce_shade and " \
         f"lanes_assign an iteration"
     r_dls, _, dls, turns["a380-class cpu DLS"] = wavefront_turns(
         "paths", "a380-class cpu semantics DLS", variant(a380_cpu, dir_light_samp=True),
         MESH_SPP, card)
-    assert wavefront_only(dls, turns["a380-class cpu DLS"]["iterations"],
+    assert wavefront_only(dls, turns["a380-class cpu DLS"],
                           len(r_dls.tables.emitters)), \
         f"the shadow rays did not go through bounce_prims and mesh_hit: {dls}"
 

@@ -28,16 +28,20 @@ The JAX driver runs that loop as one `lax.while_loop` on the device
 (:296). Here the lane state lives in static buffers (`Lanes`), allocated
 once per (scene, params, pixel tables, n_samples, width, pool), and
 `_iteration` writes every result back into them in place, so its inputs
-and outputs keep their addresses. On CUDA tensors one iteration is
-captured once as a CUDA graph and replayed; the host reads one flag (any
-lane active) after each replay, and counts nothing itself: the
-iterations and lane-bounces are counted on the device. Every value that
-differs between batches (the first sample id) is a device buffer,
-written before the batch's replays. On CPU tensors the same
-`_iteration` runs eagerly in the same loop, so the CPU tests run the
-body the card captures. A cached `Lanes` assumes that the scene's
-tensors keep their storage and its Python constants (the camera row,
-the emitters) do not change between calls.
+and outputs keep their addresses. The loop's unit is a step
+(`Lanes._step`): STEP_ITERATIONS iterations one after another. On CUDA
+tensors one step is captured once as a CUDA graph and replayed; the host
+reads one flag (any lane active) after each replay, so it waits on the
+device once a step, and counts nothing itself: the iterations and
+lane-bounces are counted on the device. An iteration on a drained pool
+changes nothing, so the iterations a step runs past the pool's last
+live one cost only their kernels' early exits (at most
+STEP_ITERATIONS - 1 a batch). Every value that differs between batches
+(the first sample id) is a device buffer, written before the batch's
+replays. On CPU tensors the same `_step` runs eagerly in the same loop,
+so the CPU tests run the body the card captures. A cached `Lanes`
+assumes that the scene's tensors keep their storage and its Python
+constants (the camera row, the emitters) do not change between calls.
 
 Not ported: `sort_lanes` (measured a loss on the TPU, :105-115), `ablate`
 (profiling stubs) and the sky resolve's 8192-lane tiles under `lax.cond`
@@ -54,6 +58,7 @@ take n_samples * n_pix * 12 bytes.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -65,6 +70,7 @@ from .integrator import (IntegratorParams, _bounce_step, init_lanes, max_depth, 
                          resolve_sky_dense, tracks_miss, uses_dls)
 
 CACHED_LANES = 2  # a render's batch shapes: its full chunk and its last
+STEP_ITERATIONS = 8  # the iterations of a step: a graph replay, one flag read after it
 _COUNTS = (mk.LAUNCHES, bk.LAUNCHES)  # the launch counts a graph's replays add to
 
 
@@ -92,10 +98,13 @@ class Lanes:
     `init_lanes` (`st`), each lane's work unit, the queue counter, the
     (sample, pixel) slots, the batch's first sample id, the device's
     iteration and lane-bounce counts and the any-lane-active flag. On
-    the card the iteration's CUDA graph is captured at the first replay
-    and kept (`graph`, with the kernel launches it holds,
-    `graph_launches`, and the host seconds of its capture and
-    instantiation, `capture_s`)."""
+    the card the step's CUDA graph is captured at the first replay and
+    kept (`graph`, with the kernel launches it holds, `graph_launches`:
+    STEP_ITERATIONS iterations' worth, and the host seconds of its
+    capture and instantiation, `capture_s`). `steps` is the last batch's
+    steps (replays on the card): it launched STEP_ITERATIONS * steps
+    iterations, and the launch counts (mk.LAUNCHES, bk.LAUNCHES) count
+    every one, those past the pool's last live iteration too."""
 
     def __init__(self, scene, params: IntegratorParams, xs_tab, ys_tab, n_samples: int,
                  width: int, pool: int):
@@ -130,6 +139,7 @@ class Lanes:
                 torch.zeros((n_emit, pool), dtype=torch.int32, device=dev)
                 if scene.n_mesh_tris else None)
         self.graph, self.graph_launches, self.capture_s = None, {}, None
+        self.steps = 0
 
     def _fresh(self):
         """The lane state of an empty pool (every lane dead)."""
@@ -176,6 +186,12 @@ class Lanes:
                         self.cap)
         self._assign(st)
 
+    def _step(self):
+        """STEP_ITERATIONS iterations, one after another on the buffers:
+        the body of the card's CUDA graph."""
+        for _ in range(STEP_ITERATIONS):
+            self._iteration()
+
     def _torch_iteration(self):
         """The iteration with the bounce in torch (`_bounce_step`, an
         operation a launch), cap and retire as torch operations: on the
@@ -203,22 +219,33 @@ class Lanes:
         self._assign(new)
 
     def _capture(self):
-        """The first replay: one eager iteration on a side stream (the
-        warm-up the capture needs, a real iteration of the render), then
-        the capture of the next, with the kernel launches it holds taken
-        back out of mk.LAUNCHES and bk.LAUNCHES (they are counted at each
-        replay)."""
+        """The first replay: one eager step on a side stream (the warm-up
+        the capture needs, real iterations of the render, so that every
+        step of a batch runs STEP_ITERATIONS of them), then the capture
+        of the next with the cyclic garbage collector off, with the kernel
+        launches it holds taken back out of mk.LAUNCHES and bk.LAUNCHES
+        (they are counted at each replay)."""
         with torch.cuda.device(self.dev):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
-                self._iteration()
+                self._step()
             torch.cuda.current_stream().wait_stream(side)
             before = [dict(counts) for counts in _COUNTS]
             graph = torch.cuda.CUDAGraph()
+            # no cyclic collection inside the capture: a dead cycle that
+            # holds another CUDA graph (a dropped Renderer's Lanes) would be
+            # freed there, and destroying a graph while this thread
+            # captures invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
             t0 = time.time_ns()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._iteration()
+            try:
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    self._step()
+            finally:
+                if collecting:
+                    gc.enable()
             t1 = time.time_ns()
         self.capture_s = (t1 - t0) / 1e9
         profiling.interval("wavefront.capture", t0, t1)
@@ -239,18 +266,20 @@ class Lanes:
 
     def _loop(self, step, sample_base: int) -> torch.Tensor:
         self._start(sample_base)
+        self.steps = 0
         if profiling.enabled():
             self._spanned_loop(step)
         else:
             while bool(self.flag):
                 step()
+                self.steps += 1
         with profiling.span("wavefront.image"):
             return self._image()
 
     def _spanned_loop(self, step):
         """The loop with each flag read (the host's wait for the launch
         before it) and each launch spanned."""
-        span, launches = profiling.span, 0
+        span = profiling.span
         while True:
             with span("wavefront.flag"):
                 go = bool(self.flag)
@@ -258,8 +287,8 @@ class Lanes:
                 break
             with span("wavefront.launch"):
                 step()
-            launches += 1
-        profiling.count("wavefront.launches", launches)
+            self.steps += 1
+        profiling.count("wavefront.launches", self.steps)
 
     def _image(self) -> torch.Tensor:
         """The slots summed over the samples, by flat pixel."""
@@ -273,7 +302,7 @@ class Lanes:
         """The batch from sample id sample_base: the graph's replays on
         the card, the eager loop on the CPU. Returns wavefront_batch's
         image."""
-        return self._loop(self._replay if self.dev.type == "cuda" else self._iteration,
+        return self._loop(self._replay if self.dev.type == "cuda" else self._step,
                           sample_base)
 
     def _run_eager(self, sample_base: int) -> torch.Tensor:
@@ -281,15 +310,19 @@ class Lanes:
         yardstick that chip_smoke.py times the graph against (with
         `_torch_iteration` in `_iteration`'s place at a capture, the other:
         the bounce in torch)."""
-        return self._loop(self._iteration, sample_base)
+        return self._loop(self._step, sample_base)
 
     def stats(self) -> dict:
         """The last batch's {"iterations", "lane_bounces"}, from the
-        device's counts."""
+        device's counts (an iteration counts where a lane was live at its
+        start); the iterations launched past them go to the
+        wavefront.drained_iterations counter."""
         with profiling.span("wavefront.stats"):
             iterations, lane_bounces = torch.stack((self.iters, self.lane_bounces)).tolist()
         profiling.count("wavefront.iterations", iterations)
         profiling.count("wavefront.lane_bounces", lane_bounces)
+        profiling.count("wavefront.drained_iterations",
+                        STEP_ITERATIONS * self.steps - iterations)
         return {"iterations": iterations, "lane_bounces": lane_bounces}
 
 

@@ -3,11 +3,11 @@
 
     python3 scripts/torch_wavefront_flag.py
 
-`raytrace_tpu_torch/render/wavefront.Lanes` replays its iteration's CUDA
-graph and reads the any-lane-active flag after each replay, so the
-device waits for the host between iterations. This script holds that
-loop (k1) against three others on the a380-class 1216x608 frame in cpu
-semantics at 16 samples (the Renderer's one batch of render(16), its
+`raytrace_tpu_torch/render/wavefront.Lanes` replays its step's CUDA
+graph (STEP_ITERATIONS iterations) and reads the any-lane-active flag
+after each replay, so the device waits for the host between steps.
+This script holds that loop (k1) against three others on the a380-class
+1216x608 frame in cpu semantics at 16 samples (the Renderer's one batch of render(16), its
 lane pool of 131,072): a flag read every 2 and every 4 replays (k2, k4)
 and a flag read one replay behind, the next replay already queued
 (lagged). A replay on a drained pool is a no-op, so every loop gives the
@@ -25,6 +25,10 @@ k1's run, k1 timed again, and, on a drained pool, a replay's device ms (CUDA eve
 turn's line carries the clocks, power, temperature and clock event
 reasons that nvidia-smi sampled every 100 ms while it ran (Clocks). With the card's name and
 power limit. Needs a CUDA card and nvcc.
+
+The turns were written when a replay was one iteration; the step of
+STEP_ITERATIONS iterations a replay supersedes the k2 and k4 turns (here
+they read the flag once every 2 and 4 steps).
 """
 import os
 import subprocess

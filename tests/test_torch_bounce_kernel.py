@@ -529,10 +529,17 @@ def test_entries_match_their_plain_versions_on_the_card(case, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["walled-dls", "surface-dls", "sky"])
-def test_graphed_render_is_the_torch_bounce_graph(case, tmp_path):
+def test_graphed_render_is_the_torch_bounce_graph(case, tmp_path, monkeypatch):
     _card()
     scheme, kw = _walled_cases(tmp_path)[case]
     out = {}
+    steps, real_stats = [], wf.Lanes.stats
+
+    def stats(self):  # each batch's steps
+        steps.append(self.steps)
+        return real_stats(self)
+
+    monkeypatch.setattr(wf.Lanes, "stats", stats)
     for kind in ("kernels", "torch"):
         r = Renderer(scheme, device="cuda", samples_per_launch=2, **kw)
         real = wf.Lanes._iteration
@@ -545,9 +552,11 @@ def test_graphed_render_is_the_torch_bounce_graph(case, tmp_path):
         for counts in (mk.LAUNCHES, bk.LAUNCHES):
             for k in counts:
                 counts[k] = 0
+        steps.clear()
         img = r.render(progress=False, samples=4)
-        out[kind] = (img, dict(r.stats), dict(bk.LAUNCHES))
-    (img, st, n), (img_t, st_t, n_t) = out["kernels"], out["torch"]
+        out[kind] = (img, dict(r.stats), dict(bk.LAUNCHES), sum(steps))
+    (img, st, n, n_steps), (img_t, st_t, n_t, n_steps_t) = out["kernels"], out["torch"]
     np.testing.assert_array_equal(img, img_t)
-    assert st == st_t and n["bounce_shade"] == st["iterations"]
+    # a replay launches STEP_ITERATIONS iterations
+    assert st == st_t and n_steps == n_steps_t and n["bounce_shade"] == wf.STEP_ITERATIONS * n_steps
     assert n_t.pop("lanes_assign") == n["lanes_assign"] > 0 and not any(n_t.values())

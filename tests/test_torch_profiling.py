@@ -21,6 +21,7 @@ from raytrace_tpu_torch.models.walled import walled_scheme
 from raytrace_tpu_torch.ops import bounce_kernel as bk
 from raytrace_tpu_torch.ops import mesh_kernel as mk
 from raytrace_tpu_torch.ops import trace_kernel as tk
+from raytrace_tpu_torch.render import wavefront as wf
 from raytrace_tpu_torch.render.renderer import Renderer
 from raytrace_tpu_torch.utils import profiling
 
@@ -87,7 +88,12 @@ def test_cpu_wavefront_flag_and_launch_a_loop_trip(recorder):
             ["wavefront.flag", "wavefront.image", "wavefront.stats"]
     c = recorder.counters()
     assert c["wavefront.launches"] == len(_named(recs, "wavefront.launch"))
-    assert c["wavefront.iterations"] == r.stats["iterations"] == c["wavefront.launches"]
+    # a launch is a step of STEP_ITERATIONS iterations; those past a batch's
+    # last live one are counted apart
+    launched = wf.STEP_ITERATIONS * c["wavefront.launches"]
+    assert c["wavefront.iterations"] == r.stats["iterations"]
+    assert launched == c["wavefront.iterations"] + c["wavefront.drained_iterations"]
+    assert 0 <= c["wavefront.drained_iterations"] < 2 * wf.STEP_ITERATIONS
     assert c["wavefront.lane_bounces"] == r.stats["lane_bounces"]
     assert not _named(recs, "wavefront.capture")  # the CPU loop captures no graph
 

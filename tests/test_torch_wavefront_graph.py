@@ -1,10 +1,11 @@
-"""The wavefront's iteration over static buffers (`wavefront.Lanes`), the
-body the card captures as a CUDA graph and the CPU runs eagerly: an
-iteration on a drained pool changes nothing, one pool reused over
-batches is bitwise fresh calls (the first sample id is a device
-buffer), the device's iteration and lane-bounce counts are the loop's,
-the dense sky resolve is bitwise the gather form, and on a card the
-graph's replays are bitwise the eager loop. Cases: walled in cpu
+"""The wavefront's iteration over static buffers (`wavefront.Lanes`), and
+its step of STEP_ITERATIONS of them, the body the card captures as a
+CUDA graph and the CPU runs eagerly: a step on a drained pool changes
+nothing, steps of 1, 2 and 8 iterations are bitwise one another, one
+pool reused over batches is bitwise fresh calls (the first sample id is
+a device buffer), the device's iteration and lane-bounce counts are the
+loop's live iterations, the dense sky resolve is bitwise the gather
+form, and on a card the graph's replays are bitwise the eager loop. Cases: walled in cpu
 semantics, the 2,097-triangle surface in cpu semantics with direct-light
 sampling (mesh_hit and the shadow rays), outdoor spheres under a sky in
 cpu semantics.
@@ -17,6 +18,8 @@ with the plain assign in its place, and a replay's kernels counted by the
 profiler. No JAX: the card tests run where the JAX package does not
 (`python -m pytest --noconftest -m cuda tests/test_torch_wavefront_graph.py`)."""
 import copy
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -72,16 +75,59 @@ def _buffers(lanes):
 
 @pytest.mark.parametrize("case", CASES)
 def test_iteration_on_a_drained_pool_changes_nothing(case, tmp_path):
+    """A whole step (STEP_ITERATIONS iterations) on a drained pool."""
     r = _renderer(case, tmp_path)
     lanes = _lanes(r)
     lanes.run(0)
     assert not bool(lanes.flag) and int(lanes.q) == lanes.n_work
     before = [b.clone() for b in _buffers(lanes)]
     stats = lanes.stats()
-    lanes._iteration()
+    lanes._step()
     for a, b in zip(before, _buffers(lanes)):
         assert torch.equal(a, b)
     assert lanes.stats() == stats
+
+
+def _batch_at(r, k):
+    """A fresh pool's batch at sample id 3 through steps of k iterations:
+    its image, stats() and buffers; the flag read once a step (steps: the
+    live iterations over k, rounded up)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(wf, "STEP_ITERATIONS", k)
+        lanes = _lanes(r)
+        img = lanes.run(3)
+        stats = lanes.stats()
+        assert lanes.steps == -(-stats["iterations"] // k)
+        return img, stats, [b.clone() for b in _buffers(lanes)]
+
+
+@pytest.fixture(scope="module")
+def one_iteration_a_step(tmp_path_factory):
+    """case -> (its Renderer, _batch_at(renderer, 1)), made once a case."""
+    made = {}
+
+    def get(case):
+        if case not in made:
+            r = _renderer(case, tmp_path_factory.mktemp(case))
+            made[case] = r, _batch_at(r, 1)
+        return made[case]
+
+    return get
+
+
+@pytest.mark.parametrize("k", (1, 2, 8))
+@pytest.mark.parametrize("case", CASES)
+def test_k_iterations_a_step_are_bitwise_one(case, k, one_iteration_a_step):
+    """A batch through steps of k iterations against steps of one, each on
+    a fresh pool: the image, stats() and every buffer bitwise; at k = 8
+    the pool drains mid-step. Batches over one pool: below."""
+    r, (img, stats, bufs) = one_iteration_a_step(case)
+    img_k, stats_k, bufs_k = _batch_at(r, k)
+    assert torch.equal(img, img_k) and stats == stats_k
+    for a, b in zip(bufs, bufs_k):
+        assert torch.equal(a, b)
+    if k == 8:
+        assert stats["iterations"] % k
 
 
 @pytest.mark.parametrize("case", ("cpu", "sky"))
@@ -118,20 +164,27 @@ def test_renderer_batches_through_one_pool_are_fresh_calls(tmp_path):
 
 @pytest.mark.parametrize("case", CASES)
 def test_device_counts_are_the_loops(case, tmp_path):
+    """The device counts the iterations that found a live lane; the loop
+    runs whole steps, so it calls the iteration fewer than
+    STEP_ITERATIONS times more."""
     r = _renderer(case, tmp_path)
     lanes = _lanes(r)
-    calls, active = [0], [0]
+    calls, live, active = [0], [0], [0]
     body = lanes._iteration
 
     def counted():
         calls[0] += 1
-        active[0] += int(lanes.st["active"].sum())
+        n = int(lanes.st["active"].sum())
+        live[0] += n > 0
+        active[0] += n
         body()
 
     lanes._iteration = counted
     lanes.run(3)
-    assert lanes.stats() == {"iterations": calls[0], "lane_bounces": active[0]}
-    assert calls[0] > 1 and active[0] >= r.width * r.height * N_SAMPLES
+    assert lanes.stats() == {"iterations": live[0], "lane_bounces": active[0]}
+    assert calls[0] == wf.STEP_ITERATIONS * lanes.steps
+    assert 0 <= calls[0] - live[0] < wf.STEP_ITERATIONS
+    assert live[0] > 1 and active[0] >= r.width * r.height * N_SAMPLES
 
 
 def test_dense_sky_resolve_is_the_gather(tmp_path):
@@ -357,6 +410,51 @@ def test_graph_replays_are_bitwise_the_eager_loop(case, tmp_path):
     np.testing.assert_array_equal(a.target.acc, b.target.acc)
 
 
+@pytest.mark.cuda
+def test_capture_outlasts_a_graph_freed_by_the_collector(tmp_path):
+    """On the card: a dead reference cycle that holds another Lanes (and its
+    CUDA graph) becomes garbage inside a capture, with the cyclic collector
+    set to run every few allocations: the capture runs with the collector
+    off, so the other graph is destroyed after it (destroying a graph while
+    this thread captures would invalidate the capture), and the batch is
+    bitwise a fresh pool's."""
+    _card()
+    r = _renderer("cpu", tmp_path, "cuda")
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.freeze()  # the process's objects out of the collector's way
+    gc.collect()  # and out of the oldest generation's count, which gates its collections
+    try:
+        old = _lanes(r)
+        old.run(0)  # captures its graph
+        doomed = [[old]]
+        doomed[0].append(doomed[0])  # a cycle: only the collector frees it
+        gone = weakref.ref(old)
+        del old
+        lanes, freed_in_capture = _lanes(r), []
+        real = lanes._iteration
+
+        def iteration():
+            capturing = torch.cuda.is_current_stream_capturing()
+            if capturing:
+                doomed.clear()
+            real()
+            if capturing:
+                freed_in_capture.append(gone() is None)
+
+        lanes._iteration = iteration
+        gc.set_threshold(1, 1, 1)
+        img = lanes.run(0)
+        gc.set_threshold(*thresholds)
+        gc.collect()
+        assert freed_in_capture and not any(freed_in_capture)
+        assert gone() is None and lanes.graph is not None
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.unfreeze()
+    assert torch.equal(img, _lanes(r).run(0))
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: lanes_assign builds with nvcc and runs on the card")
@@ -421,37 +519,56 @@ def test_assign_entry_is_its_plain_version(case, tmp_path):
     assert seen["refills"] > 3 and seen["short"] > 0
 
 
+def _steps_of_batches(monkeypatch) -> list:
+    """The steps of every batch whose stats() are read from here on (a
+    Renderer reads each batch's), in order."""
+    steps, real = [], wf.Lanes.stats
+
+    def stats(self):
+        steps.append(self.steps)
+        return real(self)
+
+    monkeypatch.setattr(wf.Lanes, "stats", stats)
+    return steps
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES)
 def test_graphed_render_is_the_plain_assign_graph(case, tmp_path, monkeypatch):
     """On the card: render(4) in batches of 2 through the graph with the
     entry against the same graph with the plain assign captured in its
-    place: images bitwise, stats equal, every other launch count equal."""
+    place: images bitwise, stats equal, every other launch count equal;
+    bounce_shade and lanes_assign launched once an iteration of every
+    step (STEP_ITERATIONS a replay), lanes_assign once more a batch."""
     _card()
-    out = {}
+    out, k = {}, wf.STEP_ITERATIONS
+    steps = _steps_of_batches(monkeypatch)
     for kind in ("entry", "plain"):
         if kind == "plain":
             monkeypatch.setattr(bk, "lanes_assign", bk.assign_reference)
         r = _renderer(case, tmp_path, "cuda")
         for counts in (mk.LAUNCHES, bk.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
+            for key in counts:
+                counts[key] = 0
+        steps.clear()
         img = r.render(progress=False, samples=4)
-        assert all(lanes.graph is not None for lanes in r._lanes.values())
-        out[kind] = (img, dict(r.stats), dict(mk.LAUNCHES, **bk.LAUNCHES))
-    (img, st, n), (img_p, st_p, n_p) = out["entry"], out["plain"]
+        assert all(lanes.graph is not None for lanes in r._lanes.values()) and len(steps) == 2
+        out[kind] = (img, dict(r.stats), dict(mk.LAUNCHES, **bk.LAUNCHES), sum(steps))
+    (img, st, n, n_steps), (img_p, st_p, n_p, n_steps_p) = out["entry"], out["plain"]
     np.testing.assert_array_equal(img, img_p)
-    assert st == st_p and n.pop("lanes_assign") == st["iterations"] + 2
-    assert n_p.pop("lanes_assign") == 0 and n == n_p and n["bounce_shade"] == st["iterations"]
+    assert st == st_p and n_steps == n_steps_p and n.pop("lanes_assign") == k * n_steps + 2
+    assert n_p.pop("lanes_assign") == 0 and n == n_p and n["bounce_shade"] == k * n_steps
+    assert 0 <= k * n_steps - st["iterations"] < 2 * k
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ("cpu", "mesh"))
 def test_graph_replay_kernels_counted_by_the_profiler(case, tmp_path):
-    """On the card: the kernels of one replay of a captured iteration, by
+    """On the card: the kernels of one replay of a captured step, by
     torch.profiler: the launches the graph holds (the refill's two
-    kernels), at most 5 (walled: bounce_prims, bounce_shade and the
-    refill's; the surface: mesh_hit besides)."""
+    kernels), at most 5 an iteration (walled: bounce_prims, bounce_shade
+    and the refill's; the surface: mesh_hit besides), each entry once an
+    iteration of the step."""
     _card()
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -466,5 +583,7 @@ def test_graph_replay_kernels_counted_by_the_profiler(case, tmp_path):
         torch.cuda.synchronize()
     kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
-    assert len(kernels) == held <= 5, kernels
-    assert sum("lanes_" in k for k in kernels) == 2
+    k = wf.STEP_ITERATIONS
+    assert len(kernels) == held <= 5 * k, kernels
+    assert sum("lanes_" in name for name in kernels) == 2 * k
+    assert all(n == k for n in lanes.graph_launches.values()), lanes.graph_launches
