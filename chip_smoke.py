@@ -10,32 +10,29 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    csrc/bounce_kernel.cu with nvcc for sm_90a, with copies of
    mesh_kernel.cu at 8, 16 and 32 threads per ray for the group sweep of
    phase 5, all at once (timed), and prints ptxas's registers / shared
-   memory / stack / spills of every kernel (both trace_tiles entries and
-   the two bounce entries among them) and each file's SASS instruction
+   memory / stack / spills of every kernel (the bounce entries among
+   them) and each file's SASS instruction
    counts (cuobjdump, into raytrace_tpu_torch/_build/sass/), with the
    registers of each trace_tiles_kernel<kSky, kPcg>, of each
    mesh_trace_kernel<kBrute, kInst, kSky, kPcg> (scripts/torch_mesh_sass.py
    puts them beside another checkout's) and of bounce_prims and
    bounce_shade;
-3. kernel vs plain, both on the card: `trace_tiles` (the CUDA kernel) and
-   its first design `trace_tiles_per_thread` (the yardstick) against
-   `trace_tiles_reference` (plain torch) on the walled scene at 1200x600
+3. kernel vs plain, both on the card: `trace_tiles` (the CUDA kernel)
+   against `trace_tiles_reference` (plain torch) on the walled scene at 1200x600
    (samples per lane 1: all 9 outputs; 4: radiance) and on a mixed
    sphere / free-triangle / dielectric / emissive scene at 64x32 (1 and
    4), under the lane-fraction gate: under 1% of lanes may have
    |a - b| / (|b| + 1e-3) > 1e-3 (the worst fraction printed); the plain
    version's per-lane loop counts and branches on the main path's launch
    (walled 1200x600, 64 samples per lane: warp and 256-lane block
-   efficiency, the branch mix); then the three timed with CUDA events at
-   that launch, in turns plain, new, old, old, new, plain;
+   efficiency, the branch mix); then the two timed with CUDA events at
+   that launch, in turns plain, kernel, kernel, plain;
 4. walled main path: Renderer(walled 1200x600, device="cuda").render(64
    spp) with the kernel's launch count reset just before and read just
    after; the image must be finite and agree with the CPU render of a
    small frame (scripts/hw_parity.py's tile gate), and a checkpoint
    resume must be bitwise exact on the card. Prints paths/s with the
-   card's name and power limit, the render timed in turns against the
-   same render with the yardstick in trace_tiles' place (each turn the
-   median of RENDER_REPS renders), and (after phase 8, in a child process of
+   card's name and power limit and (after phase 8, in a child process of
    its own) a torch.profiler table of one warm render(64): trace_tiles'
    share of device time and the device-to-host copy's;
 5. mesh kernel vs plain, both on the card: `mesh_trace` (the walk)
@@ -47,28 +44,21 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    printed and must be none; both routes on a 64x32 scene of textured,
    normal-mapped octahedra with an emissive sphere, a dielectric sphere
    and a DiffSpec triangle, under the lane gate. Each kernel is timed at
-   the main path's launch against its yardstick (the entry's first
-   design: `mesh_trace_per_thread`, `mesh_trace_brute_lockstep`) in turns
-   new, old, old, new, beside its plain version's launch; both versions
-   on a strided subset of 33,606 pixels in turns; the host set-up
-   (build_scene, MeshTables) on the host clock. Then the gate sweep: both
-   routes on the whole frame at 16 samples per lane over cuts of the
-   surface (256, 512, 1,024, 2,097 and 2,560 triangles) in turns walk,
-   brute, brute, walk, and the largest cut at which the brute route is
-   faster beside MAX_BRUTE_TRIS; and the group sweep
+   the main path's launch, beside its plain version's launch; both
+   versions on a strided subset of 33,606 pixels in turns; the host set-up
+   (build_scene, MeshTables) on the host clock. Then the group sweep
    (scripts/torch_mesh_trace_groups.py): both entries at 8, 16 and 32
    threads per ray, bitwise against the committed kernel, in turns;
 6. mesh main paths: Renderer(a380-class 1216x608, "cuda").render(16) (the
    walk) and Renderer(2,097-triangle surface, "cuda").render(16) on the
-   brute route (set on its tables whatever the gate says), each with the
+   brute route (set on its tables), each with the
    launch counts reset just before and read just after; finite images,
    paths/s with the card's name and power limit, a small frame of the
    a380-class scene on the card against the CPU under the tile gate, a
    bitwise exact resume on the card, and a torch.profiler table of one
    warm a380-class render(16);
 7. the integrator's mesh hit on the card: `mesh_hit` (the CUDA entry, a
-   thread group per ray) and its per-thread yardstick
-   (`mesh_hit_per_thread`) against `mesh_hit_walk` (plain torch) on the
+   thread group per ray) against `mesh_hit_walk` (plain torch) on the
    primary rays of the whole a380-class 1216x608 frame and the secondary
    rays of one bounce, a quarter of the lanes dead (seeded -inf), at
    t_min EPS (gpu semantics) and 20*EPS (cpu semantics), and on the
@@ -76,10 +66,10 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    cpu-semantics render(16), captured as the wavefront hands them over
    (its lane pool driven eagerly, an iteration at a time, to the 20th).
    gid must agree on >= 99.9% of lanes and t, u, v pass the lane gate;
-   the lanes that differ in gid, t, u and v are printed. Plain, kernel
-   and yardstick are timed with CUDA events on a 131,072-ray pool cut
-   from the frame and on the in-render pool, in turns plain, kernel,
-   per-thread, per-thread, kernel, plain, beside the bound: the walk any
+   the lanes that differ in gid, t, u and v are printed. Plain and kernel
+   are timed with CUDA events on a 131,072-ray pool cut from the frame and
+   on the in-render pool, in turns plain, kernel, kernel, plain, beside
+   the bound: the walk any
    exact traversal needs on those rays (`walk_work`) in FP32 operations,
    and the bytes of the tables and rays;
 7b. the bounce kernels on the card: `bounce_prims` (with direct-light
@@ -116,29 +106,24 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    more an iteration and emitter); each of these two, walled through the
    wavefront and phase 9's cpu-semantics sky render in turns graphed (the
    Renderer's loop: STEP_ITERATIONS iterations of the bounce kernels,
-   mesh_hit and lanes_assign a CUDA graph replay, one flag read), torch (the
-   yardstick: the graph of the same iteration with the bounce in torch,
-   Lanes._torch_iteration), eager (the graphed iteration op by op),
-   eager, torch, graphed, every graphed and eager turn's image bitwise
-   the first's with equal iterations, lane-bounces and launches, the
-   torch bounce's bitwise too or else under the lane gate (printed), a
+   mesh_hit and lanes_assign a CUDA graph replay, one flag read), eager
+   (the graphed iteration op by op), eager, graphed, every turn's image
+   bitwise the first's with equal iterations, lane-bounces and launches, a
    bitwise resume, the graph's capture + instantiate seconds, and (after
    phase 9, in a child process) each render's device ms, idle share,
    host syncs and kernels an iteration and each wavefront entry's share
    (the graphed render's device and wall ms beside those of its graph with
-   the torch refill, WAVEFRONT_TORCH_ASSIGN),
-   graphed and torch; the a380-class frame and
+   the torch refill, WAVEFRONT_TORCH_ASSIGN); the a380-class frame and
    the 2,097-triangle surface in gpu semantics through the wavefront
    (use_mesh_fused=False) against mesh_trace's and mesh_trace_brute's
-   images (the surface on the brute route whatever the gate says), and
+   images (the surface on the brute route), and
    walled 1200x600 through the wavefront (use_fused=False)
    against trace_tiles' image, at 16 spp, under the tile gate (their
    lane-bounces per path set the fused kernels' bounds); a
    cpu-semantics 96x48 a380-class frame on the card against the CPU;
-   and torch.profiler tables of one warm cpu-semantics render(16) with
-   mesh_hit and with the per-thread yardstick in its place (the graph
-   captured anew around it): mesh_hit's device ms per launch inside the
-   render and its share of device time;
+   and a torch.profiler table of one warm cpu-semantics render(16):
+   mesh_hit's device ms per launch inside the render and its share of
+   device time;
 9. the cube map: six 2048x2048 u8 faces (models/procedural.sky_cubemap,
    biplane's size) written to a temporary directory. Outdoor spheres
    under the sky at 1200x600 (procedural.outdoor_scheme): `trace_tiles`
@@ -242,28 +227,28 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    256 a SM by registers and at most INST_SPILL_MAX bytes of spill for
    mesh_trace_instanced); n_inst, inst_tris, build_scene's and the
    instanced build's host seconds, the flattened and asset-local kernel
-   tables' bytes and the route's reason;
+   tables' bytes and the route;
    `mesh_trace_instanced` and its sky (the procedural faces) and pcg
    instantiations bitwise against the plain version (route "instanced")
    on the whole frame at samples per lane 1, 4 and 16, each launch counted
    under its key alone, the lanes that differ printed (none allowed), and
    at 1 the batched plain version bitwise the table-order loop
    (tests/torch_instanced_loop.py); the 16-spl launch in turns instanced,
-   its first design (mesh_trace_instanced_first), walk, sky, pcg, and
-   back; renders with the launch counts reset just before and read just
+   walk, sky, pcg, and back; renders with the launch counts reset just
+   before and read just
    after: the default route (MeshTables.route, whose launches must be its
    entry's alone), the instanced and walk routes' images under the tile
    gate, a resume bitwise, a 96x48 frame card against CPU, render(16) on
    both routes in turns, and the sky and pcg renders; the share of the
    frame's primary rays that hit, the least walk a ray of each route on
    the fleet frame's rays (instanced_walk_work, walk_work) and the bounds
-   of the three records and of the first design; in a child process, a
+   of the three records; in a child process, a
    torch.profiler table of a warm render(16) on the default route. Then
    the large fleet (FLEET_LARGE_ROWS: 144 instances, 1,051,200 triangles,
    flattened tables over the 50 MB L2): its build and bytes, the instanced
    entry bitwise against the plain version on a 1216x32 strip at 1, 4 and
-   16 and on the whole frame at 16, the three entries in turns with their
-   bounds, the two routes' images under the tile gate. Prints the phase's
+   16 and on the whole frame at 16, the two routes in turns with the
+   bound, the two routes' images under the tile gate. Prints the phase's
    seconds.
 
 Each kernel's record has its bound (bound_ms, bound_by): the larger of
@@ -284,8 +269,8 @@ code, not a Pallas kernel): their ms, plain ms and bound on the main path's in-r
 state, their launches and ms a launch inside the graphed main render,
 and whether they were bitwise on every state. Phase 13
 adds the records mesh_trace_instanced, mesh_trace_instanced_sky and
-mesh_trace_instanced_pcg, the first with its yardstick's ms and share and
-the large fleet's ms; every record carries `share`, bound_ms / ms.
+mesh_trace_instanced_pcg, the first with the walk's ms and the large
+fleet's ms; every record carries `share`, bound_ms / ms.
 
 Any failure raises (exit code != 0). The line before the last is the
 kernels' JSON record; the last line is the device JSON object. Without a
@@ -301,11 +286,14 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from benchmark.roofline import (HBM, RAYGEN_INSTR, ROOT_INSTR, SHADE_INSTR, SHADE_MESH_OPS,
+                                SHADE_SPH_OPS, SLAB_OPS, SPH_INSTR, SPH_OPS, TRI_OPS)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H = 1200, 600  # the walled benchmark's size
 MAIN_SPP = 64
 TIMING_SPL = 64  # samples per lane of the main path's launch (MAIN_SPP <= samples_per_launch)
-RENDER_REPS = 5  # warm walled renders a turn when the render is timed against the yardstick's
+RENDER_REPS = 5  # warm renders a turn where two routes' renders are timed in turns
 SMS = 132  # the H100 SXM's streaming multiprocessors
 
 
@@ -441,44 +429,24 @@ def warm_render(tag, label, scheme, spp, card, route=None, **kw):
 
 # the wavefront's loops, in turns: "graphed", the Renderer's own (a step
 # of STEP_ITERATIONS iterations of the bounce kernels, mesh_hit and
-# lanes_assign a CUDA graph replay); "torch", its yardstick (the graph of Lanes._torch_iteration:
-# the bounce in torch, as before the bounce kernels); "eager", the graphed
-# iteration launched op by op (Lanes._run_eager)
-WF_TURNS = ("graphed", "torch", "eager", "eager", "torch", "graphed")
+# lanes_assign a CUDA graph replay); "eager", the graphed iteration
+# launched op by op (Lanes._run_eager)
+WF_TURNS = ("graphed", "eager", "eager", "graphed")
 # the entries a mesh scene's wavefront iteration launches, each once (with
 # direct-light sampling, bounce_prims and mesh_hit once more an emitter;
 # lanes_assign, two kernels, once more a batch: the start's refill)
 WAVEFRONT_MESH = ("bounce_prims", "mesh_hit", "bounce_shade", "lanes_assign")
 
 
-def torch_bounce_renderer(scheme, spp, **kw):
-    """Renderer(scheme, "cuda", **kw) whose wavefront graph is the torch
-    bounce's (Lanes._torch_iteration captured by a first render(spp)):
-    the yardstick the bounce kernels are timed against."""
-    from raytrace_tpu_torch.render import wavefront as wf
-    from raytrace_tpu_torch.render.renderer import Renderer
-
-    r = Renderer(scheme, device="cuda", **kw)
-    real = wf.Lanes._iteration
-    wf.Lanes._iteration = wf.Lanes._torch_iteration
-    try:
-        r.render(progress=False, samples=spp)  # captures the batch shape's graph
-    finally:
-        wf.Lanes._iteration = real
-    return r
-
-
 def wavefront_turns(tag, label, scheme, spp, card, **kw):
     """A wavefront render(spp) on the card in WF_TURNS, each warm (the
     batch shape's graph captured by a first render), into a fresh target,
     with the launch counts reset just before and read just after. Every
-    graphed and eager turn's image must be bitwise the first's, with equal
-    iterations, lane-bounces and launches; every torch turn's bitwise too,
-    or else under the lane gate (its pixels), printed either way; then a
-    bitwise resume. Prints each turn's wall ms and the graph's capture +
-    instantiate seconds. Returns (renderer, image, launches, {graphed_ms,
-    torch_ms, eager_ms, capture_s, iterations, lane_bounces, launches,
-    torch_bitwise})."""
+    turn's image must be bitwise the first's, with equal iterations,
+    lane-bounces and launches; then a bitwise resume. Prints each turn's
+    wall ms and the graph's capture + instantiate seconds. Returns
+    (renderer, image, launches, {graphed_ms, eager_ms, capture_s,
+    iterations, lane_bounces, launches})."""
     import numpy as np
     import torch
 
@@ -493,11 +461,9 @@ def wavefront_turns(tag, label, scheme, spp, card, **kw):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     (lanes,) = r._lanes.values()
-    yard = torch_bounce_renderer(scheme, spp, **kw)
     runs = {}
     for turn in WF_TURNS:
-        rr = yard if turn == "torch" else r
-        rr.target = RenderTarget(rr.width, rr.height)
+        r.target = RenderTarget(r.width, r.height)
         real = wf.Lanes.run
         if turn == "eager":
             wf.Lanes.run = wf.Lanes._run_eager
@@ -505,53 +471,38 @@ def wavefront_turns(tag, label, scheme, spp, card, **kw):
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
-            img = rr.render(progress=False, samples=spp)  # ends in a device -> host copy
+            img = r.render(progress=False, samples=spp)  # ends in a device -> host copy
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
         finally:
             wf.Lanes.run = real
         counts = {k: v for k, v in launch_counts().items() if v}
-        (turn_lanes,) = rr._lanes.values()
-        runs.setdefault(turn, []).append(dict(img=img, stats=dict(rr.stats), counts=counts, ms=ms,
+        (turn_lanes,) = r._lanes.values()
+        runs.setdefault(turn, []).append(dict(img=img, stats=dict(r.stats), counts=counts, ms=ms,
                                               steps=turn_lanes.steps))
         print(f"[{tag}] {label} {r.width}x{r.height} render({spp}), {turn}: {ms:.3f} ms wall, "
-              f"stats {rr.stats}, launches {counts} [{card}]", flush=True)
+              f"stats {r.stats}, launches {counts} [{card}]", flush=True)
     ref = runs["graphed"][0]
     assert ref["img"].shape == (r.height, r.width, 3) and np.isfinite(ref["img"]).all(), \
         f"{label}: bad image"
-    bitwise = True
     for turn, rs in runs.items():
         for run in rs:
-            if turn == "torch":
-                same = np.array_equal(run["img"], ref["img"]) and run["stats"] == ref["stats"]
-                bitwise &= same
-                if not same:
-                    frac, err = lane_gate(torch.from_numpy(run["img"]),
-                                          torch.from_numpy(ref["img"]))
-                    print(f"[{tag}] {label}: the torch bounce's image differs, {frac:.6f} of "
-                          f"pixels off by > 1e-3 relative, max |d| {err:.3e}, stats "
-                          f"{run['stats']} against {ref['stats']}", flush=True)
-                    assert frac < 0.01, f"{label}: the torch bounce's image is off the gate"
-                continue
             assert np.array_equal(run["img"], ref["img"]), f"{label}: {turn} image differs"
             assert run["stats"] == ref["stats"] and run["counts"] == ref["counts"] and \
                 run["steps"] == ref["steps"], f"{label}: {turn} stats {run['stats']} / " \
                 f"launches {run['counts']} / steps {run['steps']} differ"
     ms = {k: sum(run["ms"] for run in v) / len(v) for k, v in runs.items()}
-    print(f"[{tag}] {label}: graphed {ms['graphed']:.3f} ms against the torch bounce's graph "
-          f"{ms['torch']:.3f} ms ({ms['torch'] / ms['graphed']:.2f}x) and eager "
-          f"{ms['eager']:.3f} ms ({ms['eager'] / ms['graphed']:.2f}x); the torch bounce's image "
-          f"{'bitwise' if bitwise else 'NOT bitwise'} the kernels', graphed and eager bitwise "
-          f"with equal stats and launches; the first render {first_s:.3f} s, its graph's capture "
+    print(f"[{tag}] {label}: graphed {ms['graphed']:.3f} ms against eager {ms['eager']:.3f} ms "
+          f"({ms['eager'] / ms['graphed']:.2f}x), bitwise with equal stats and launches; the "
+          f"first render {first_s:.3f} s, its graph's capture "
           f"+ instantiate {lanes.capture_s:.3f} s, launches captured {lanes.graph_launches} "
           f"[{card}]", flush=True)
     print(f"[{tag}] {label} image mean per channel {ref['img'].mean(axis=(0, 1)).tolist()}",
           flush=True)
     resume_bitwise(tag, r, label)
     return r, ref["img"], ref["counts"], dict(
-        graphed_ms=ms["graphed"], torch_ms=ms["torch"], eager_ms=ms["eager"],
-        capture_s=lanes.capture_s, launches=ref["counts"], torch_bitwise=bitwise,
-        launched=wf.STEP_ITERATIONS * ref["steps"], **ref["stats"])
+        graphed_ms=ms["graphed"], eager_ms=ms["eager"], capture_s=lanes.capture_s,
+        launches=ref["counts"], launched=wf.STEP_ITERATIONS * ref["steps"], **ref["stats"])
 
 
 def mixed_scheme(width, height):
@@ -586,7 +537,6 @@ def mixed_scheme(width, height):
 
 MESH_W, MESH_H, MESH_SPP = 1216, 608, 16  # the a380-class cell (scripts/bench_mesh.py)
 SUBSET_STRIDE = 22  # 739,328 / 22 -> 33,606 pixels for the timing in turns
-GATE_SWEEP = (256, 512, 1024, 2097, 2560)  # triangles of the surface's cuts in the gate sweep
 MESH_KERNELS = {  # entry point -> (route, the TPU kernel it replaces)
     "mesh_trace": ("walk", "raytrace_tpu/ops/pallas/mesh_bounce_kernel.py:698"),
     "mesh_trace_brute": ("brute", "raytrace_tpu/ops/pallas/woop.py:268"),
@@ -744,50 +694,26 @@ def mesh_phases(dev, card, variants):
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def turns(label, tables, xs, ys, spl, order, reps):
-        """(kind, fn, route) of `order` timed in turns; mean ms per launch of
-        each kind."""
-        t = {}
-        for kind, fn, route in order:
-            t.setdefault(kind, []).append(timed(fn, tables, xs, ys, spl, route, reps))
-            print(f"[timing] {kind} {label} {xs.numel()} lanes spl={spl}: {t[kind][-1]:.3f} "
-                  f"ms/launch [{card}]", flush=True)
-        return {k: sum(v) / len(v) for k, v in t.items()}
-
     # ---- 5. kernel vs plain on the card ----
     # the whole 1216x608 frame of each route at the main path's launch
     # shape (spl MESH_SPP) and at spl 1 and 4, no lane may differ; the
     # mixed octahedra on both routes under the lane gate
     err = {name: 0.0 for name in MESH_KERNELS}
-    ms, plain_ms, yard_ms, shape, kept = {}, {}, {}, {}, {}
+    ms, plain_ms, shape, kept = {}, {}, {}, {}
     fx, fy = lanes(MESH_W, MESH_H, 1)
     for label, scheme, name in (("a380-class", a380, "mesh_trace"),
                                 ("surface-2097", surface, "mesh_trace_brute")):
         scene, tables = setup(label, scheme)
         route = MESH_KERNELS[name][0]
-        tables.route = route  # whatever the gate says
+        tables.route = route
         print(f"[parity] {label}: {scene.n_mesh_tris} triangles, {scene.n_clusters} clusters, "
               f"pool {scene.tex_pool.dtype} x {scene.tex_pool.size}, route {route}", flush=True)
         for spl in (1, 4, MESH_SPP):
             plain_ms[name] = parity(label, name, tables, fx, fy, spl, route, 5, exact=True)
-        # the yardstick (the entry's first design) on the same launch
-        zero = torch.zeros_like(fx)
-        new = torch.stack(mk.mesh_trace(fx, fy, zero, tables, route=route, assured=5,
-                                        max_bounces=24, samples_per_lane=MESH_SPP))
-        old = torch.stack(mk._mesh_trace_yardstick(fx, fy, zero, tables, route=route, assured=5,
-                                                   max_bounces=24, samples_per_lane=MESH_SPP))
-        print(f"[parity] {label} {name} yardstick {mk.YARDSTICKS[route]} spl={MESH_SPP}: "
-              f"{int((new != old).any(0).sum())} lanes differ from the kernel", flush=True)
-        # the main path's launch: the kernel against its yardstick in turns
-        t = turns(f"{name} vs {mk.YARDSTICKS[route]} {label} {MESH_W}x{MESH_H}", tables, fx, fy,
-                  MESH_SPP, [("new", mk.mesh_trace, route),
-                             ("old", mk._mesh_trace_yardstick, route),
-                             ("old", mk._mesh_trace_yardstick, route),
-                             ("new", mk.mesh_trace, route)], 2)
-        ms[name], yard_ms[name] = t["new"], t["old"]
+        # the main path's launch
+        ms[name] = timed(mk.mesh_trace, tables, fx, fy, MESH_SPP, route, 4)
         print(f"[timing] {name} {label} {MESH_W}x{MESH_H} spl={MESH_SPP}: kernel {ms[name]:.3f} "
-              f"ms/launch ({MESH_W * MESH_H * MESH_SPP / ms[name] / 1e3:.1f} Mpaths/s), yardstick "
-              f"{mk.YARDSTICKS[route]} {yard_ms[name]:.3f} ms ({yard_ms[name] / ms[name]:.2f}x), "
+              f"ms/launch ({MESH_W * MESH_H * MESH_SPP / ms[name] / 1e3:.1f} Mpaths/s), "
               f"plain {plain_ms[name]:.3f} ms/launch [{card}]", flush=True)
         # both versions on a strided subset, in turns plain, kernel, kernel, plain
         xs, ys = lanes(MESH_W, MESH_H, SUBSET_STRIDE)
@@ -808,32 +734,6 @@ def mesh_phases(dev, card, variants):
         for spl in (1, 4):
             parity("octahedra", name, tables, xs, ys, spl, route, 3, exact=False)
 
-    # the gate sweep: both routes on cuts of the surface, the whole frame
-    sweep = {}
-    for n in GATE_SWEEP:
-        cut = procedural.a380_cam_scheme(MESH_W, MESH_H, MESH_SPP)
-        cut.scene_members.append(ModelMember(path=f"<{n}-triangle surface>",
-                                             loaded=[procedural.make_mesh(n, n_textures=0)]))
-        _, tables = setup(f"surface-{n}", cut)
-        zero = torch.zeros_like(fx)
-        out = {r: mk.mesh_trace(fx, fy, zero, tables, route=r, assured=5, max_bounces=24,
-                                samples_per_lane=MESH_SPP) for r in ("walk", "brute")}
-        bad = max(lane_gate(out["brute"][k], out["walk"][k])[0] for k in range(3))
-        differ = int((torch.stack(out["brute"]) != torch.stack(out["walk"])).any(0).sum())
-        print(f"[gate] surface-{n}: brute vs walk, {differ} lanes differ, bad-lane fraction "
-              f"{bad:.6f}", flush=True)
-        assert bad < 0.01, f"surface-{n}: the two routes disagree on {bad:.4f} of lanes"
-        sweep[n] = turns(f"surface-{n} {MESH_W}x{MESH_H}", tables, fx, fy, MESH_SPP,
-                         [(r, mk.mesh_trace, r) for r in ("walk", "brute", "brute", "walk")], 2)
-        print(f"[gate] surface-{n}: walk {sweep[n]['walk']:.3f} ms, brute "
-              f"{sweep[n]['brute']:.3f} ms per launch ({sweep[n]['brute'] / sweep[n]['walk']:.2f}x)"
-              f" [{card}]", flush=True)
-    crossover = max((n for n, t in sweep.items() if t["brute"] < t["walk"]), default=0)
-    print(f"[gate] the largest cut at which the brute route is faster: {crossover} triangles "
-          f"(0: none); MAX_BRUTE_TRIS = {mk.MAX_BRUTE_TRIS}, "
-          f"{'the same' if crossover == mk.MAX_BRUTE_TRIS else 'NOT the same'} [{card}]",
-          flush=True)
-
     # the group sweep: 8, 16 and 32 threads per ray of both entries
     from torch_mesh_trace_groups import sweep as group_sweep
 
@@ -846,7 +746,7 @@ def mesh_phases(dev, card, variants):
                                 ("surface-2097", surface, "mesh_trace_brute")):
         t0 = time.perf_counter()
         renderer = Renderer(scheme, device="cuda")
-        renderer.tables.route = MESH_KERNELS[name][0]  # whatever the gate says
+        renderer.tables.route = MESH_KERNELS[name][0]
         torch.cuda.synchronize()
         print(f"[mesh] Renderer({label}, cuda) constructed in {time.perf_counter() - t0:.3f} s "
               f"(host set-up)", flush=True)
@@ -873,7 +773,7 @@ def mesh_phases(dev, card, variants):
     records = [{"name": name, "route": "cuda", "source": "raytrace_tpu_torch/csrc/mesh_kernel.cu",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
                 "ms": ms[name], "plain_ms": plain_ms[name], "library_ms": None,
-                "launches_per_render": launches[name], "yardstick_ms": yard_ms[name]}
+                "launches_per_render": launches[name]}
                for name, (_, replaces) in MESH_KERNELS.items()]
     if profiled:
         records[0]["in_render_ms"] = profiled["ms"]
@@ -917,24 +817,22 @@ FP32_CEILING = {"trace_tiles": FP32_SINGLE, "mesh_trace": FP32_SINGLE,
                 "mesh_trace_brute": FP32_SINGLE, "mesh_hit": FP32_SINGLE,
                 "bounce_prims": FP32_SINGLE, "bounce_shade": FP32_SINGLE,
                 "lanes_assign": FP32_SINGLE}
-HBM_RATE = 3.35e12  # bytes/s
-SLAB_OPS = 25  # mesh_kernel.cu slab_span (6 sub, 6 mul, 10 min/max) + 3 compares
-TRI_OPS = 55  # path_common.cuh tri_hit (53) + the t_min and running-best compares
-SPH_OPS = 18  # path_common.cuh closest_sph_ft, one sphere: up to the disc > 0 test
-SHADE_SPH_OPS = 93  # shade_sph_ft, diffuse lobe (88) + 5 draws' float conversion
-SHADE_MESH_OPS = 204  # mesh_kernel.cu shade_mesh without a normal map (196) + 8 draws
-# trace_kernel.cu in FP32 instructions under contraction (see FP32_CEILING):
-SPH_INSTR = 13  # closest_hit, one sphere: oc 3 FADD, dirv FMUL + 2 FFMA, consts FMUL +
-# 2 FFMA + FADD (the staged r^2), disc FFMA, disc > 0 and dirv < 0
-ROOT_INSTR = 4  # a sphere test that takes the near root: the square root, -dirv - root,
-# t_near > 0 and t_near < t_best
-TRI_INSTR = 39  # tri_hit: pv 6, det 3, |det| 1, 1/det 1, h 3, u 4, q 6, w 4, t 4,
-# the five range compares and u + w 6, t < t_best 1
-RAYGEN_INSTR = 20  # start_sample without a lens, once a path: 2 draws, the jitter 4,
-# the direction 6 FFMA, its normalize 8
-# shade by branch (return_iters' BRANCHES). A hit: the point 3 FFMA, a sphere's normal 11
-# (3 FADD, the normalize 8: the walled scene has no free triangles), has_em 1, the
-# colour 3 FMUL: 18. A hit that survives the roulette: d.n 3, inten *= weight 1, the
+# The memory rate (HBM) and the counts of a unit of work are the benchmark's
+# (benchmark/roofline.py, imported above): mesh_kernel.cu's SLAB_OPS (slab_span
+# and 3 compares), TRI_OPS (path_common.cuh tri_hit and the t_min and
+# running-best compares), SPH_OPS (closest_sph_ft, one sphere, up to the disc > 0
+# test), SHADE_SPH_OPS (shade_sph_ft, the diffuse lobe and 5 draws' float
+# conversion), SHADE_MESH_OPS (shade_mesh without a normal map and 8 draws);
+# trace_kernel.cu's in FP32 instructions under contraction (see FP32_CEILING):
+# SPH_INSTR 13 (closest_hit, one sphere: oc 3 FADD, dirv FMUL + 2 FFMA, consts
+# FMUL + 2 FFMA + FADD (the staged r^2), disc FFMA, disc > 0 and dirv < 0),
+# ROOT_INSTR 4 (a sphere test that takes the near root: the square root, -dirv -
+# root, t_near > 0 and t_near < t_best), RAYGEN_INSTR 20 (start_sample without a
+# lens, once a path: 2 draws, the jitter 4, the direction 6 FFMA, its normalize
+# 8) and SHADE_INSTR, the shade by branch (return_iters' BRANCHES). A hit: the
+# point 3 FFMA, a sphere's normal 11 (3 FADD, the normalize 8: the walled scene
+# has no free triangles), has_em 1, the colour 3 FMUL: 18. A hit that survives
+# the roulette: d.n 3, inten *= weight 1, the
 # next origin 3 FFMA: 7 more, and its lobe: diffuse 41 (the kind's 2 compares, xd 3,
 # its normalize 8, yd 6, 2 draws 2, sqrt u1 with its zero test 2, the angle 1, sine
 # and cosine 2, ca sa 2, zz 4, the direction 9); mirror 7 (3 compares, the reflection
@@ -943,8 +841,8 @@ RAYGEN_INSTR = 20  # start_sample without a lens, once a path: 2 draws, the jitt
 # argument's test 2, k_t 1, t 6, ct 4, ct2 1, re 4, the draw and its compare 2, less the
 # reflection's 4, plus the weight 1). The roulette: its draw and test 2, the radiance
 # add 6 (cir * inv_thres once, an FFMA a channel). A miss: its weight record 3 FMUL.
-SHADE_INSTR = {"miss": 3, "diffuse": 18 + 7 + 41, "mirror": 18 + 7 + 7,
-               "dielectric": 18 + 7 + 10, "roulette": 18 + 2 + 6}
+TRI_INSTR = 39  # tri_hit: pv 6, det 3, |det| 1, 1/det 1, h 3, u 4, q 6, w 4, t 4,
+# the five range compares and u + w 6, t < t_best 1
 
 
 def tiles_terms(work, n_sph, n_ft, paths):
@@ -961,7 +859,7 @@ def tiles_terms(work, n_sph, n_ft, paths):
 def bound(ops, nbytes, name):
     """(bound_ms, bound_by) of a launch of kernel `name` doing `ops` FP32
     operations and moving `nbytes` bytes."""
-    ops_ms, bytes_ms = ops / FP32_CEILING[name] * 1e3, nbytes / HBM_RATE * 1e3
+    ops_ms, bytes_ms = ops / FP32_CEILING[name] * 1e3, nbytes / HBM * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -1124,7 +1022,7 @@ def time_hit_turns(label, pool, card, fns):
 
 def mesh_hit_phase(dev, card, a380):
     """Phase 7: `mesh_hit` (the CUDA entry) against `mesh_hit_walk` (its
-    plain version) and the per-thread yardstick on the card. Returns the
+    plain version) on the card. Returns the
     record's numbers on the in-render pool, the main path's input:
     {max_abs_err, ms, plain_ms, bound_ms, bound_by, walk_ops_per_ray}."""
     from raytrace_tpu_torch.ops import mesh_kernel as mk
@@ -1138,8 +1036,6 @@ def mesh_hit_phase(dev, card, a380):
         ref = mk.mesh_hit_walk(o, d, seed, scene.mesh, t_min=t_min)
         err = max(err, hit_parity("frame", mk.mesh_hit(o, d, seed, scene.mesh, t_min=t_min),
                                   ref, seed, t_min))
-        hit_parity("frame, per-thread yardstick",
-                   mk._mesh_hit_per_thread(o, d, seed, scene.mesh, t_min=t_min), ref, seed, t_min)
         if t_min == EPS:  # gpu semantics: the walk mesh_trace does per lane-bounce
             ops, _, work = hit_work(o, d, ref[0], scene.mesh, t_min)
             walk_ops_per_ray = ops / work["rays"]
@@ -1159,9 +1055,7 @@ def mesh_hit_phase(dev, card, a380):
              "in-render pool": (inr["o"], inr["d"], inr["seed"], inr["t_min"], inr["tables"],
                                 inr["t"])}
     turns = [("plain", mk.mesh_hit_walk, 2), ("kernel", mk.mesh_hit, 20),
-             ("per-thread", mk._mesh_hit_per_thread, 20),
-             ("per-thread", mk._mesh_hit_per_thread, 20), ("kernel", mk.mesh_hit, 20),
-             ("plain", mk.mesh_hit_walk, 2)]
+             ("kernel", mk.mesh_hit, 20), ("plain", mk.mesh_hit_walk, 2)]
     for label, (po, pd, ps, t_min, tables, t) in pools.items():
         ms = time_hit_turns(label, (po, pd, ps, t_min, tables), card, turns)
         ops, nbytes, work = hit_work(po, pd, t, tables, t_min)
@@ -1169,10 +1063,10 @@ def mesh_hit_phase(dev, card, a380):
         print(f"[bound] mesh_hit {label}: walk_work {work} (live rays, slab tests per level, "
               f"triangle tests): {ops:.4g} FP32 ops ({ops / FP32_SINGLE * 1e3:.5f} ms at 33.5 T "
               f"single instructions/s; {ops / FP32_PEAK * 1e3:.5f} at 67 TFLOP/s), {nbytes:.4g} "
-              f"bytes ({nbytes / HBM_RATE * 1e3:.5f} ms at 3.35 TB/s): "
+              f"bytes ({nbytes / HBM * 1e3:.5f} ms at 3.35 TB/s): "
               f"bound {b_ms:.5f} ms by {b_by}; kernel {ms['kernel']:.4f} ms "
-              f"({b_ms / ms['kernel']:.2%} of the bound reached), per-thread "
-              f"{ms['per-thread']:.4f} ms, plain {ms['plain']:.4f} ms [{card}]", flush=True)
+              f"({b_ms / ms['kernel']:.2%} of the bound reached), plain {ms['plain']:.4f} ms "
+              f"[{card}]", flush=True)
     return dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=b_ms,
                 bound_by=b_by, walk_ops_per_ray=walk_ops_per_ray)
 
@@ -1430,7 +1324,7 @@ def bounce_parity(label, lanes, card):
     for name, (o, nb) in (("bounce_prims", (ops, nbytes)), ("bounce_shade", (s_ops, s_bytes))):
         r = out[name]
         print(f"[bound] {name} {label}: {o:.4g} FP32 instructions ({o / FP32_SINGLE * 1e3:.5f} "
-              f"ms at 33.5 T/s), {nb:.4g} bytes ({nb / HBM_RATE * 1e3:.5f} ms at 3.35 TB/s): "
+              f"ms at 33.5 T/s), {nb:.4g} bytes ({nb / HBM * 1e3:.5f} ms at 3.35 TB/s): "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}; kernel {r['ms']:.4f} ms "
               f"({r['bound_ms'] / r['ms']:.2%} of the bound reached), plain {r['plain_ms']:.4f} "
               f"ms; bitwise {r['bitwise']} [{card}]", flush=True)
@@ -1507,7 +1401,7 @@ def assign_parity(label, lanes, card, timed):
     ops = fresh * ASSIGN_OPS[bool(scene.has_lens)]
     b_ms, b_by = bound(ops, nbytes, "lanes_assign")
     print(f"[bound] lanes_assign {label}: {ops:.4g} FP32 instructions "
-          f"({ops / FP32_SINGLE * 1e3:.5f} ms at 33.5 T/s), {nbytes:.4g} bytes ({nbytes / HBM_RATE * 1e3:.5f} ms at 3.35 TB/s; "
+          f"({ops / FP32_SINGLE * 1e3:.5f} ms at 33.5 T/s), {nbytes:.4g} bytes ({nbytes / HBM * 1e3:.5f} ms at 3.35 TB/s; "
           f"{(2 * n + n * per_lane) / 1e6:.2f} MB with every lane refilled): bound {b_ms:.5f} ms "
           f"by {b_by}; kernel {ms['kernel']:.4f} ms ({b_ms / ms['kernel']:.2%} of the bound "
           f"reached), plain {ms['plain']:.4f} ms ({ms['plain'] / ms['kernel']:.1f}x) [{card}]",
@@ -1576,8 +1470,6 @@ def integrator_phases(dev, card):
     from raytrace_tpu_torch.models import procedural
     from raytrace_tpu_torch.models.config import ModelMember
     from raytrace_tpu_torch.models.walled import walled_scheme
-    from raytrace_tpu_torch.ops import mesh_kernel as mk
-    from raytrace_tpu_torch.render import integrator as itg
     from raytrace_tpu_torch.render import wavefront as wf
 
     a380 = procedural.a380_scheme(MESH_W, MESH_H, MESH_SPP)
@@ -1650,26 +1542,13 @@ def integrator_phases(dev, card):
 
     card_vs_cpu("paths", "a380-class cpu semantics", a380_cpu, 96, 48, MESH_SPP)
 
-    # the main path's render profiled with the kernel, then with the
-    # per-thread yardstick in its place (the integrator's mesh_hit wrapped;
-    # the lane pools dropped before and after, so that their graphs are
-    # captured anew around the kernel the render is to launch)
-    label = f"a380-class cpu semantics {MESH_W}x{MESH_H}"
-    new = profile(full, card, "mesh_hit_kernel", label)
+    # the main path's render profiled
+    new = profile(full, card, "mesh_hit_kernel", f"a380-class cpu semantics {MESH_W}x{MESH_H}")
     turns["a380-class cpu"]["graphed_profile"] = new
-    real = itg.mesh_hit
-    itg.mesh_hit = mk._mesh_hit_per_thread
-    full._lanes.clear()
-    try:
-        old = profile(full, card, "mesh_hit_per_thread_kernel", label)
-    finally:
-        itg.mesh_hit = real
-        full._lanes.clear()
-    if new and old:
+    if new:
         print(f"[profile] mesh_hit in the render: {new['ms']:.4f} ms per launch, "
-              f"{new['share']:.2%} of device time ({new['device_ms']:.3f} ms); the per-thread "
-              f"yardstick in its place: {old['ms']:.4f} ms per launch, {old['share']:.2%} "
-              f"({old['device_ms']:.3f} ms) [{card}]", flush=True)
+              f"{new['share']:.2%} of device time ({new['device_ms']:.3f} ms) [{card}]",
+              flush=True)
     rec = {"name": "mesh_hit", "route": "cuda", "source": "raytrace_tpu_torch/csrc/mesh_kernel.cu",
            "replaces": "raytrace_tpu/ops/pallas/mesh_hit_kernel.py:269", "launches": launches,
            "max_abs_err": hit["max_abs_err"], "ms": hit["ms"], "plain_ms": hit["plain_ms"],
@@ -1730,8 +1609,8 @@ def profile(renderer, card, kernel, label, spp=MESH_SPP):
     print(f"[profile] {kernel} {hit / total:.2%} of device time, {count} launches; the "
           f"device-to-host copies {copy / total:.2%}; the elementwise work and the rest "
           f"{1 - (hit + copy) / total:.2%}", flush=True)
-    # the wavefront's kernels by name, and everything else (the torch bounce
-    # in its yardstick graph, a batch's start and image)
+    # the wavefront's kernels by name, and everything else (a batch's start
+    # and image)
     by_kernel, named = {}, 0.0
     for name in WAVEFRONT_MESH:  # lanes_assign: its two kernels, a launch each pair
         rows = [e for e in kernels if f"{name}_kernel" in e.key]
@@ -1806,12 +1685,10 @@ def ptxas_info(log):
 
 def inst_ptxas(log):
     """ptxas' {readable name: info} of the instanced kernels of a
-    mesh_kernel build: every mesh_trace_kernel<kInst true> instantiation
-    and mesh_trace_instanced_first_kernel."""
+    mesh_kernel build: every mesh_trace_kernel<kInst true> instantiation."""
     from torch_mesh_sass import label
 
-    return {label(fn): v for fn, v in ptxas_info(log).items()
-            if "mesh_trace_instanced_first_kernel" in fn or "inst=1" in label(fn)}
+    return {label(fn): v for fn, v in ptxas_info(log).items() if "inst=1" in label(fn)}
 
 
 def sass(builds, out=SASS_DIR):
@@ -1918,12 +1795,12 @@ def iter_stats(iters, branch, roots, card):
 
 
 def trace_phase(dev, card):
-    """Phase 3: `trace_tiles` and its yardstick `trace_tiles_per_thread`
-    against `trace_tiles_reference` on the card under the lane gate
-    (walled 1200x600 and the mixed scene, samples per lane 1: all 9
-    outputs, 4: radiance), the plain version's per-lane counts on the main
-    path's launch, and the three timed in turns at that launch. Returns
-    {max_abs_err, ms, yardstick_ms, plain_ms, work (iter_stats'), tables}."""
+    """Phase 3: `trace_tiles` against `trace_tiles_reference` on the card
+    under the lane gate (walled 1200x600 and the mixed scene, samples per
+    lane 1: all 9 outputs, 4: radiance), the plain version's per-lane
+    counts on the main path's launch, and the two timed in turns at that
+    launch. Returns {max_abs_err, ms, plain_ms, work (iter_stats'),
+    tables}."""
     import torch
 
     from raytrace_tpu_torch.models.camera import build_camera
@@ -1951,29 +1828,21 @@ def trace_phase(dev, card):
         samp = torch.full_like(xs, 7)
         ref = run(tk.trace_tiles_reference, tables, xs, ys, samp, assured, spl)
         n_out = 9 if spl == 1 else 3  # miss records mean something only at spl == 1
-        outs = {}
-        for label, fn in (("trace_tiles", tk.trace_tiles),
-                          ("trace_tiles_per_thread", tk._trace_tiles_per_thread)):
-            ours = outs[label] = run(fn, tables, xs, ys, samp, assured, spl)
-            torch.cuda.synchronize()
-            worst = 0.0
-            for k in range(n_out):
-                bad, err = lane_gate(ours[k], ref[k])
-                worst = max(worst, bad)
-                if fn is tk.trace_tiles:
-                    max_err = max(max_err, err)
-                print(f"[parity] {label} {name} {w}x{h} spl={spl} out{k}: bad-lane fraction "
-                      f"{bad:.6f} max|d| {err:.3e}", flush=True)
-                assert bad < 0.01, f"{label} {name} spl={spl} output {k}: {bad:.4f} of lanes differ"
-            print(f"[gate] {label} {name} {w}x{h} spl={spl}: worst bad-lane fraction {worst:.6f} "
-                  f"over {n_out} outputs (limit 0.01); radiance mean "
-                  f"{[round(float(o.mean()) / spl, 5) for o in ours[:3]]}", flush=True)
-        differ = int((torch.stack(outs["trace_tiles"][:n_out])
-                      != torch.stack(outs["trace_tiles_per_thread"][:n_out])).any(0).sum())
-        print(f"[parity] {name} {w}x{h} spl={spl}: {differ} of {xs.numel()} lanes differ between "
-              f"trace_tiles and its yardstick", flush=True)
+        ours = run(tk.trace_tiles, tables, xs, ys, samp, assured, spl)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k in range(n_out):
+            bad, err = lane_gate(ours[k], ref[k])
+            worst = max(worst, bad)
+            max_err = max(max_err, err)
+            print(f"[parity] trace_tiles {name} {w}x{h} spl={spl} out{k}: bad-lane fraction "
+                  f"{bad:.6f} max|d| {err:.3e}", flush=True)
+            assert bad < 0.01, f"trace_tiles {name} spl={spl} output {k}: {bad:.4f} of lanes differ"
+        print(f"[gate] trace_tiles {name} {w}x{h} spl={spl}: worst bad-lane fraction {worst:.6f} "
+              f"over {n_out} outputs (limit 0.01); radiance mean "
+              f"{[round(float(o.mean()) / spl, 5) for o in ours[:3]]}", flush=True)
 
-    # the main path's launch: its per-lane work, then the three in turns
+    # the main path's launch: its per-lane work, then the two in turns
     tables, xs, ys = setup(walled_scheme(W, H), W, H)
     samp = torch.zeros_like(xs)
     _, (iters, branch, roots) = run(tk.trace_tiles_reference, tables, xs, ys, samp, 5,
@@ -1992,9 +1861,8 @@ def trace_phase(dev, card):
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    order = [("plain", tk.trace_tiles_reference, 1), ("new", tk.trace_tiles, 5),
-             ("old", tk._trace_tiles_per_thread, 5), ("old", tk._trace_tiles_per_thread, 5),
-             ("new", tk.trace_tiles, 5), ("plain", tk.trace_tiles_reference, 1)]
+    order = [("plain", tk.trace_tiles_reference, 1), ("kernel", tk.trace_tiles, 5),
+             ("kernel", tk.trace_tiles, 5), ("plain", tk.trace_tiles_reference, 1)]
     times = {}
     for label, fn, reps in order:
         ms = timed(fn, reps)
@@ -2002,16 +1870,10 @@ def trace_phase(dev, card):
         print(f"[timing] {label} walled {W}x{H} spl={TIMING_SPL}: {ms:.3f} ms/launch "
               f"({W * H * TIMING_SPL / ms / 1e6:.3f} Gpaths/s) [{card}]", flush=True)
     ms = {k: sum(v) / len(v) for k, v in times.items()}
-    differ = int((torch.stack(run(tk.trace_tiles, tables, xs, ys, samp, 5, TIMING_SPL))
-                  != torch.stack(run(tk._trace_tiles_per_thread, tables, xs, ys, samp, 5,
-                                     TIMING_SPL))).any(0).sum())
-    print(f"[parity] walled {W}x{H} spl={TIMING_SPL}: {differ} of {xs.numel()} lanes differ "
-          f"between trace_tiles and its yardstick", flush=True)
-    print(f"[timing] trace_tiles walled {W}x{H} spl={TIMING_SPL}: {ms['new']:.3f} ms/launch, "
-          f"yardstick trace_tiles_per_thread {ms['old']:.3f} ms ({ms['old'] / ms['new']:.3f}x), "
+    print(f"[timing] trace_tiles walled {W}x{H} spl={TIMING_SPL}: {ms['kernel']:.3f} ms/launch, "
           f"plain {ms['plain']:.3f} ms [{card}]", flush=True)
-    return dict(max_abs_err=max_err, ms=ms["new"], yardstick_ms=ms["old"], plain_ms=ms["plain"],
-                work=work, tables=tables)
+    return dict(max_abs_err=max_err, ms=ms["kernel"], plain_ms=ms["plain"], work=work,
+                tables=tables)
 
 # ---- 9. the cube map ----
 # The sky fetch of cubemap.cuh sky_rgb and its radiance add, in FP32
@@ -2341,7 +2203,7 @@ def sky_bounds(kernels, sky, shape, walk_ops, card):
               f"{k['sky_bytes'] / SKY_SECTOR:.4g} distinct {SKY_SECTOR} B sectors of the "
               f"{k['pool_bytes']:.4g} B pool ({k['sky_bytes']:.4g} B; a sector a fetch would be "
               f"{misses * SKY_SECTOR:.4g} B); {ops:.4g} FP32 instructions ({ops / FP32_CEILING[name] * 1e3:.4f}"
-              f" ms), {nbytes:.4g} bytes ({nbytes / HBM_RATE * 1e3:.4f} ms): bound {b_ms:.4f} ms by "
+              f" ms), {nbytes:.4g} bytes ({nbytes / HBM * 1e3:.4f} ms): bound {b_ms:.4f} ms by "
               f"{b_by}; kernel {k['ms']:.4f} ms ({b_ms / k['ms']:.2%} of the bound reached), without "
               f"the sky {k['no_sky_ms']:.4f} ms" + (f", the JAX route {k['route_ms']:.4f} ms"
                                                     if "route_ms" in k else "") + f" [{card}]",
@@ -3334,7 +3196,7 @@ def dist_phase(card):
 
 
 # ---- 13. two-level instancing: the fleet ----
-# group_instances' transform of a ray into an instance's frame, in FP32
+# group_instances_slot's transform of a ray into an instance's frame, in FP32
 # instructions under -fmad=false: o - T 3 FADD, A (o - T) and A d 15 each (9
 # FMUL, 6 FADD), and the local walk's three reciprocals of the clamped d' (3
 # compares, 3 divides): 39. Its slab test of the instance's world AABB is a
@@ -3509,9 +3371,8 @@ def loop_check(xs, ys, samp, tables, kw, batched, batched_ms):
 
 def trace_turns(label, tables, xs, ys, runs, card):
     """The MESH_SPP launch of xs, ys by each of `runs` ({key: (route,
-    generator, sky)}; route "first" the instanced yardstick) in turns,
-    forward then back, FLEET_TURNS launches a turn after a warm-up. Returns
-    the mean ms a launch of each."""
+    generator, sky)}) in turns, forward then back, FLEET_TURNS launches a
+    turn after a warm-up. Returns the mean ms a launch of each."""
     import torch
 
     from raytrace_tpu_torch.ops import mesh_kernel as mk
@@ -3524,10 +3385,8 @@ def trace_turns(label, tables, xs, ys, runs, card):
         tables.sky = with_sky
 
         def launch():
-            kw = dict(assured=5, max_bounces=24, samples_per_lane=MESH_SPP)
-            if route == "first":
-                return mk._mesh_trace_yardstick(xs, ys, zero, tables, route="instanced", **kw)
-            return mk.mesh_trace(xs, ys, zero, tables, route=route, generator=generator, **kw)
+            return mk.mesh_trace(xs, ys, zero, tables, route=route, generator=generator,
+                                 assured=5, max_bounces=24, samples_per_lane=MESH_SPP)
 
         launch()  # warm-up
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3541,22 +3400,21 @@ def trace_turns(label, tables, xs, ys, runs, card):
     ms = {k: sum(v) / len(v) for k, v in t.items()}
     print(f"[timing] {label} {MESH_W}x{MESH_H} spl={MESH_SPP} in turns {order}: "
           + ", ".join(f"{k} {ms[k]:.3f} ms/launch (turns {t[k]})" for k in runs)
-          + f"; instanced / walk {ms['mesh_trace_instanced'] / ms['walk']:.3f}, first design / "
-          f"walk {ms['mesh_trace_instanced_first'] / ms['walk']:.3f} [{card}]", flush=True)
+          + f"; instanced / walk {ms['mesh_trace_instanced'] / ms['walk']:.3f} [{card}]",
+          flush=True)
     return ms
 
 
 def fleet_timing(dev, card, tables, sky):
     """The fleet's MESH_SPP launch of the whole frame in turns: instanced,
-    its first design, walk, the instanced sky and pcg instantiations, and
-    back. Returns the mean ms a launch of each."""
+    walk, the instanced sky and pcg instantiations, and back. Returns the
+    mean ms a launch of each."""
     import torch
 
     fx, fy = (lambda f: (f % MESH_W, f // MESH_W))(
         torch.arange(MESH_W * MESH_H, dtype=torch.int32, device=dev))
     return trace_turns("fleet", tables, fx, fy, {
-        "mesh_trace_instanced": ("instanced", "weyl", None),
-        "mesh_trace_instanced_first": ("first", "weyl", None), "walk": ("walk", "weyl", None),
+        "mesh_trace_instanced": ("instanced", "weyl", None), "walk": ("walk", "weyl", None),
         "mesh_trace_instanced_sky": ("instanced", "weyl", sky),
         "mesh_trace_instanced_pcg": ("instanced", "pcg", None)}, card)
 
@@ -3577,11 +3435,11 @@ def fleet_renders(card, scheme, sky_scheme):
     renders = {}
     r, img, counts, _ = warm_render("fleet", "fleet", scheme, MESH_SPP, card)
     default = mk.ROUTES[r.tables.route]
-    assert r.tables.route == ("instanced" if mk.INSTANCED_ROUTE else "walk")
+    assert r.tables.route == "instanced"
     assert counts[default] > 0 and sum(counts.values()) == counts[default], \
         f"the default ({r.tables.route}) render launched {counts}"
-    print(f"[fleet] the default route {r.tables.route} (INSTANCED_ROUTE {mk.INSTANCED_ROUTE}): "
-          f"{counts[default]} {default} launches a render({MESH_SPP})", flush=True)
+    print(f"[fleet] the default route {r.tables.route}: {counts[default]} {default} launches a "
+          f"render({MESH_SPP})", flush=True)
     renders[r.tables.route] = (r, img, counts)
     for route in ("instanced", "walk"):
         if route not in renders:
@@ -3646,7 +3504,7 @@ INST_SPILL_MAX = 64  # bytes of spill stores a thread mesh_trace_instanced may t
 def inst_ptxas_check(mesh_log):
     """ptxas' registers, stack, spills and shared memory of every instanced
     kernel of the mesh_kernel build (the four mesh_trace_kernel<kInst>
-    instantiations and the first design); raises if an instantiation of
+    instantiations); raises if an instantiation of
     mesh_trace_instanced runs fewer than 4 blocks of 256 a SM by its
     registers or spills more than INST_SPILL_MAX bytes a thread (its
     4-block build spills 32-40 B around the shade, and ran faster than the
@@ -3658,9 +3516,8 @@ def inst_ptxas_check(mesh_log):
               f"{65536 // (256 * max(v.get('registers', 1), 1))} blocks of 256 a SM by registers), "
               f"{v.get('stack')} B stack, {v.get('spill_stores')} B spill stores, "
               f"{v.get('spill_loads')} B spill loads, {v.get('smem')} B static smem", flush=True)
-    redesigned = {k: v for k, v in info.items() if "inst=1" in k}
-    assert len(redesigned) == 4 and len(info) == 5, f"instanced kernels {sorted(info)}"
-    for name, v in redesigned.items():
+    assert len(info) == 4, f"instanced kernels {sorted(info)}"
+    for name, v in info.items():
         assert v["spill_stores"] <= INST_SPILL_MAX, f"{name} spills {v['spill_stores']} B"
         assert v["registers"] <= 64, f"{name}: {v['registers']} registers, under 4 blocks a SM"
 
@@ -3674,8 +3531,8 @@ def large_fleet(dev, card):
     both table sets' bytes; mesh_trace_instanced bitwise against the plain
     version on the 1216x32 strip from row LARGE_STRIP at samples per lane
     1, 4 and MESH_SPP; the whole frame's MESH_SPP launch through the plain
-    version (its lane-bounces for the bound) and by mesh_trace_instanced,
-    its first design and the walk in turns, the two routes' images under
+    version (its lane-bounces for the bound) and by mesh_trace_instanced
+    and the walk in turns, the two routes' images under
     the tile gate; the least walk a ray of each route on the frame's rays.
     Returns (ms of each, the plain launch's lane-bounces, instanced ops a
     ray, flattened ops a ray, tables)."""
@@ -3708,8 +3565,7 @@ def large_fleet(dev, card):
     end.record()
     end.synchronize()
     ms = trace_turns("large fleet", tables, fx, fy, {
-        "mesh_trace_instanced": ("instanced", "weyl", None),
-        "mesh_trace_instanced_first": ("first", "weyl", None), "walk": ("walk", "weyl", None)},
+        "mesh_trace_instanced": ("instanced", "weyl", None), "walk": ("walk", "weyl", None)},
         card)
     images = {route: torch.stack(mk.mesh_trace(fx, fy, zero, tables, route=route, assured=5,
                                                max_bounces=24, samples_per_lane=MESH_SPP))
@@ -3733,8 +3589,6 @@ def fleet_phase(dev, card, mesh_log):
     (module docstring); mesh_log: the mesh_kernel build's log. Returns the
     JSON records of mesh_trace_instanced and its sky and pcg
     instantiations."""
-    from raytrace_tpu_torch.ops import mesh_kernel as mk
-
     t_phase = time.perf_counter()
     inst_ptxas_check(mesh_log)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_fleet_") as face_dir:
@@ -3763,13 +3617,8 @@ def fleet_phase(dev, card, mesh_log):
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                "launches_per_render": launches[name]}
         if name == "mesh_trace_instanced":
-            first = ms["mesh_trace_instanced_first"]
-            rec.update(walk_ms=ms["walk"], yardstick_ms=first, yardstick_share=b_ms / first,
-                       render_ms=render_ms["instanced"], walk_render_ms=render_ms["walk"],
-                       default_route=tables.route)
-            print(f"[bound] mesh_trace_instanced_first (the yardstick): kernel {first:.4f} ms "
-                  f"({b_ms / first:.2%} of the {b_ms:.4f} ms bound); the walk {ms['walk']:.4f} ms "
-                  f"[{card}]", flush=True)
+            rec.update(walk_ms=ms["walk"], render_ms=render_ms["instanced"],
+                       walk_render_ms=render_ms["walk"], default_route=tables.route)
         records.append(rec)
         fetches = f" + {p['misses']:.4g} sky fetches" if FLEET_KERNELS[name][1] else ""
         print(f"[bound] {name}: {p['lane_bounces']:.4g} lane-bounces x {per_bounce:.1f} FP32 "
@@ -3782,21 +3631,17 @@ def fleet_phase(dev, card, mesh_log):
     lms, lane_bounces, l_inst_ops, l_flat_ops, ltables = large_fleet(dev, card)
     l_bound, l_by = bound(lane_bounces * per_bounce_ops(ltables, l_inst_ops), inst_bytes(ltables),
                           "mesh_trace")
-    for key in ("mesh_trace_instanced", "mesh_trace_instanced_first"):
-        print(f"[bound] large fleet {key}: {lane_bounces:.4g} lane-bounces: bound {l_bound:.4f} ms "
-              f"by {l_by}; kernel {lms[key]:.4f} ms ({l_bound / lms[key]:.2%} of the bound "
-              f"reached); the walk {lms['walk']:.4f} ms [{card}]", flush=True)
-    records[0].update(large_ms=lms["mesh_trace_instanced"], large_walk_ms=lms["walk"],
-                      large_yardstick_ms=lms["mesh_trace_instanced_first"],
-                      large_bound_ms=l_bound, large_default_route=ltables.route)
+    key = "mesh_trace_instanced"
+    print(f"[bound] large fleet {key}: {lane_bounces:.4g} lane-bounces: bound {l_bound:.4f} ms "
+          f"by {l_by}; kernel {lms[key]:.4f} ms ({l_bound / lms[key]:.2%} of the bound "
+          f"reached); the walk {lms['walk']:.4f} ms [{card}]", flush=True)
+    records[0].update(large_ms=lms[key], large_walk_ms=lms["walk"], large_bound_ms=l_bound,
+                      large_default_route=ltables.route)
     print(f"[fleet] large fleet in {time.perf_counter() - t_large:.1f} s", flush=True)
     print(f"[fleet] MeshTables.route: fleet {records[0]['default_route']}, large fleet "
-          f"{ltables.route} (INSTANCED_ROUTE {mk.INSTANCED_ROUTE}); measured a launch: fleet "
-          f"instanced {ms['mesh_trace_instanced']:.3f}, first design "
-          f"{ms['mesh_trace_instanced_first']:.3f}, walk {ms['walk']:.3f} ms; large fleet "
-          f"instanced {lms['mesh_trace_instanced']:.3f}, first design "
-          f"{lms['mesh_trace_instanced_first']:.3f}, walk {lms['walk']:.3f} ms [{card}]",
-          flush=True)
+          f"{ltables.route}; measured a launch: fleet instanced "
+          f"{ms['mesh_trace_instanced']:.3f}, walk {ms['walk']:.3f} ms; large fleet instanced "
+          f"{lms['mesh_trace_instanced']:.3f}, walk {lms['walk']:.3f} ms [{card}]", flush=True)
     print(f"[fleet] phase 13 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return records
 
@@ -3853,13 +3698,11 @@ def profile_wavefront(card, every=False):
     frame in cpu semantics, with DLS and under the sky, the faces written
     anew, and walled through the wavefront), each warm (its graph
     captured), profiled graphed but the main path (its graphed table is
-    phase 8's), and each with the torch bounce's graph (the yardstick,
-    torch_bounce_renderer); `every` (`chip_smoke.py --profile
-    wavefront-all <card>`): the main path graphed too, and every render
-    eager (Lanes._run_eager in Lanes.run's place). Each profile starts
-    from a fresh target, so every turn takes the same sample ids. Returns
-    {"<label> graphed" / "<label> torch" / "<label> eager": profile's
-    result}."""
+    phase 8's); `every` (`chip_smoke.py --profile wavefront-all <card>`):
+    the main path graphed too, and every render eager (Lanes._run_eager in
+    Lanes.run's place). Each profile starts from a fresh target, so every
+    turn takes the same sample ids. Returns {"<label> graphed" / "<label>
+    eager": profile's result}."""
     from raytrace_tpu_torch.models import procedural
     from raytrace_tpu_torch.models.walled import walled_scheme
     from raytrace_tpu_torch.render import wavefront as wf
@@ -3876,21 +3719,18 @@ def profile_wavefront(card, every=False):
                 ("walled wavefront", walled_scheme(W, H), WALLED_WF_SPP, dict(use_fused=False)),
                 ("a380-class + sky cpu", variant(a380_sky, use_gpu=False), MESH_SPP, {}))
         for label, scheme, spp, kw in runs:
+            if label == "a380-class cpu" and not every:
+                continue
             r = Renderer(scheme, device="cuda", **kw)
             r.render(progress=False, samples=spp)  # captures the graph (the parent's build)
-            yard = torch_bounce_renderer(scheme, spp, **kw)
-            main = label == "a380-class cpu"
-            turns = ("graphed", "torch", "eager") if every else ("torch",) if main else (
-                "graphed", "torch")
-            for turn in turns:
-                rr = yard if turn == "torch" else r
-                rr.target = RenderTarget(rr.width, rr.height)
+            for turn in ("graphed", "eager") if every else ("graphed",):
+                r.target = RenderTarget(r.width, r.height)
                 real = wf.Lanes.run
                 if turn == "eager":
                     wf.Lanes.run = wf.Lanes._run_eager
                 try:
                     results[f"{label} {turn}"] = profile(
-                        rr, card, "mesh_hit_kernel", f"{label} {turn} {r.width}x{r.height}", spp)
+                        r, card, "mesh_hit_kernel", f"{label} {turn} {r.width}x{r.height}", spp)
                 finally:
                     wf.Lanes.run = real
     return results
@@ -3906,17 +3746,16 @@ WAVEFRONT_TORCH_ASSIGN = {"a380-class cpu": (126.171, 159.200),
 
 
 def wavefront_summary(turns, profiles, card):
-    """Each wavefront render's graphed, torch-bounce and eager wall ms (the
-    turns, in this process) beside its device ms, idle share, host syncs
+    """Each wavefront render's graphed and eager wall ms (the turns, in this
+    process) beside its device ms, idle share, host syncs
     and kernels an iteration (profile_wavefront's tables, in a child, and
     the main path's graphed table of phase 8), and the graphed render's
     device and wall ms beside those of its graph with the torch refill."""
     for label, t in turns.items():
         line = [f"[wavefront] {label}: {t['iterations']} iterations, {t['lane_bounces']} "
-                f"lane-bounces, launches {t['launches']}, the torch bounce's image "
-                f"{'bitwise' if t['torch_bitwise'] else 'NOT bitwise'}; graph capture + "
-                f"instantiate {t['capture_s']:.3f} s"]
-        for turn in ("graphed", "torch", "eager"):
+                f"lane-bounces, launches {t['launches']}; graph capture + instantiate "
+                f"{t['capture_s']:.3f} s"]
+        for turn in ("graphed", "eager"):
             p = profiles.get(f"{label} {turn}") or t.get(f"{turn}_profile")
             wall = t[f"{turn}_ms"]
             if not p:
@@ -3969,7 +3808,6 @@ def main() -> int:
     from raytrace_tpu_torch.models.walled import walled_scheme
     from raytrace_tpu_torch.ops import trace_kernel as tk
     from raytrace_tpu_torch.render.renderer import Renderer
-    from raytrace_tpu_torch.render.target import RenderTarget
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -4048,45 +3886,6 @@ def main() -> int:
     card_vs_cpu("main", "walled", scheme, 128, 64, 16)
     resume_bitwise("main", renderer, f"walled {W}x{H}")
 
-    # the same render with the yardstick in trace_tiles' place, in turns
-    def render_ms(fn):
-        """The median wall time of RENDER_REPS warm renders, each into a
-        fresh target: one render's host side (the pageable copy) varies by
-        several ms, more than the kernels differ."""
-        real, tk.trace_tiles = tk.trace_tiles, fn
-        try:
-            r = Renderer(scheme, device="cuda")
-            r.render(progress=False, samples=1)
-            times = []
-            for _ in range(RENDER_REPS):
-                r.target = RenderTarget(W, H)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                r.render(progress=False, samples=MAIN_SPP)  # ends in a device -> host copy
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            return float(np.median(times))
-        finally:
-            tk.trace_tiles = real
-
-    def yardstick(*args, sky=None, generator="weyl", **kw):
-        """The yardstick in trace_tiles' place: the render passes sky=None
-        and generator="weyl", which the yardstick (weyl, without a cube
-        map) does not take; anything else it refuses."""
-        if sky is not None or generator != "weyl":
-            raise ValueError("the yardstick takes neither a cube map nor pcg")
-        return tk._trace_tiles_per_thread(*args, **kw)
-
-    walls = {}
-    for label, fn in (("trace_tiles", tk.trace_tiles), ("yardstick", yardstick),
-                      ("yardstick", yardstick), ("trace_tiles", tk.trace_tiles)):
-        walls.setdefault(label, []).append(render_ms(fn))
-    sides = ", ".join(
-        f"{k} {sum(v) / 2:.3f} ms ({W * H * MAIN_SPP / (sum(v) / 2) / 1e6:.3f} Gpaths/s; turns "
-        f"{v[0]:.3f}, {v[1]:.3f})" for k, v in walls.items())
-    print(f"[main] walled render(64) in turns, each the median of {RENDER_REPS} renders: {sides} "
-          f"[{card}]", flush=True)
-
     kernels = [{
         "name": "trace_tiles",
         "route": "cuda",
@@ -4098,7 +3897,6 @@ def main() -> int:
         "plain_ms": trace["plain_ms"],
         "library_ms": None,
         "launches_per_render": launches,
-        "yardstick_ms": trace["yardstick_ms"],
     }]
     tables = trace["tables"]
     shape = {"trace_tiles": dict(
@@ -4152,12 +3950,9 @@ def main() -> int:
         rec["bound_ms"], rec["bound_by"] = bound(ops, nbytes, name)
         print(f"[bound] {name}: {lane_bounces:.4g} lane-bounces{note}; x {per_bounce:.1f} FP32 "
               f"instructions at {FP32_CEILING[name] / 1e12:g} T/s ({ops / FP32_CEILING[name] * 1e3:.4f}"
-              f" ms), {nbytes:.4g} bytes ({nbytes / HBM_RATE * 1e3:.4f} ms at 3.35 TB/s): bound "
+              f" ms), {nbytes:.4g} bytes ({nbytes / HBM * 1e3:.4f} ms at 3.35 TB/s): bound "
               f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}; kernel {rec['ms']:.4f} ms "
-              f"({rec['bound_ms'] / rec['ms']:.2%} of the bound reached)"
-              + (f", yardstick {rec['yardstick_ms']:.4f} ms "
-                 f"({rec['bound_ms'] / rec['yardstick_ms']:.2%})" if "yardstick_ms" in rec else "")
-              + f" [{card}]", flush=True)
+              f"({rec['bound_ms'] / rec['ms']:.2%} of the bound reached) [{card}]", flush=True)
 
     sky_bounds(kernels, sky, shape, walk_ops, card)
     diff = diff_phase(dev, card)

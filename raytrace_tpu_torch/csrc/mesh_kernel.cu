@@ -1,6 +1,6 @@
 // Mesh kernels (Hopper, sm_90a): the path-tracing kernel of mesh scenes
-// (three entry points and two yardsticks) and the integrator's nearest
-// mesh hit (a fourth entry point and its yardstick).
+// (three entry points) and the integrator's nearest mesh hit (a fourth
+// entry point).
 //
 // Replaces raytrace_tpu/ops/pallas/mesh_bounce_kernel.py::bounce_tiles
 // (the body `_kernel`, its cluster walk `mesh_walk`) and the in-kernel MXU
@@ -71,9 +71,8 @@
 //                     rank + G, ... (16-byte loads, conflict-free), so a
 //                     warp scans the table only for its live rays. On the
 //                     H100 the walk is faster than this route on every
-//                     mesh measured, so MeshTables gives it no scene
-//                     (ops/mesh_kernel.MAX_BRUTE_TRIS = 0); a caller asks
-//                     for it by route.
+//                     mesh measured (PERF.md), so MeshTables gives it no
+//                     scene; a caller asks for it by route.
 //   mesh_trace_instanced replaces bounce_tiles' two-level instancing
 //                     (mesh_bounce_kernel.py:500-544, `inst_body` around
 //                     `mesh_walk`): a scene of n copies of one asset, its
@@ -110,8 +109,8 @@
 //                       fleet, a supergroup) stay in L1 and the triangle
 //                       rows (0.43 MB) in L2, so no asset is too large.
 //                     So it runs 4 blocks of 256 a SM at 64 registers,
-//                     against its first design's 2 at 115 (kept as the
-//                     yardstick mesh_trace_instanced_first). ptxas still
+//                     against its first design's 2 at 115 (the instance
+//                     loop's and the lane's state in registers). ptxas still
 //                     spills 20-48 B a thread there (20 weyl, 48 with the
 //                     sky and pcg), around the shade and not in the walk
 //                     (the lane index, the bounce and sample counters, two
@@ -120,9 +119,8 @@
 //                     which took the spill down from 80-88 B); the 3-block
 //                     build (72 registers) spills nothing but ran 6%
 //                     slower.
-//                     Measured (scripts/torch_instanced_variants.py, NVIDIA
-//                     H100 80GB HBM3 at 700 W, 1216x608 at 16 spl, in
-//                     turns): the fleet (17 instances) 113.6 ms a launch,
+//                     Measured (PERF.md; NVIDIA H100 80GB HBM3 at 700 W,
+//                     1216x608 at 16 spl, in turns): the fleet (17 instances) 113.6 ms a launch,
 //                     the walk 117.6, the first design 130.8; the large
 //                     fleet (144 instances, 64 MB of flattened tables)
 //                     145.0, 246.0 and 170.0. Without the stash the 4-block
@@ -146,13 +144,6 @@
 // resolve keep it; across instances a later one wins only at a smaller t,
 // so the earlier instance keeps an exact-t tie. The entries equal
 // mesh_trace_reference bitwise.
-// The yardsticks, which nothing on a render path launches, are the first
-// designs: mesh_trace_per_thread (each thread walks its own ray in the
-// camera's scan order, `walk`), mesh_trace_brute_lockstep (the block
-// stages 64-row chunks in shared memory with two barriers a chunk and
-// keeps one bounce loop in step, `brute`) and mesh_trace_instanced_first
-// (the instance loop's and the lane's state in registers,
-// `group_instances`).
 //
 // ptxas (sm_90a, -fmad=false; chip_smoke.py's build phase prints it):
 //   mesh_trace_kernel<kBrute, kInst, ...> (the weyl, no-sky instantiations)
@@ -165,13 +156,8 @@
 //   (mesh_trace_instanced)       stores), 9,808 B smem + 35,840 B dynamic
 //                                (32 InstSlots and the lane stash): 4
 //                                blocks, 32 warps a SM
-//   mesh_trace_instanced_first_kernel  115 registers, 32 B stack, no
-//                                spill, 9,808 B smem: 2 blocks, 16 warps
 //   mesh_hit_kernel              48 registers, 24 B stack: 5 blocks, 40
 //                                warps a SM
-//   mesh_trace_yardstick_kernel  64 (walk, 48 B stack; 32 warps a SM) and
-//                                76 registers (lockstep, 13,136 B smem;
-//                                24 warps a SM)
 //
 // The draws, the two normalizes (raygen rsqrt, mesh shade sqrt-then-
 // divide with eps 1e-20) and every reference quirk (the raw [0, 1]
@@ -180,7 +166,7 @@
 // emissive, divert weight 1) follow the JAX package; only float rounding
 // (FMA contraction, sinf/cosf, rsqrtf) may differ.
 //
-// The third entry point, mesh_hit, replaces
+// The fourth entry point, mesh_hit, replaces
 // raytrace_tpu/ops/pallas/mesh_hit_kernel.py::mesh_hit_tiles (body
 // `_kernel`): the nearest mesh hit (t, global triangle id, u, v) of each
 // ray of the integrator and the wavefront driver
@@ -216,7 +202,7 @@ using namespace rt;
 constexpr int kThreads = 256;
 constexpr int kGroup = 16;   // clusters per supercluster
 constexpr int kSGroup = 8;   // superclusters per supergroup
-constexpr int kBruteChunk = 64;
+constexpr int kBruteChunk = 64;  // the brute table's rows come in multiples of this
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 constexpr int kRayGroup = 16;    // mesh_hit: threads per ray
@@ -226,7 +212,6 @@ constexpr int kBruteGroup = 32;  // mesh_trace_brute: threads per ray of the sca
 constexpr int kBruteThreads = 1024;  // mesh_trace_brute: one persistent block per SM
 constexpr int kInstBlocks = 4;   // mesh_trace_instanced: resident blocks an SM asked of ptxas
 constexpr int kInstChunk = 32;   // mesh_trace_instanced: instances ordered together
-constexpr int kInstFirstBlocks = 2;  // mesh_trace_instanced_first: resident blocks an SM
 
 struct Mesh {
   const float* sgbounds;  // (n_sg, 8)  [lo xyz, hi xyz, 0, 0]
@@ -267,80 +252,6 @@ __device__ __forceinline__ void slab_span(float4 a, float4 b, const Ray& r, floa
   const float t0z = (a.z - r.oz) * fz, t1z = (b.y - r.oz) * fz;
   entry = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
   exit_ = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-}
-
-// slab test of the box at `box`, pruned by entry < tt
-__device__ __forceinline__ bool reach(const float* box, const Ray& r, float fx, float fy,
-                                      float fz, float tt) {
-  float entry, exit_;
-  slab_span(__ldg(reinterpret_cast<const float4*>(box)),
-            __ldg(reinterpret_cast<const float4*>(box) + 1), r, fx, fy, fz, entry, exit_);
-  return entry <= exit_ && exit_ >= 0.f && entry < tt;
-}
-
-__device__ __forceinline__ void test_tri(const Ray& r, float4 a, float4 b, float4 c, int g,
-                                         float& tt, int& gid, float& bu, float& bv) {
-  float t, u, w;
-  if (tri_hit(r, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, t, u, w) && t < tt) {
-    tt = t;
-    gid = g;
-    bu = u;
-    bv = w;
-  }
-}
-
-// the 3-level cluster walk of one lane (the yardsticks'); tt in: the
-// sphere / free-triangle best; a hit counts at t_min <= t < tt (tri_hit
-// already implies t >= EPS)
-__device__ void walk(const Mesh& m, const Ray& r, float t_min, float& tt, int& gid, float& bu,
-                     float& bv) {
-  const float fx = 1.f / slab_dir(r.dx);
-  const float fy = 1.f / slab_dir(r.dy);
-  const float fz = 1.f / slab_dir(r.dz);
-  for (int g = 0; g < m.n_sg; ++g) {
-    if (!reach(m.sgbounds + 8 * g, r, fx, fy, fz, tt)) continue;
-    for (int s = g * kSGroup; s < (g + 1) * kSGroup; ++s) {
-      if (!reach(m.sbounds + 8 * s, r, fx, fy, fz, tt)) continue;
-      for (int c = s * kGroup; c < (s + 1) * kGroup; ++c) {
-        const int cnt = __ldg(m.count + c);
-        if (cnt == 0 || !reach(m.bounds + 8 * c, r, fx, fy, fz, tt)) continue;
-        const float4* rows = m.tri + static_cast<size_t>(c) * m.width * 3;
-        const int* ids = m.gid + static_cast<size_t>(c) * m.width;
-        for (int w = 0; w < cnt; ++w) {
-          float t, u, v;
-          const float4 a = __ldg(rows + 3 * w), b = __ldg(rows + 3 * w + 1),
-                       cc = __ldg(rows + 3 * w + 2);
-          if (tri_hit(r, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, cc.x, t, u, v) && t >= t_min &&
-              t < tt) {
-            tt = t;
-            gid = __ldg(ids + w);
-            bu = u;
-            bv = v;
-          }
-        }
-      }
-    }
-  }
-}
-
-// every triangle of the brute table, staged chunk by chunk (the lockstep
-// yardstick's); ALL threads of the block call it (inactive ones only help
-// staging)
-__device__ void brute(const Mesh& m, const Ray& r, bool active, float4* s_tri, int* s_gid,
-                      float& tt, int& gid, float& bu, float& bv) {
-  for (int base = 0; base < m.n_brute; base += kBruteChunk) {
-    __syncthreads();
-    for (int k = threadIdx.x; k < kBruteChunk * 3; k += blockDim.x)
-      s_tri[k] = __ldg(m.btri + static_cast<size_t>(base) * 3 + k);
-    for (int k = threadIdx.x; k < kBruteChunk; k += blockDim.x)
-      s_gid[k] = __ldg(m.bgid + base + k);
-    __syncthreads();
-    if (!active) continue;
-    for (int w = 0; w < kBruteChunk; ++w) {
-      const int g = s_gid[w];
-      if (g >= 0) test_tri(r, s_tri[3 * w], s_tri[3 * w + 1], s_tri[3 * w + 2], g, tt, gid, bu, bv);
-    }
-  }
 }
 
 // the nearest fetch of descriptor d from the mesh's pool (mesh_common.cuh)
@@ -470,7 +381,7 @@ __device__ bool shade_mesh(Path& p, const Mesh& m, int gid, float t, float bu, f
 //    running best t before it descends; the best is shared by a shuffle
 //    reduction after every cluster. The walk so follows the ray's own
 //    order, not the camera's order of pack_mesh_tables, and the nearest
-//    hit, found early, prunes the rest with the same slab test as `walk`;
+//    hit, found early, prunes the rest with the plain walk's slab test;
 //  - exactness: each thread keeps its best (t, scan position cluster * W
 //    + row) under the same tri_hit arithmetic, and a final reduction takes
 //    the least (t, position). The winner does not depend on the visiting
@@ -677,72 +588,6 @@ __device__ __forceinline__ void group_brute(const Group<G>& g, const float4* row
   group_least(g, ct, cpos, cu, cv);
 }
 
-// The nearest hit of ray r (the same on every thread of the group) over
-// the instances of an instanced scene, hits below t_seed: (t, global gid,
-// u, v) on every thread of the group; gid -1 and t = t_seed, u = v = 0
-// without one. The group slab-tests the world AABBs of kInstChunk
-// instances at once (one a thread, as test_level) and visits the reached
-// ones nearest entry first, each re-tested against the running best (as
-// the walk visits its boxes): the ray moved into the instance frame (the
-// JAX order of terms, mesh_bounce_kernel.py:532-540), the group walk of the
-// asset's tables seeded with the running best, the instance's gid base
-// added to the local id. The result is the plain version's, which takes
-// the instances in table order with strict <: the least (t, table row,
-// scan position), since an instance of an earlier row than the winning
-// instance's walks with its seed one ulp above the best, so it takes an
-// exact-t tie (a t equal to the seed t_seed itself stays out, as there).
-template <int G>
-__device__ __forceinline__ void group_instances(const Inst& in, const Group<G>& g, const Ray& r,
-                                                float t_seed, float& ct, int& gid, float& cu,
-                                                float& cv) {
-  const float fx = 1.f / slab_dir(r.dx);
-  const float fy = 1.f / slab_dir(r.dy);
-  const float fz = 1.f / slab_dir(r.dz);
-  ct = t_seed;
-  gid = -1;
-  cu = cv = 0.f;
-  int crow = -1;  // the winning instance's table row; -1: none (the seed stands)
-  for (int base = 0; base < in.n; base += kInstChunk) {
-    Slots<G, kInstChunk> s;
-    const float reach_t = nextafterf(ct, CUDART_INF_F);  // entry <= the best
-#pragma unroll
-    for (int k = 0; k < Slots<G, kInstChunk>::K; ++k) {
-      const int j = k * G + g.rank;
-      float e = CUDART_INF_F;
-      if (base + j < in.n) {
-        const float4* row = in.rows + 6 * (base + j);
-        float entry, exit_;
-        slab_span(__ldg(row + 3), __ldg(row + 4), r, fx, fy, fz, entry, exit_);
-        if (entry <= exit_ && exit_ >= 0.f && entry < reach_t) e = entry;
-      }
-      s.e[k] = e;
-    }
-    for (int j; (j = pop_nearest(s, g, nextafterf(ct, CUDART_INF_F))) >= 0;) {
-      const int k = base + j;
-      const float4* row = in.rows + 6 * k;
-      const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);  // A 0:9, T c.yzw
-      const float rx = r.ox - c.y, ry = r.oy - c.z, rz = r.oz - c.w;
-      const Ray q{a.x * rx + a.y * ry + a.z * rz,
-                  a.w * rx + b.x * ry + b.y * rz,
-                  b.z * rx + b.w * ry + c.x * rz,
-                  a.x * r.dx + a.y * r.dy + a.z * r.dz,
-                  a.w * r.dx + b.x * r.dy + b.y * r.dz,
-                  b.z * r.dx + b.w * r.dy + c.x * r.dz};
-      float t, u, v;
-      int pos;
-      const bool earlier = crow >= 0 && k < crow;  // takes an exact-t tie from the winner
-      group_walk(in.asset, g, q, earlier ? nextafterf(ct, CUDART_INF_F) : ct, kEps, t, pos, u, v);
-      if (pos >= 0) {  // below the seed: the same on every thread of the group
-        ct = t;
-        crow = k;
-        gid = __ldg(in.asset.gid + pos) + static_cast<int>(__ldg(row + 4).z);
-        cu = u;
-        cv = v;
-      }
-    }
-  }
-}
-
 // The chunk's reached instance of least slab entry (ties to the least
 // index) that still has entry <= the running best, marked visited; -1 when
 // none is left. pop_nearest's choice, on the slot's entries; the same on
@@ -772,12 +617,24 @@ __device__ __forceinline__ int pop_entry(InstSlot& s, const Group<G>& g) {
   return j;
 }
 
-// group_instances with the group's state in its shared-memory slot `s`:
-// the same instances in the same order under the same seeds, so the same
-// result, left in s (ct, gid, cu, cv). Nothing of the instance loop is
-// live in registers across the nested group walk but the chunk's base:
-// each pop re-reads the entries and the running best from the slot. Every
-// write is rank 0's, followed by __syncwarp before the group reads it.
+// The nearest hit of ray r (the same on every thread of the group) over
+// the instances of an instanced scene, hits below t_seed, left in the
+// group's shared-memory slot `s` (ct, gid, cu, cv): gid -1 and ct =
+// t_seed, cu = cv = 0 without one. The group slab-tests the world AABBs of
+// kInstChunk instances at once (one a thread, as test_level) and visits the
+// reached ones nearest entry first, each re-tested against the running
+// best (as the walk visits its boxes): the ray moved into the instance
+// frame (the JAX order of terms, mesh_bounce_kernel.py:532-540), the group
+// walk of the asset's tables seeded with the running best, the instance's
+// gid base added to the local id. The result is the plain version's, which
+// takes the instances in table order with strict <: the least (t, table
+// row, scan position), since an instance of an earlier row than the
+// winning instance's walks with its seed one ulp above the best, so it
+// takes an exact-t tie (a t equal to the seed t_seed itself stays out, as
+// there). Nothing of the instance loop is live in registers across the
+// nested group walk but the chunk's base: each pop re-reads the entries and
+// the running best from the slot. Every write is rank 0's, followed by
+// __syncwarp before the group reads it.
 template <int G>
 __device__ __forceinline__ void group_instances_slot(const Inst& in, const Group<G>& g,
                                                      InstSlot& s, const Ray& r, float t_seed) {
@@ -965,27 +822,18 @@ __device__ __forceinline__ void warp_nearest_stashed(unsigned live, const float4
   }
 }
 
-// The instanced walk's designs (the template argument kInst of warp_nearest
-// and trace_lane): none, mesh_trace_instanced's (the group's state in its
-// InstSlot and the lane's in the stash, warp_nearest_stashed) and the first
-// design's (in registers, warp_nearest; the yardstick)
-enum InstDesign { kNoInst = 0, kInstSlots = 1, kInstFirst = 2 };
-
 // The nearest mesh hits of the warp's live rays (bit k of `live`: lane
 // k's ray r, seeded with tm), G threads a ray and 32 / G rays a round:
 // group k of the warp takes the k-th lowest live lane left, its ray and
 // seed by shuffle, and rank 0 of the group hands (t, position, u, v)
 // back to the owner by shuffle. Every lane of the warp calls it; on
 // return each live lane holds its own in (tm, pos, bu, bv), position -1
-// without a hit. kBrute: the resident table `rows` (n_rows); kInst: the
-// instances of `inst` (kInstFirst: group_instances), pos then the global
-// gid; else the walk of m, t_min EPS.
-template <int G, bool kBrute, int kInst>
+// without a hit. kBrute: the resident table `rows` (n_rows); else the walk
+// of m, t_min EPS. (mesh_trace_instanced searches in warp_nearest_stashed.)
+template <int G, bool kBrute>
 __device__ __forceinline__ void warp_nearest(unsigned live, const Ray& r, const Mesh& m,
-                                             const float4* rows, int n_rows, const Inst& inst,
-                                             float& tm, int& pos, float& bu, float& bv) {
-  static_assert(!(kBrute && kInst), "the brute route and instancing exclude each other");
-  static_assert(kInst != kInstSlots, "mesh_trace_instanced searches in warp_nearest_stashed");
+                                             const float4* rows, int n_rows, float& tm, int& pos,
+                                             float& bu, float& bv) {
   const Group<G> g = lane_group<G>();
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int slot = lane / G;
@@ -1011,8 +859,6 @@ __device__ __forceinline__ void warp_nearest(unsigned live, const Ray& r, const 
     if (owner >= 0 && seed > kEps) {  // a seed at or below EPS leaves no t to find
       if constexpr (kBrute) {
         group_brute(g, rows, n_rows, q, ct, cpos, cu, cv);
-      } else if constexpr (kInst == kInstFirst) {
-        group_instances(inst, g, q, seed, ct, cpos, cu, cv);
       } else {
         group_walk(m, g, q, seed, kEps, ct, cpos, cu, cv);
       }
@@ -1052,10 +898,11 @@ struct Lanes {
 
 // The whole path of lane i (inactive when i >= n), its nearest mesh hits
 // found with the rest of its warp (warp_nearest); every lane of the warp
-// calls it. kInst (an InstDesign): the nearest mesh hit over the instances
-// of `inst`; kSky: a lane that hits nothing adds the sky's term (s_face the
-// staged face table); kPcg: the draws from the pcg generator, else weyl.
-template <bool kBrute, int kInst, bool kSky, bool kPcg>
+// calls it. kInst: the nearest mesh hit over the instances of `inst`, the
+// lane's state in its stash column (warp_nearest_stashed); kSky: a lane
+// that hits nothing adds the sky's term (s_face the staged face table);
+// kPcg: the draws from the pcg generator, else weyl.
+template <bool kBrute, bool kInst, bool kSky, bool kPcg>
 __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* sph,
                                            const float* ft, const float* cam, const Mesh& m,
                                            const float4* rows, const Inst& inst, const Sky& sky,
@@ -1079,7 +926,7 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
   p.cir = p.cig = p.cib = p.inten = 1.f;
   p.depth = 0;
   int sk = 0;
-  if constexpr (kInst == kInstSlots) {
+  if constexpr (kInst) {
     int* c = reinterpret_cast<int*>(lane_stash(rows, threadIdx.x));
     c[kStX * kThreads] = xi;
     c[kStY * kThreads] = yi;
@@ -1095,7 +942,7 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
     if (active) closest_sph_ft(p.ray, sph, L.n_sph, ft, L.n_ft, t_best, kind, best);
     float tm = t_best, bu = 0.f, bv = 0.f;
     int pos = -1;
-    if constexpr (kInst == kInstSlots) {
+    if constexpr (kInst) {
       // the lane's state waits in its stash column (the pixel's constants
       // are recomputed from it where a path starts, below)
       float* c = lane_stash(rows, threadIdx.x);
@@ -1105,9 +952,8 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
       max_thres = cam[17];
       inv_thres = 1.0f / max_thres;
     } else {
-      warp_nearest<kBrute ? kBruteGroup : kTraceGroup, kBrute, kInst>(live, p.ray, m, rows,
-                                                                       m.n_brute, inst, tm, pos,
-                                                                       bu, bv);
+      warp_nearest<kBrute ? kBruteGroup : kTraceGroup, kBrute>(live, p.ray, m, rows, m.n_brute,
+                                                               tm, pos, bu, bv);
     }
     if (!active) continue;
     const int mgid = kInst ? pos : pos < 0 ? -1 : __ldg((kBrute ? m.bgid : m.gid) + pos);
@@ -1141,7 +987,7 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
       const bool regen = !alive && sk + 1 < L.spl;
       if (regen) {
         ++sk;
-        if constexpr (kInst == kInstSlots) {  // as at the top, from the stash
+        if constexpr (kInst) {  // as at the top, from the stash
           const int* c = reinterpret_cast<const int*>(lane_stash(rows, threadIdx.x));
           xi = c[kStX * kThreads];
           yi = c[kStY * kThreads];
@@ -1175,10 +1021,10 @@ __device__ __forceinline__ void trace_lane(int i, const Lanes& L, const float* s
 // SMs hold, whose warps take 32-lane tiles from the counter `work` (0 at
 // launch) until the lanes run out, so no warp waits for the others of its
 // block. The brute route's table is resident in dynamic shared memory (3
-// float4 a row), loaded once a block; for kInst == kInstSlots it holds the
-// groups' InstSlots and the lane stash. kSky: the cube map's face table is
-// staged too.
-template <bool kBrute, int kInst, bool kSky, bool kPcg>
+// float4 a row), loaded once a block; for kInst it holds the groups'
+// InstSlots and the lane stash. kSky: the cube map's face table is staged
+// too.
+template <bool kBrute, bool kInst, bool kSky, bool kPcg>
 __device__ __forceinline__ void trace_tiles_of_block(const Lanes& L,
                                                      const float* __restrict__ sph_g,
                                                      const float* __restrict__ ft_g,
@@ -1217,130 +1063,10 @@ __global__ void __launch_bounds__(kBrute ? kBruteThreads : kThreads,
 mesh_trace_kernel(const Lanes L, const float* __restrict__ sph_g, const float* __restrict__ ft_g,
                   const float* __restrict__ cam_g, const Mesh m, int* __restrict__ work,
                   const Sky sky, const Inst inst) {
-  trace_tiles_of_block<kBrute, kInst ? kInstSlots : kNoInst, kSky, kPcg>(L, sph_g, ft_g, cam_g, m,
-                                                                       work, sky, inst);
+  trace_tiles_of_block<kBrute, kInst, kSky, kPcg>(L, sph_g, ft_g, cam_g, m, work, sky, inst);
 }
 
-// The yardstick mesh_trace_instanced is timed against: the entry's first
-// design, the group's instance state and the lane's path state in
-// registers (group_instances), weyl without the sky. Nothing on a render
-// path launches it.
-__global__ void __launch_bounds__(kThreads, kInstFirstBlocks)
-mesh_trace_instanced_first_kernel(const Lanes L, const float* __restrict__ sph_g,
-                                  const float* __restrict__ ft_g, const float* __restrict__ cam_g,
-                                  const Mesh m, int* __restrict__ work, const Sky sky,
-                                  const Inst inst) {
-  trace_tiles_of_block<false, kInstFirst, false, false>(L, sph_g, ft_g, cam_g, m, work, sky, inst);
-}
-
-// The yardsticks mesh_trace_kernel<false, false> and <true, false> are timed
-// against: the first designs of the two entries (a thread per lane, its
-// own walk in the camera's scan order, or the block in lockstep over
-// staged 64-row chunks). Nothing on a render path launches them.
-template <bool kBrute>
-__global__ void __launch_bounds__(kThreads)
-mesh_trace_yardstick_kernel(const Lanes L, const float* __restrict__ sph_g,
-                            const float* __restrict__ ft_g, const float* __restrict__ cam_g,
-                            const Mesh m) {
-  __shared__ float sph[kMaxPrims * kSphCols];
-  __shared__ float ft[kMaxPrims * kFtCols];
-  __shared__ float cam[kCamLen];
-  __shared__ float4 s_tri[kBrute ? kBruteChunk * 3 : 1];
-  __shared__ int s_gid[kBrute ? kBruteChunk : 1];
-  stage_scene(sph, sph_g, L.n_sph, ft, ft_g, L.n_ft, cam, cam_g);
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  // threads past n stay in the block's loop (the brute route stages with
-  // every thread) but never trace
-  bool active = i < L.n;
-  const int xi = active ? L.xs[i] : 0, yi = active ? L.ys[i] : 0;
-  const uint32_t hpix = jenkins(static_cast<uint32_t>(xi) ^ (static_cast<uint32_t>(yi) << 16));
-  const float s_x = cam[12] * (static_cast<float>(xi) - cam[14]);
-  const float s_y = cam[13] * (static_cast<float>(yi) - cam[15]);
-  const float bdx = cam[3] + s_x * cam[9] + s_y * cam[6];
-  const float bdy = cam[4] + s_x * cam[10] + s_y * cam[7];
-  const float bdz = cam[5] + s_x * cam[11] + s_y * cam[8];
-  const float max_thres = cam[17];
-  const float inv_thres = 1.0f / max_thres;
-
-  const uint32_t samp0 = active ? static_cast<uint32_t>(L.samp[i]) : 0u;
-  uint32_t state;
-  Path p;
-  p.ray = start_sample(hpix, samp0, state, bdx, bdy, bdz, cam, L.has_lens);
-  p.lr = p.lg = p.lb = 0.f;
-  p.cir = p.cig = p.cib = p.inten = 1.f;
-  p.depth = 0;
-  int sk = 0;
-
-  const int n_iter = L.max_bounces * L.spl;
-  for (int it = 0; it < n_iter; ++it) {
-    if (kBrute) {
-      if (!__syncthreads_or(active)) break;
-    } else if (!active) {
-      break;
-    }
-    float t_best = kInf;
-    int kind = 0, best = 0;
-    if (active) closest_sph_ft(p.ray, sph, L.n_sph, ft, L.n_ft, t_best, kind, best);
-    float tm = t_best, bu = 0.f, bv = 0.f;
-    int mgid = -1;
-    if (kBrute) {
-      brute(m, p.ray, active, s_tri, s_gid, tm, mgid, bu, bv);
-    } else {
-      walk(m, p.ray, kEps, tm, mgid, bu, bv);
-    }
-    if (!active) continue;
-
-    const float u0 = next_f32(state);
-    const float u1 = next_f32(state);
-    const float u2 = next_f32(state);
-    const float u3 = next_f32(state);
-    const float u4 = next_f32(state);
-    const float u5 = next_f32(state);
-    const float u6 = next_f32(state);
-    const float u7 = next_f32(state);
-
-    bool survive = false;
-    if (mgid >= 0) {
-      survive = shade_mesh(p, m, mgid, tm, bu, bv, u0, u1, u2, u4, u5, u6, u7, L.assured,
-                           max_thres, inv_thres);
-    } else if (kind != 0) {
-      survive = shade_sph_ft(p, sph, ft, kind, best, t_best, u0, u1, u2, u3, u7, L.assured,
-                             max_thres, inv_thres);
-    }
-
-    if (L.spl > 1) {
-      const bool alive = survive && p.depth < L.max_bounces;
-      const bool regen = !alive && sk + 1 < L.spl;
-      if (regen) {
-        ++sk;
-        p.ray = start_sample(hpix, samp0 + static_cast<uint32_t>(sk), state, bdx, bdy, bdz, cam,
-                             L.has_lens);
-        p.cir = p.cig = p.cib = p.inten = 1.f;
-        p.depth = 0;
-      }
-      active = alive || regen;
-    } else {
-      active = survive;
-    }
-  }
-
-  if (i < L.n) {
-    L.out[0 * L.n + i] = p.lr;
-    L.out[1 * L.n + i] = p.lg;
-    L.out[2 * L.n + i] = p.lb;
-  }
-}
-
-enum TraceEntry {
-  kEntryWalk,
-  kEntryBrute,
-  kEntryInstanced,
-  kEntryPerThread,
-  kEntryLockstep,
-  kEntryInstancedFirst
-};
+enum TraceEntry { kEntryWalk, kEntryBrute, kEntryInstanced };
 
 // A CUDA error as the C interface's return code; the sticky "last error"
 // is cleared so that it is not reported again by a later launch.
@@ -1349,10 +1075,9 @@ int fail(cudaError_t e) {
   return static_cast<int>(e);
 }
 
-// One persistent launch of `kernel` (a mesh_trace_kernel instantiation or
-// mesh_trace_instanced_first_kernel) with `threads` threads a block: as many
-// blocks as the SMs hold with `smem` bytes of dynamic shared memory, at
-// most one a 32-lane tile.
+// One persistent launch of `kernel` (a mesh_trace_kernel instantiation)
+// with `threads` threads a block: as many blocks as the SMs hold with
+// `smem` bytes of dynamic shared memory, at most one a 32-lane tile.
 template <typename Kernel>
 int launch_persistent(Kernel kernel, int threads, const Lanes& L, const float* sph,
                       const float* ft, const float* cam, const Mesh& m, int* work, size_t smem,
@@ -1389,29 +1114,23 @@ int launch_route(const Lanes& L, const float* sph, const float* ft, const float*
                                  ft, cam, m, work, smem, s, sky, inst);
 }
 
-// sky.face nullptr: the entries without the cube map; else the route
-// entries' sky instantiations; pcg: the route entries' pcg instantiations
-// (the yardsticks take neither); inst: the instanced entries' tables
-// (refused when missing)
+// sky.face nullptr: the entries without the cube map; else their sky
+// instantiations; pcg: their pcg instantiations; inst: the instanced
+// entry's tables (refused when missing)
 int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float* ft,
                  const float* cam, const Mesh& m, int* work, void* stream, const Sky& sky,
                  bool pcg, const Inst& inst) {
   if (L.n <= 0) return 0;
-  const bool with_sky = sky.face != nullptr;
-  const bool route = entry == kEntryWalk || entry == kEntryBrute || entry == kEntryInstanced;
-  const bool instanced = entry == kEntryInstanced || entry == kEntryInstancedFirst;
   const Mesh& a = inst.asset;
-  if (L.n_sph > kMaxPrims || L.n_ft > kMaxPrims || m.n_brute % kBruteChunk ||
-      (work == nullptr && (route || instanced)) || (pcg && !route) ||
-      (with_sky && (sky.pool == nullptr || sky.len < 1 || !route)) ||
-      (instanced &&
+  if (L.n_sph > kMaxPrims || L.n_ft > kMaxPrims || m.n_brute % kBruteChunk || work == nullptr ||
+      (sky.face != nullptr && (sky.pool == nullptr || sky.len < 1)) ||
+      (entry == kEntryInstanced &&
        (inst.rows == nullptr || inst.n < 1 || a.sgbounds == nullptr || a.sbounds == nullptr ||
         a.bounds == nullptr || a.count == nullptr || a.tri == nullptr || a.gid == nullptr ||
         a.n_sg < 1 || a.width < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (L.n + kThreads - 1) / kThreads;
   const size_t brute_smem = static_cast<size_t>(m.n_brute) * 3 * sizeof(float4);
   const size_t inst_smem = kThreads / kTraceGroup * sizeof(InstSlot) +
                            static_cast<size_t>(kStashFields) * kThreads * sizeof(float);
@@ -1429,17 +1148,8 @@ int launch_trace(TraceEntry entry, const Lanes& L, const float* sph, const float
                                                    inst)
                  : launch_route<false, true, false>(L, sph, ft, cam, m, work, inst_smem, s, sky,
                                                     inst);
-    case kEntryInstancedFirst:
-      return launch_persistent(mesh_trace_instanced_first_kernel, kThreads, L, sph, ft, cam, m,
-                               work, 0, s, sky, inst);
-    case kEntryPerThread:
-      mesh_trace_yardstick_kernel<false><<<blocks, kThreads, 0, s>>>(L, sph, ft, cam, m);
-      break;
-    case kEntryLockstep:
-      mesh_trace_yardstick_kernel<true><<<blocks, kThreads, 0, s>>>(L, sph, ft, cam, m);
-      break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---- mesh_hit: the integrator's nearest mesh hit, a group walk per ray ----
@@ -1476,73 +1186,32 @@ mesh_hit_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   }
 }
 
-// The yardstick mesh_hit_kernel is timed against: one thread per ray runs
-// the per-thread `walk` in the camera's scan order (the first design of
-// this entry). Nothing on a render path launches it.
-__global__ void __launch_bounds__(kThreads)
-mesh_hit_per_thread_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
-                           const float* __restrict__ oz, const float* __restrict__ dx,
-                           const float* __restrict__ dy, const float* __restrict__ dz,
-                           const float* __restrict__ seed, int n, float t_min, const Mesh m,
-                           float* __restrict__ t_out, int* __restrict__ gid_out,
-                           float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
-  float tt = seed[i], bu = 0.f, bv = 0.f;
-  int gid = -1;
-  walk(m, r, t_min, tt, gid, bu, bv);
-  t_out[i] = tt;
-  gid_out[i] = gid;
-  u_out[i] = bu;
-  v_out[i] = bv;
-}
+}  // namespace
 
-template <typename HitKernel>
-int launch_hit(HitKernel kernel, int threads_per_ray, const float* ox, const float* oy,
-               const float* oz, const float* dx, const float* dy, const float* dz,
-               const float* seed, int n, float t_min, const float* sgbounds,
-               const float* sbounds, const float* bounds, const int* count, const float* tri,
-               const int* gid, int n_sg, int width, float* t_out, int* gid_out, float* u_out,
-               float* v_out, void* stream) {
+extern "C" int mesh_hit_launch(const float* ox, const float* oy, const float* oz,
+                               const float* dx, const float* dy, const float* dz,
+                               const float* seed, int n, float t_min, const float* sgbounds,
+                               const float* sbounds, const float* bounds, const int* count,
+                               const float* tri, const int* gid, int n_sg, int width,
+                               float* t_out, int* gid_out, float* u_out, float* v_out,
+                               void* stream) {
   if (n <= 0) return 0;
   const Mesh m{sgbounds, sbounds, bounds, count, reinterpret_cast<const float4*>(tri), gid,
                n_sg, width, nullptr, nullptr, 0, nullptr, nullptr, nullptr, 0, 0};
-  const long long threads = static_cast<long long>(n) * threads_per_ray;
+  const long long threads = static_cast<long long>(n) * kRayGroup;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  mesh_hit_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       ox, oy, oz, dx, dy, dz, seed, n, t_min, m, t_out, gid_out, u_out, v_out);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-#define MESH_HIT_ARGS                                                                        \
-  const float *ox, const float *oy, const float *oz, const float *dx, const float *dy,       \
-      const float *dz, const float *seed, int n, float t_min, const float *sgbounds,         \
-      const float *sbounds, const float *bounds, const int *count, const float *tri,         \
-      const int *gid, int n_sg, int width, float *t_out, int *gid_out, float *u_out,         \
-      float *v_out, void *stream
-#define MESH_HIT_PASS                                                                        \
-  ox, oy, oz, dx, dy, dz, seed, n, t_min, sgbounds, sbounds, bounds, count, tri, gid, n_sg,  \
-      width, t_out, gid_out, u_out, v_out, stream
-
-extern "C" int mesh_hit_launch(MESH_HIT_ARGS) {
-  return launch_hit(mesh_hit_kernel, kRayGroup, MESH_HIT_PASS);
-}
-
-extern "C" int mesh_hit_per_thread_launch(MESH_HIT_ARGS) {
-  return launch_hit(mesh_hit_per_thread_kernel, 1, MESH_HIT_PASS);
-}
-
-// The six mesh_trace entries share one C signature; `work` is a zeroed
-// int32 the warps of the route entries and of mesh_trace_instanced_first
-// take their tiles from (unused by the other yardsticks). The cube map's arguments are null (sky_face nullptr)
-// without one: the (6, kFaceCols) int32 face table and the sky pool of
-// sky_len elements in its dtype sky_kind; pcg != 0 asks for the pcg
-// generator. The yardsticks take neither. The last ten are the instanced
-// entries' (null and 0 for the others): the (n_inst, 24) f32 instance
-// table and the asset's walk tables (l_*, the layout of the walk's).
+// The three mesh_trace entries share one C signature; `work` is a zeroed
+// int32 their warps take their tiles from. The cube map's arguments are
+// null (sky_face nullptr) without one: the (6, kFaceCols) int32 face table
+// and the sky pool of sky_len elements in its dtype sky_kind; pcg != 0 asks
+// for the pcg generator. The last ten are the instanced entry's (null and
+// 0 for the others): the (n_inst, 24) f32 instance table and the asset's
+// walk tables (l_*, the layout of the walk's).
 #define MESH_TRACE_ARGS                                                                      \
   const int32_t *xs, const int32_t *ys, const int32_t *samp, int n, const float *sph,        \
       const float *ft, const float *cam, int n_sph, int n_ft, int has_lens, int assured,     \
@@ -1573,16 +1242,4 @@ extern "C" int mesh_trace_brute_launch(MESH_TRACE_ARGS) { return MESH_TRACE_PASS
 
 extern "C" int mesh_trace_instanced_launch(MESH_TRACE_ARGS) {
   return MESH_TRACE_PASS(kEntryInstanced);
-}
-
-extern "C" int mesh_trace_instanced_first_launch(MESH_TRACE_ARGS) {
-  return MESH_TRACE_PASS(kEntryInstancedFirst);
-}
-
-extern "C" int mesh_trace_per_thread_launch(MESH_TRACE_ARGS) {
-  return MESH_TRACE_PASS(kEntryPerThread);
-}
-
-extern "C" int mesh_trace_brute_lockstep_launch(MESH_TRACE_ARGS) {
-  return MESH_TRACE_PASS(kEntryLockstep);
 }

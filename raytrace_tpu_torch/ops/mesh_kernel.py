@@ -21,8 +21,8 @@ the sky `<entry>_sky_pcg`), whose draws are the reference's generator
 pend protocol, the lane queue, fast2 and the `RTPU_*` knobs are not
 ported (ROADMAP, "Not to port").
 
-The mesh nearest hit has two routes, each its own CUDA entry point in
-`csrc/mesh_kernel.cu`; in both a path stays with its thread and the
+The mesh nearest hit has three routes, each its own CUDA entry point in
+`csrc/mesh_kernel.cu`; in each a path stays with its thread and the
 nearest hits of a warp's live rays are found by groups of its threads:
 - "walk" (`mesh_trace`, replacing the cluster walk `mesh_walk`,
   :375-479): a 3-level slab walk (supergroup, supercluster, cluster)
@@ -31,8 +31,7 @@ nearest hits of a warp's live rays are found by groups of its threads:
 - "brute" (`mesh_trace_brute`, replacing `woop.mxu_mesh_hit`,
   woop.py:268): every triangle of the brute table, in f32
   Moller-Trumbore, ties to the least row, the table resident in shared
-  memory. MeshTables takes it for meshes of at most MAX_BRUTE_TRIS
-  triangles;
+  memory;
 - "instanced" (`mesh_trace_instanced`, replacing bounce_tiles'
   two-level instancing, `inst_body` :500-544): for a scene of n_inst
   copies of one asset (models/scene.py builds the instance table and the
@@ -45,20 +44,12 @@ nearest hits of a warp's live rays are found by groups of its threads:
   earlier instance across instances (the kernel visits the reached
   instances nearest entry first and keeps that result). Brute and instanced exclude each
   other, as in the JAX package: route "brute" on an instanced scene takes
-  the flattened brute table. MeshTables takes it for every instanced
-  scene when INSTANCED_ROUTE is set; its first design,
-  `mesh_trace_instanced_first`, is chip_smoke.py's yardstick.
+  the flattened brute table.
 
-The gate, MAX_BRUTE_TRIS, is measured on the card, not copied from the
-JAX package's 2,560 (woop.MAX_TRIS, where the MXU made the brute pass
-cheap): `chip_smoke.py` times both routes on the whole 1216x608 frame at
-16 samples per lane over cuts of the procedural surface (256, 512, 1,024,
-2,097 and 2,560 triangles, a380 camera). On an NVIDIA H100 80GB HBM3 at
-700 W the walk was faster at every cut, 9.6 ms against 11.1 at 256
-triangles and 30.7 against 164.1 at 2,097 (PERF.md): an FP32 brute
-pass tests all 2,112 rows of that table at every lane-bounce, and even
-its bound (85 ms at 2,097 triangles) is above the walk's time. So the gate is 0 and every mesh takes the walk; the brute route
-stays an entry point that a caller can ask for by `route="brute"`.
+`MeshTables.route` is "instanced" for an instanced scene and "walk" for
+any other: the walk beat the brute route on every mesh measured on the
+H100 (PERF.md §6). `route="brute"` is the port of `mxu_mesh_hit`, taken
+only when a caller asks for it.
 
 Draws: 8 uniforms per bounce for EVERY lane of a mesh scene, u0..u7
 (integrator.py:862-869). Mesh hits use u0 (lobe), u1 u2 (diffuse),
@@ -92,28 +83,12 @@ from .texture import pool_tensor, sample_nearest, take
 from .trace_kernel import (CAM_LEN, FT_COLS, MAX_PRIMS, SPH_COLS, launch_key, make_cam_vec,
                            pack_scene_tables)
 
-MAX_BRUTE_TRIS = 0  # brute route up to this many triangles: none (see the docstring)
-# Instanced scenes take the per-instance walk when set: it measured faster
-# than the flattened walk on both fleets (procedural.fleet_scheme, 1216x608,
-# 16 spl; scripts/torch_instanced_variants.py --large on an NVIDIA H100 80GB
-# HBM3, 700.00 W, in turns; chip_smoke.py phase 13 times the same three):
-# the fleet 113.611 ms a launch, against 130.844 for its first design
-# (mesh_trace_instanced_first) and 117.622 for the walk; the large fleet
-# (FLEET_LARGE_ROWS, flattened tables 64 MB, over the L2) 145.016, 170.025
-# and 246.002. The asset's size sets no limit.
-INSTANCED_ROUTE = True
 GROUP = 16  # clusters per supercluster
 SGROUP = 8  # superclusters per supergroup
 TRI_COLS = 12  # v0 xyz | e1 xyz | e2 xyz | 3 zero: three float4 loads a triangle
 BRUTE_CHUNK = 64  # the brute table's rows are padded to a multiple of this
 ROUTES = {"walk": "mesh_trace", "brute": "mesh_trace_brute", "instanced": "mesh_trace_instanced"}
 INST_COLS = 24  # the instance table's row: A (9) | T (3) | world AABB lo, hi (6) | gid base | 0
-# the first design of each route's entry, kept as the yardstick chip_smoke.py
-# times it against (a thread walks its own ray in the camera's scan order;
-# the block stages 64-row chunks in lockstep; the group's instance state and
-# the lane's path state in registers); no render launches them
-YARDSTICKS = {"walk": "mesh_trace_per_thread", "brute": "mesh_trace_brute_lockstep",
-              "instanced": "mesh_trace_instanced_first"}
 _NOHIT_LO, _NOHIT_HI = 3.0e38, -3.0e38  # inverted AABB of padding clusters (the
 # JAX layout; the slab test does not retire it, the walks skip count-0 clusters)
 
@@ -122,9 +97,7 @@ LAUNCHES = {"mesh_trace": 0, "mesh_trace_brute": 0, "mesh_trace_sky": 0,
             "mesh_trace_brute_sky": 0, "mesh_trace_pcg": 0, "mesh_trace_brute_pcg": 0,
             "mesh_trace_sky_pcg": 0, "mesh_trace_brute_sky_pcg": 0, "mesh_trace_instanced": 0,
             "mesh_trace_instanced_sky": 0, "mesh_trace_instanced_pcg": 0,
-            "mesh_trace_instanced_sky_pcg": 0, "mesh_hit": 0, "mesh_hit_per_thread": 0,
-            "mesh_trace_per_thread": 0, "mesh_trace_brute_lockstep": 0,
-            "mesh_trace_instanced_first": 0}
+            "mesh_trace_instanced_sky_pcg": 0, "mesh_hit": 0}
 
 
 # --- host-side packing -----------------------------------------------------
@@ -253,8 +226,7 @@ class MeshTables(nn.Module):
     of the asset's local clusters, packed in the camera's order as seen
     from instance 0's frame (None otherwise); the flattened tables stay
     beside them. `route` is the nearest-hit route the scene takes:
-    instanced for an instanced scene (INSTANCED_ROUTE), else brute up to
-    MAX_BRUTE_TRIS triangles and the walk above."""
+    instanced for an instanced scene, else the walk."""
 
     def __init__(self, scene, cam, max_thres: float):
         super().__init__()
@@ -286,8 +258,7 @@ class MeshTables(nn.Module):
         self.n_ft = int(scene.n_free_tris)
         self.n_tris = int(scene.n_mesh_tris)
         self.has_lens = cam.lens_r is not None
-        self.route = ("instanced" if self.n_inst and INSTANCED_ROUTE
-                      else "brute" if self.n_tris <= MAX_BRUTE_TRIS else "walk")
+        self.route = "instanced" if self.n_inst else "walk"
 
 
 # --- the plain torch version -----------------------------------------------
@@ -360,10 +331,9 @@ def mesh_hit_walk(o, d, t_seed, tables, t_min: float = EPS):
     applied after the triangle test (EPS, which the test implies, or the
     cpu semantics' 20*EPS). Returns (t, gid (int64, -1 where no triangle
     beat t_seed), u, v), exact-t ties to the least scan position. The
-    kernels prune by a running best instead of t_seed: `mesh_trace`'s
-    thread walks in the camera's scan order, `mesh_hit`'s thread group
-    visits each level's reached boxes nearest slab entry first, in the
-    ray's own order. Any box that can hold the nearest hit has its entry
+    kernels prune by a running best instead of t_seed: a ray's thread
+    group visits each level's reached boxes nearest slab entry first, in
+    the ray's own order. Any box that can hold the nearest hit has its entry
     at or below it (see `walk_work`), so both find the same nearest hit
     except where an exact-t tie straddles a box whose entry equals the
     running best."""
@@ -779,7 +749,7 @@ def _asset_args(tables, dev, instanced: bool):
 
 
 def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_lane,
-            sky=None, generator="weyl", entry=None):
+            sky=None, generator="weyl"):
     from ..kernels import build
 
     dev = xs.device
@@ -801,7 +771,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
     if generator not in rng.GENERATORS:
         raise ValueError(f"generator must be one of {rng.GENERATORS}, not {generator!r}")
 
-    entry = entry or ROUTES[route]
+    entry = ROUTES[route]
     sky_args = cubemap.launch_args(sky, dev)
     asset_args = _asset_args(tables, dev, route == "instanced")
     lib = build.build("mesh_kernel").lib
@@ -817,10 +787,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
     xs_c, ys_c, samp_c = xs.contiguous(), ys.contiguous(), samp.contiguous()
     n = xs_c.numel()
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    # the persistent entries' warps (the routes' and the instanced yardstick's)
-    # take their 32-lane tiles from this counter
-    persistent = entry in ROUTES.values() or entry == YARDSTICKS["instanced"]
-    work = torch.zeros(1, dtype=torch.int32, device=dev) if persistent else None
+    work = torch.zeros(1, dtype=torch.int32, device=dev)  # the warps take their tiles from it
     tb = tables
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -833,7 +800,7 @@ def _launch(xs, ys, samp, tables, *, route, assured, max_bounces, samples_per_la
                 tb.btri.data_ptr(), tb.bgid.data_ptr(), tb.btri.shape[0],
                 tb.attr.data_ptr(), tb.desc.data_ptr(), tb.pool.data_ptr(),
                 tb.pool_kind, tb.pool.numel(),
-                out.data_ptr(), None if work is None else work.data_ptr(), stream, *sky_args,
+                out.data_ptr(), work.data_ptr(), stream, *sky_args,
                 int(generator == "pcg"), *asset_args)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
@@ -846,13 +813,12 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
                generator: str = "weyl"):
     """xs, ys, samp: int32 lane tensors of any shape; tables: a
     MeshTables on the same device; route "walk", "brute" or "instanced"
-    (a scene with instancing tables only), by default tables.route
-    (INSTANCED_ROUTE and the MAX_BRUTE_TRIS gate; the tests and
-    chip_smoke.py pass every route on one scene). Lane i covers sample ids samp[i] ..
-    samp[i] + samples_per_lane - 1, its draws from `generator` ("weyl" or
-    "pcg"). Returns the radiance sum (r, g, b):
-    3 f32 tensors shaped like xs, with the sky's terms where tables.sky
-    is set.
+    (a scene with instancing tables only), by default tables.route (the
+    tests and chip_smoke.py pass every route on one scene). Lane i covers
+    sample ids samp[i] .. samp[i] + samples_per_lane - 1, its draws from
+    `generator` ("weyl" or "pcg"). Returns the radiance sum (r, g, b): 3
+    f32 tensors shaped like xs, with the sky's terms where tables.sky is
+    set.
 
     CPU tensors run `mesh_trace_reference`; CUDA tensors launch the CUDA
     kernel's entry point of the route or raise (the brute entry, for
@@ -871,22 +837,10 @@ def mesh_trace(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: i
     raise ValueError(f"mesh_trace runs on cpu or cuda tensors, not {xs.device}")
 
 
-def _mesh_trace_yardstick(xs, ys, samp, tables: MeshTables, *, assured: int, max_bounces: int,
-                          samples_per_lane: int = 1, route: str | None = None):
-    """`mesh_trace` by the route's yardstick entry (YARDSTICKS): the first
-    design, which chip_smoke.py times the kernel against, without the
-    cube map, `weyl` only. CUDA tensors only."""
-    if xs.device.type != "cuda":
-        raise ValueError(f"the mesh_trace yardsticks run on cuda tensors, not {xs.device}")
-    route = tables.route if route is None else route
-    return _launch(xs, ys, samp, tables, route=route, assured=assured, max_bounces=max_bounces,
-                   samples_per_lane=samples_per_lane, entry=YARDSTICKS[route])
-
-
 # --- the nearest hit alone: the integrator's mesh intersection -------------
 
 
-def _launch_hit(o, d, t_seed, tables, t_min, entry="mesh_hit", gid_out=None):
+def _launch_hit(o, d, t_seed, tables, t_min, gid_out=None):
     from ..kernels import build
 
     dev = t_seed.device
@@ -897,7 +851,7 @@ def _launch_hit(o, d, t_seed, tables, t_min, entry="mesh_hit", gid_out=None):
             raise ValueError(f"{name} must be ({n},) float32 on {dev}")
     _check_walk(tables, dev)
 
-    fn = getattr(build.build("mesh_kernel").lib, f"{entry}_launch")
+    fn = build.build("mesh_kernel").lib.mesh_hit_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float]
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
@@ -916,8 +870,8 @@ def _launch_hit(o, d, t_seed, tables, t_min, entry="mesh_hit", gid_out=None):
                 tb.sgbounds.shape[0], tb.tri.shape[1],
                 t_out.data_ptr(), gid_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[entry] += 1
+        raise RuntimeError(f"mesh_hit kernel launch failed: CUDA error {rc}")
+    LAUNCHES["mesh_hit"] += 1
     return t_out, gid_out, u_out, v_out
 
 
@@ -942,12 +896,3 @@ def mesh_hit(o, d, t_seed, tables: MeshTables, *, t_min: float, gid_out=None):
         gid = gid.to(torch.int32) if gid_out is None else gid_out.copy_(gid)
         return t, gid, u, v
     raise ValueError(f"mesh_hit runs on cpu or cuda tensors, not {t_seed.device}")
-
-
-def _mesh_hit_per_thread(o, d, t_seed, tables: MeshTables, *, t_min: float):
-    """`mesh_hit` by the entry `mesh_hit_per_thread` of csrc/mesh_kernel.cu
-    (one thread per ray, the camera's scan order): the yardstick that
-    chip_smoke.py times the kernel against. CUDA tensors only."""
-    if t_seed.device.type != "cuda":
-        raise ValueError(f"the per-thread mesh_hit runs on cuda tensors, not {t_seed.device}")
-    return _launch_hit(o, d, t_seed, tables, float(np.float32(t_min)), "mesh_hit_per_thread")

@@ -21,9 +21,6 @@ per lane).
   given a cube map (counted as `trace_tiles_sky` in LAUNCHES) and its pcg
   instantiation for generator="pcg" (`trace_tiles_pcg`, with the sky
   `trace_tiles_sky_pcg`).
-  `_trace_tiles_per_thread` launches the kernel's
-  first design, the yardstick `chip_smoke.py` times it against; no
-  render launches it.
 - On a CPU tensor, it runs `trace_tiles_reference`, the plain torch
   version of the same function, which the CPU tests hold against the
   JAX kernel and `chip_smoke.py` holds the CUDA kernel against.
@@ -50,7 +47,7 @@ from .intersect import EPS, closest_sph_ft, sphere_disc
 MAX_PRIMS = 64  # per kind; the kernel keeps both tables in shared memory
 SPH_COLS, FT_COLS, CAM_LEN, N_OUT = 15, 23, 18, 9
 
-# launches of the CUDA kernel's render entries in this process (read by chip_smoke.py)
+# launches of the CUDA kernel's instantiations in this process (read by chip_smoke.py)
 LAUNCHES = {"trace_tiles": 0, "trace_tiles_sky": 0, "trace_tiles_pcg": 0,
             "trace_tiles_sky_pcg": 0}
 
@@ -305,8 +302,7 @@ def trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, *,
 # --- the dispatcher --------------------------------------------------------
 
 def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens,
-            assured, max_bounces, samples_per_lane, sky=None, generator="weyl",
-            entry="trace_tiles"):
+            assured, max_bounces, samples_per_lane, sky=None, generator="weyl"):
     from ..kernels import build
 
     dev = xs.device
@@ -328,8 +324,7 @@ def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens
         raise ValueError(f"generator must be one of {rng.GENERATORS}, not {generator!r}")
     sky_args = cubemap.launch_args(sky, dev)
 
-    lib = build.build("trace_kernel").lib
-    fn = getattr(lib, f"{entry}_launch")
+    fn = build.build("trace_kernel").lib.trace_tiles_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + \
         [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + cubemap.ARGTYPES + [ctypes.c_int]
@@ -345,10 +340,8 @@ def _launch(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph, n_ft, has_lens
                 n_sph, n_ft, int(has_lens), assured, max_bounces,
                 samples_per_lane, out.data_ptr(), stream, *sky_args, int(generator == "pcg"))
     if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    key = launch_key(entry, sky, generator)
-    if key in LAUNCHES:
-        LAUNCHES[key] += 1
+        raise RuntimeError(f"trace_tiles kernel launch failed: CUDA error {rc}")
+    LAUNCHES[launch_key("trace_tiles", sky, generator)] += 1
     return tuple(out[k].view(xs.shape) for k in range(N_OUT))
 
 
@@ -375,19 +368,3 @@ def trace_tiles(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph: int, n_ft:
     if xs.device.type == "cpu":
         return trace_tiles_reference(xs, ys, samp, sph_table, ft_table, cam_vec, **kw)
     raise ValueError(f"trace_tiles runs on cpu or cuda tensors, not {xs.device}")
-
-
-def _trace_tiles_per_thread(xs, ys, samp, sph_table, ft_table, cam_vec, *, n_sph: int,
-                            n_ft: int, has_lens: bool, assured: int, max_bounces: int,
-                            samples_per_lane: int = 1):
-    """`trace_tiles` by the entry `trace_tiles_per_thread` of
-    csrc/trace_kernel.cu (a thread per lane, the first design, without the
-    cube map, `weyl` only): the yardstick chip_smoke.py times the kernel against. CUDA
-    tensors only."""
-    if xs.device.type != "cuda":
-        raise ValueError(f"the per-thread trace_tiles runs on cuda tensors, not {xs.device}")
-    if n_sph > MAX_PRIMS or n_ft > MAX_PRIMS:
-        raise NotImplementedError(f"trace_tiles takes <= {MAX_PRIMS} spheres and free triangles")
-    return _launch(xs, ys, samp, sph_table, ft_table, cam_vec, n_sph=n_sph, n_ft=n_ft,
-                   has_lens=has_lens, assured=assured, max_bounces=max_bounces,
-                   samples_per_lane=samples_per_lane, entry="trace_tiles_per_thread")

@@ -194,9 +194,9 @@ class Lanes:
 
     def _torch_iteration(self):
         """The iteration with the bounce in torch (`_bounce_step`, an
-        operation a launch), cap and retire as torch operations: on the
-        card, the yardstick that chip_smoke.py times the bounce's kernels
-        against. No render takes it."""
+        operation a launch), cap and retire as torch operations: the
+        reference the tests hold `_iteration`, the bounce's kernels, against.
+        No render takes it."""
         st, where = self.st, torch.where
         was_active = st["active"]  # overwritten last, by _assign
         new = _bounce_step(self.scene, self.params, st)
@@ -307,9 +307,8 @@ class Lanes:
 
     def _run_eager(self, sample_base: int) -> torch.Tensor:
         """`run` by the eager loop on any device: on the card, the
-        yardstick that chip_smoke.py times the graph against (with
-        `_torch_iteration` in `_iteration`'s place at a capture, the other:
-        the bounce in torch)."""
+        reference the tests and chip_smoke.py hold the graph's replays
+        against, bitwise."""
         return self._loop(self._step, sample_base)
 
     def stats(self) -> dict:

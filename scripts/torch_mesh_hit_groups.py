@@ -10,8 +10,8 @@ package's flags, all at once), prints ptxas's registers and spills for
 each, holds each against `mesh_hit_walk` on chip_smoke.py's two pools (a
 131,072-ray pool cut from the a380-class frame's primary and secondary
 rays, and the in-render pool of the cpu-semantics render(16)'s 20th
-mesh_hit launch), and times them with CUDA events in turns per-thread, 8,
-16, 32, 32, 16, 8, per-thread, with the card's name and power limit.
+mesh_hit launch), and times them with CUDA events in turns 8, 16, 32, 32,
+16, 8, with the card's name and power limit.
 Needs a CUDA card and nvcc; prints no result without them.
 """
 import ctypes
@@ -94,19 +94,13 @@ def main() -> int:
             return mk.mesh_hit(*args, **kw)
         return run
 
-    def per_thread(*args, **kw):
-        build._LOADED["mesh_kernel"] = loaded
-        return mk._mesh_hit_per_thread(*args, **kw)
-
     try:
         for label, (ro, rd, rs, t_min, tables) in pools.items():
             ref = mk.mesh_hit_walk(ro, rd, rs, tables, t_min=t_min)
             for g in GROUPS:
                 cs.hit_parity(f"{label} G={g}", with_group(g)(ro, rd, rs, tables, t_min=t_min),
                               ref, rs, t_min)
-            turns = ([("per-thread", per_thread, 20)]
-                     + [(f"G={g}", with_group(g), 20) for g in GROUPS + GROUPS[::-1]]
-                     + [("per-thread", per_thread, 20)])
+            turns = [(f"G={g}", with_group(g), 20) for g in GROUPS + GROUPS[::-1]]
             ms = cs.time_hit_turns(label, (ro, rd, rs, t_min, tables), card, turns)
             print(f"[groups] {label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
                   + f" per launch [{card}]", flush=True)

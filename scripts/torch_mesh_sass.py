@@ -8,9 +8,9 @@ flags and, with --against, DIR's copy of it with the same flags (into
 `_build/against/`), both at once, and prints for every kernel of the file
 its SASS instructions (cuobjdump) and ptxas's registers side by side:
 each `mesh_trace_kernel` instantiation by its template arguments (kBrute,
-kInst, kSky, kPcg; a source without kInst counts as kInst false), the
-yardsticks (`mesh_trace_instanced_first_kernel` among them) and
-`mesh_hit_kernel`. A template argument added to a kernel
+kInst, kSky, kPcg; a source without kInst counts as kInst false) and
+`mesh_hit_kernel` (another checkout's other kernels by their mangled
+names). A template argument added to a kernel
 keeps its other instantiations' code when their counts and registers do
 not move. --spills also builds the source with -lineinfo and prints each
 local-memory store and load (STL / LDL) of mesh_trace_instanced's weyl
@@ -29,9 +29,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL = re.compile(r"\d+(mesh_trace_kernel|mesh_trace_yardstick_kernel|mesh_hit_kernel|"
-                    r"mesh_hit_per_thread_kernel|mesh_trace_instanced_first_kernel)"
-                    r"(?:I((?:Lb[01]E)+)E)?")
+KERNEL = re.compile(r"\d+(mesh_trace_kernel|mesh_hit_kernel)(?:I((?:Lb[01]E)+)E)?")
 
 
 def label(mangled):

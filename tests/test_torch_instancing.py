@@ -167,7 +167,7 @@ def test_detection_matches_jax(five):
     assert ours.inst_cl_idx.shape[0] == 1 and sorted(ours.inst_cl_idx[0, :8]) == list(range(8))
     t = _tables(ours, five[3])
     assert t.n_inst == 5 and t.inst.shape == (5, 24) and t.asset is not None
-    assert t.route == ("instanced" if mk.INSTANCED_ROUTE else "walk")
+    assert t.route == "instanced"
 
 
 def _moved_asset(i):
@@ -301,15 +301,15 @@ def test_image_matches_jax_fused_instanced(five):
 
 
 def test_renderer_routes_and_resume(five, tmp_path):
-    """The Renderer on the instanced route (MeshTables.route when
-    INSTANCED_ROUTE is set, else asked for): its image passes the tile
-    gate against the walk's, and a checkpoint resume is bitwise."""
+    """The Renderer on the instanced route (MeshTables.route): its image
+    passes the tile gate against the walk's, and a checkpoint resume is
+    bitwise."""
     _, _, scene, ps = five
 
     def renderer(route):
         r = Renderer(ps, device="cpu", samples_per_launch=2, scene=scene)
         assert r.driver == "mesh_fused"
-        assert r.tables.route == ("instanced" if mk.INSTANCED_ROUTE else "walk")
+        assert r.tables.route == "instanced"
         r.tables.route = route
         return r
 
@@ -478,20 +478,25 @@ def test_asset_args(five):
 
 
 @pytest.mark.parametrize("case", ["instanced-on", "instanced-off", "flattened"])
-def test_instanced_route_gate(five, monkeypatch, case):
-    """MeshTables.route: an instanced scene takes the instanced route
-    exactly when INSTANCED_ROUTE is set, whatever the size of its asset,
-    and the walk otherwise; a scene without instancing tables takes the
-    walk, and route="instanced" on it raises a ValueError. mesh_trace's
-    default route is MeshTables.route."""
+def test_instanced_route_gate(five, case):
+    """MeshTables.route: an instanced scene takes the instanced route,
+    whatever the size of its asset; a scene without instancing tables
+    takes the walk, and route="instanced" on it raises a ValueError.
+    mesh_trace's default route is MeshTables.route; route="walk" on the
+    instanced scene ("instanced-off") walks its flattened tables, bitwise
+    the scene without instancing tables."""
     _, _, scene, ps = five
-    monkeypatch.setattr(mk, "INSTANCED_ROUTE", case != "instanced-off")
     t = _tables(_flattened(scene) if case == "flattened" else scene, ps)
-    assert t.route == ("instanced" if case == "instanced-on" else "walk")
+    assert t.route == ("walk" if case == "flattened" else "instanced")
     xs = torch.arange(64, dtype=torch.int32) % W
     kw = dict(assured=3, max_bounces=3)
-    out = mk.mesh_trace(xs, xs // 2, xs, t, **kw)
-    for a, b in zip(out, mk.mesh_trace(xs, xs // 2, xs, t, route=t.route, **kw), strict=True):
+    if case == "instanced-off":
+        out = mk.mesh_trace(xs, xs // 2, xs, t, route="walk", **kw)
+        ref = mk.mesh_trace(xs, xs // 2, xs, _tables(_flattened(scene), ps), **kw)
+    else:
+        out = mk.mesh_trace(xs, xs // 2, xs, t, **kw)
+        ref = mk.mesh_trace(xs, xs // 2, xs, t, route=t.route, **kw)
+    for a, b in zip(out, ref, strict=True):
         assert torch.equal(a, b)
     if case == "flattened":
         with pytest.raises(ValueError, match="instancing tables"):

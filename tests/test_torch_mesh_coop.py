@@ -15,7 +15,7 @@ from a numpy seed:
   reduction, for G = 8, 16 and 32, equals `mesh_hit_brute` bitwise;
 - `mesh_trace_reference` gives the same radiance on both routes on the
   octahedra and the 2,097-triangle surface, where no tie is planted;
-- `MeshTables.route` follows the brute / walk gate, MAX_BRUTE_TRIS."""
+- `MeshTables.route` is the walk for any mesh (a scene without instancing)."""
 from types import SimpleNamespace
 
 import numpy as np
@@ -269,17 +269,15 @@ def _surface_tables(n, w=32, h=16):
 
 @pytest.mark.parametrize("extra", [0, 1], ids=["at-the-gate", "past-the-gate"])
 def test_route_at_the_gate(extra):
-    """A mesh of MAX_BRUTE_TRIS triangles takes the brute route, one more
-    triangle the walk. At a gate of 0 (the H100's) no mesh takes the brute
-    route: there is no mesh of 0 triangles, and MeshTables refuses a scene
-    without one."""
-    n = mk.MAX_BRUTE_TRIS + extra
-    if n == 0:
+    """No mesh takes the brute route unasked: MeshTables refuses a scene
+    without a mesh (0 triangles), and any mesh, down to 1 triangle, takes
+    the walk."""
+    if extra == 0:
         with pytest.raises(ValueError, match="needs a scene with a mesh"):
             _surface_tables(0)
         return
-    _, tables = _surface_tables(n)
-    assert tables.route == ("brute" if extra == 0 else "walk")
+    _, tables = _surface_tables(extra)
+    assert tables.route == "walk"
 
 
 @pytest.mark.parametrize("name", ["octahedra", "surface-2097"])

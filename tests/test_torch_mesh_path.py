@@ -82,10 +82,10 @@ def test_octahedra_path_matches_jax(octahedra, route, spl, n, base):
 @pytest.mark.parametrize("route", ["brute", "walk"])
 def test_surface_path_matches_jax(route):
     """The 2,097-triangle surface, both routes: the JAX package's brute
-    route (under its gate, woop.MAX_TRIS), the port's walk (above its
-    gate, MAX_BRUTE_TRIS, measured on the H100)."""
+    route (under its gate, woop.MAX_TRIS), the port's walk (every mesh's,
+    measured faster on the H100)."""
     jscene, scene, js, ps = surface_scene(2097, W, H)
-    assert mk.MAX_BRUTE_TRIS < jscene.n_mesh_tris <= JAX_MAX_TRIS
+    assert jscene.n_mesh_tris <= JAX_MAX_TRIS
     assert mk.MeshTables(scene, build_camera(ps.cam, W, H), 0.5).route == "walk"
     ref = _jax_ref(jscene, js, 5, 3, 4)
     out = _port(jscene, ps, route, 5, 3, 4, 4)

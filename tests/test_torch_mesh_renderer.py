@@ -45,10 +45,9 @@ def test_renderer_matches_jax_sample_batch(gltf_path):
         jnp.asarray(flat % W), jnp.asarray(flat // W), jnp.int32(0), jnp.int32(SPP)))
     r = Renderer(ps, device="cpu", samples_per_launch=3)  # launches of 3 + 1 samples
     # five octahedra of one glTF path: an instanced scene, on the instanced
-    # route when INSTANCED_ROUTE is set; else 40 triangles, over the brute
-    # route's gate (MAX_BRUTE_TRIS): the walk
+    # route
     assert isinstance(r.tables, mk.MeshTables) and r.tables.n_inst == 5
-    assert r.tables.route == ("instanced" if mk.INSTANCED_ROUTE else "walk")
+    assert r.tables.route == "instanced"
     img = r.render(samples=SPP)
     assert r.target.count == SPP and img.shape == (H, W, 3)
     assert_close(r.target.acc, ref, SPP)

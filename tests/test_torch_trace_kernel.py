@@ -157,9 +157,6 @@ def test_trace_tiles_rejects_what_it_cannot_run():
     meta = xs.to("meta")
     with pytest.raises(ValueError):
         tk.trace_tiles(meta, meta, meta, t.sph, t.ft, t.cam_vec, n_sph=13, **kw)
-    # the per-thread yardstick runs on the card only
-    with pytest.raises(ValueError):
-        tk._trace_tiles_per_thread(xs, xs, xs, t.sph, t.ft, t.cam_vec, n_sph=13, **kw)
 
 
 @pytest.mark.parametrize("name", ["walled", "mixed"])
