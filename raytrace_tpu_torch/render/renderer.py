@@ -285,7 +285,7 @@ class Renderer:
         delivered and the hook's exception re-raised before this returns.
         `progress`: a tqdm bar over the samples (when tqdm imports), its
         postfix the Mpaths/s so far. Returns the (H, W, 3) mean image (row
-        0 = bottom)."""
+        0 = bottom), a new array each call (`RenderTarget.mean_image`)."""
         info = self.scheme.render_info
         total = samples if samples is not None else info.samps_per_pix
         b = batch or (info.render_batch if update_hook is not None else None) or total
@@ -298,7 +298,7 @@ class Renderer:
 
     def _render(self, total, b, update_hook, progress, async_hook):
         """render's batches: each one `_step` (the chosen driver's batch), the
-        copy of its sums to the host, the add into the target and the hook."""
+        add of its sums into the target on the device, and the hook."""
         span = profiling.span
         self.stats = {"iterations": 0, "lane_bounces": 0}
         bar = None
@@ -322,12 +322,9 @@ class Renderer:
                         sample_base=self.target.count, n_samples=n,
                         samples_per_launch=self.samples_per_launch,
                     )
-                with span("render.copy"):  # waits for the step's kernels
-                    sums = out.cpu().numpy()
                 with span("render.add"):
-                    self.target.add(sums, n)
+                    self.target.add(out, n)
                 profiling.count("render.batches")
-                profiling.count("render.dtoh_bytes", sums.nbytes)
                 rendered += n
                 meter.add(n * n_pix)
                 if bar is not None:

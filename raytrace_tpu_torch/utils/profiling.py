@@ -19,9 +19,10 @@ context after a single flag check, and `count()` returns at once. With
   `Renderer.render`): it and every span opened while it is open, on any
   thread, carry its id;
 - `interval(name, start, end)` records a span the caller timed itself;
-- `count(name, n)` adds to a counter; `counters()` returns them with
-  the kernels' launch counts (`ops/trace_kernel.py`, `ops/mesh_kernel.py`
-  and `ops/bounce_kernel.py`'s LAUNCHES, read where they are) as
+- `count(name, n)` adds to a counter; `counters()` returns them (those
+  of FALLBACKS at 0 before their first count) with the kernels' launch
+  counts (`ops/trace_kernel.py`, `ops/mesh_kernel.py` and
+  `ops/bounce_kernel.py`'s LAUNCHES, read where they are) as
   `launches.<entry>`.
 
 Records stay in memory until `reset()`, as tuples the garbage
@@ -47,6 +48,9 @@ _ids = itertools.count()
 _local = threading.local()  # each thread's stack of open span ids, and its ident
 _calls = itertools.count()
 _call = None  # the open call's id
+# counters of fallback paths, 0 rather than missing while the recorder is on: target.syncs,
+# the render target's device sum brought to the host (render/target.py)
+FALLBACKS = ("target.syncs",)
 
 
 def enable(on: bool = True) -> None:
@@ -169,10 +173,12 @@ def count(name: str, n: int = 1) -> None:
 def counters() -> dict:
     """The counters, and each kernel entry's launches as
     `launches.<entry>` (read from the LAUNCHES dicts of ops/, which count
-    whether the recorder is on or not)."""
+    whether the recorder is on or not). While the recorder is on, the
+    counters of FALLBACKS read 0 until their first count."""
     from ..ops import bounce_kernel, mesh_kernel, trace_kernel
 
-    out = dict(_counts)
+    out = dict.fromkeys(FALLBACKS, 0) if _on else {}
+    out.update(_counts)
     for mod in (trace_kernel, mesh_kernel, bounce_kernel):
         out.update((f"launches.{k}", n) for k, n in mod.LAUNCHES.items())
     return out

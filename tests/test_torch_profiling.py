@@ -1,6 +1,6 @@
 """The span recorder (`utils/profiling.py`) on the CPU: nothing recorded
-while it is off; with it on, a render's spans (the batches' step, copy,
-add, the mean) under one call id, the wavefront's flag reads and
+while it is off; with it on, a render's spans (the batches' step and
+add, the mean and its one copy) under one call id, the wavefront's flag reads and
 launches, the scene build's phases and the Renderer's tables, the writer
 thread's hook on a stack of its own, the counters (the kernels' LAUNCHES
 read where they are), self time, the clock torch.profiler's host events
@@ -63,12 +63,15 @@ def test_render_batches_under_one_call(recorder):
     assert top.parent is None and top.attrs == dict(samples=3, batch=1, driver=r.driver)
     assert {x.call for x in recs} == {top.call}
     kids = [x.name for x in recs if x.parent == top.index]
-    assert kids == ["render.step", "render.copy", "render.add"] * 3 + ["render.mean"]
+    assert kids == ["render.step", "render.add"] * 3 + ["render.mean"]
+    mean, = _named(recs, "render.mean")
+    assert [x.name for x in mean.children] == ["render.copy"]
     assert all(top.start <= x.start <= x.end <= top.end for x in recs)
     assert recorder.span("kernels.build", name="trace_kernel").attrs == {"name": "trace_kernel"}
     c = recorder.counters()
     assert c["render.calls"] == 1 and c["render.batches"] == 3
-    assert c["render.dtoh_bytes"] == 3 * 16 * 8 * 3 * 4
+    assert c["render.dtoh_bytes"] == 16 * 8 * 3 * 4  # the mean, once
+    assert c["target.syncs"] == 0
     r.render(samples=1, progress=False)  # a new call, a new id
     assert _named(recorder.records(), "render")[1].call != top.call
 
