@@ -11,18 +11,36 @@ one): a sphere's sphere_t, its guard and the running-best compare, 24 (oc
 2, the root's compares 1 along the shorter way, the guard 1, the best 1).
 Bytes, each once: a lane-bounce reads its flag (1) and ray (24) and writes
 the hit and the mesh seed (t, kind, idx, bu, bv, seed: 32); the sphere
-columns (c, r: 16 B a sphere) once a call."""
+columns (c, r: 16 B a sphere) once a call.
+
+With direct-light sampling the launches in shadow mode, one an emitter
+(scene["dls_emitters"]), need from a live lane only its pending flag (1,
+read once); from a lane-bounce that carries a pending hit
+(work["dls_pending"]) the hit (pos, norm, self: 32) and this bounce's
+kind and idx (16), read once, and for each emitter the shadow ray, 21
+(the direction 3, its normalize 12, light_dot 5, light_dot > 0 1),
+written with its seed and flag (17); a ray that is cast
+(work["shadow_rays"]) then tests every sphere as above. The kernel forms
+a ray on every lane of the pool; the bound counts the lanes that need
+one. Without direct-light sampling each of these counts is 0 (and absent
+from a context built without them), so the bound is the plain one."""
 from benchmark import roofline, trace
 
 SPH_OPS = 24
 LANE_BYTES = 1 + 24 + 32
 SPH_BYTES = 16
+SHADOW_OPS = 3 + 12 + 5 + 1
+LIVE_FLAG_BYTES, PEND_BYTES, RAY_BYTES = 1, 32 + 16, 12 + 4 + 1
 
 
 def bound_s(work, scene):
-    lb = work["lane_bounces"]
-    return roofline.bound_s(lb * scene["n_sph"] * SPH_OPS,
-                            lb * LANE_BYTES + scene["n_sph"] * SPH_BYTES)
+    lb, n_sph = work["lane_bounces"], scene["n_sph"]
+    n_emit, pend = scene.get("dls_emitters", 0), work.get("dls_pending", 0)
+    ops = (lb * n_sph * SPH_OPS + pend * n_emit * SHADOW_OPS
+           + work.get("shadow_rays", 0) * n_sph * SPH_OPS)
+    nbytes = (lb * LANE_BYTES + n_sph * SPH_BYTES + lb * min(n_emit, 1) * LIVE_FLAG_BYTES
+              + pend * (PEND_BYTES + n_emit * RAY_BYTES))
+    return roofline.bound_s(ops, nbytes)
 
 
 def read(ctx):

@@ -1,7 +1,9 @@
 """wavefront.assign_pct: the share of the traced calls' device time in the
 wavefront's kernels other than its three hand kernels (mesh_hit,
-bounce_prims, bounce_shade) and the copies: the lane pool's torch assign.
-Nothing where no bounce kernel ran."""
+bounce_prims, bounce_shade) and the copies: the lane pool's refill, the
+lanes_assign entry's two kernels (lanes_count_kernel, lanes_assign_kernel),
+and the few torch kernels of a call (a batch's start, its image's sum, the
+target's add and mean). Nothing where no bounce kernel ran."""
 from benchmark import trace
 
 HAND = ("mesh_hit_kernel", "bounce_prims_kernel", "bounce_shade_kernel")

@@ -8,9 +8,14 @@ max_thres and adding T I / max_thres; the dielectric's weight rides in I;
 the mesh's PBR lobe. `integrator_paths`: the CPU backend's semantics as
 the integrator computes them (the wavefront and the plain driver): the
 least positive root, hits at t >= 20 EPS, L += T E at every hit, roulette
-after `assured` bounces (>) with survival 0.4. Both return the (N, 3)
-radiance of each lane's path, and with `work` add what the path's
-bounces cost to its counts (see `new_work`).
+after `assured` bounces (>) with survival 0.4, and with the scene's
+`dir_light_samp` the CPU backend's direct-light sampling (radiance.rs:89-120):
+at each diffuse hit that goes on, a shadow ray toward the centre of every
+emissive sphere but the one it stands on and the one the next ray hits,
+adding light_dot E / (30 pi) times the path's throughput where the ray
+meets that sphere first. Both return the (N, 3) radiance of each lane's
+path, and with `work` add what the path's bounces cost to its counts (see
+`new_work`).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from .geometry import EPS, inf_like, mesh_hit, sentinel, sphere_near, sphere_roo
 
 CPU_GUARD = float(np.float32(20.0 * EPS))
 CPU_RR = 0.4
+DLS_NORMZE = float(np.float32(1.0 / (30.0 * np.pi)))  # radiance.rs:90
 BRANCHES = ("miss", "diffuse", "mirror", "dielectric", "roulette", "mesh")
 
 
@@ -30,9 +36,13 @@ def new_work() -> dict:
     """Counts over lane-bounces: `lane_bounces`, `by_branch` (a miss; a
     sphere hit's lobe, or the roulette's end; a mesh hit), `near_roots`
     (sphere tests past the disc > 0 and dirv < 0 tests), `slab` and `tri`
-    (the mesh walk's tests, `walk_work`), `paths`."""
+    (the mesh walk's tests, `walk_work`, the shadow rays' among them),
+    `paths`; direct-light sampling's `dls_pending` (lane-bounces that
+    carry a pending diffuse hit, each of which a bounce before set it),
+    `shadow_rays` (rays cast, over the emitters) and `dls_hits` (those that
+    reach their emitter)."""
     return dict(lane_bounces=0, by_branch={b: 0 for b in BRANCHES}, near_roots=0, slab=0, tri=0,
-                paths=0)
+                paths=0, dls_pending=0, shadow_rays=0, dls_hits=0)
 
 
 def _where3(m, a, b):
@@ -280,9 +290,72 @@ def _refract_cpu(d, n, n_out, n_in, u):
     return _where3(do_refl, refl_d, trns), torch.where(do_refl, torch.where(tir, one, re), 1.0 - re)
 
 
+def _nearest_cpu(scene, ro, rd, live, work):
+    """The nearest hit at t >= 20 EPS: the spheres' least positive roots,
+    then the mesh's walk on the lanes `live`, seeded with that t, each
+    stage updating on strict <. Returns (t, kind, idx, bu, bv), kind 0 a
+    miss, 1 a sphere, 3 a mesh triangle; the walk's tests go to `work`."""
+    zero = torch.zeros_like(ro[0])
+    where = torch.where
+    t_best = inf_like(zero)
+    kind = torch.zeros_like(zero, dtype=torch.int64)
+    idx = torch.zeros_like(kind)
+    bu, bv = zero, zero
+    mesh = scene.mesh
+    if scene.sph_rows:
+        c = tuple(scene.sph["c"][:, k:k + 1] for k in range(3))
+        ts = sphere_roots(ro, rd, c, scene.sph["r"][:, None], "cpu")
+        ts = where(ts >= CPU_GUARD, ts, inf_like(ts))
+        tmin, amin = ts.min(dim=0)
+        better = tmin < t_best
+        t_best = where(better, tmin, t_best)
+        kind = where(better, 1, kind)
+        idx = where(better, amin, idx)
+    if mesh is not None:
+        ai = live.nonzero()[:, 0]
+        ao, ad = tuple(c[ai] for c in ro), tuple(c[ai] for c in rd)
+        tm, gm, um, vm = mesh_hit(ao, ad, t_best[ai], mesh["tables"], CPU_GUARD)
+        if work is not None:
+            w = walk_work(ao, ad, tm, mesh["tables"], CPU_GUARD)
+            work["slab"] += w["slab"]
+            work["tri"] += w["tri"]
+        won = torch.zeros_like(live).index_put((ai,), gm >= 0)
+        put = lambda full, part: full.index_put((ai,), part)
+        t_best = where(won, put(t_best, tm), t_best)
+        kind = where(won, 3, kind)
+        idx = where(won, put(idx, gm), idx)
+        bu, bv = where(won, put(bu, um), bu), where(won, put(bv, vm), bv)
+    return t_best, kind, idx, bu, bv
+
+
+def _shadow_ray(scene, pend, kind, idx, e: int, work):
+    """Direct-light sampling's shadow ray toward emitter e (a sphere
+    index) from the pending hit `pend`, given this bounce's hit (kind,
+    idx): (light_dot, ok), ok the lanes whose ray is cast and meets sphere
+    e first. The sphere that made the pending hit and the one this bounce
+    hit are left out (radiance.rs:46-52)."""
+    c = scene.sph["c"][e]
+    d_l = normalize(*(c[k] - pend["pos"][k] for k in range(3)), eps=1e-20)
+    light_dot = _dot(d_l, pend["norm"])
+    omit = (pend["self_idx"] == e) | ((kind == 1) & (idx == e))
+    cast = pend["active"] & (light_dot > 0.0) & ~omit
+    _, ks, is_, _, _ = _nearest_cpu(scene, pend["pos"], d_l, cast, work)
+    ok = cast & (ks == 1) & (is_ == e)
+    if work is not None:
+        work["shadow_rays"] += int(cast.sum())
+        work["dls_hits"] += int(ok.sum())
+    return light_dot, ok
+
+
 def integrator_paths(scene, xs, ys, samples, *, assured: int, max_bounces: int, work=None):
     """The CPU backend's paths as the integrator computes them, one
-    sample a lane (no direct-light sampling, no cube map)."""
+    sample a lane (no cube map). With `scene.dir_light_samp`, a diffuse
+    hit's shadow rays are cast one bounce later, once the sphere that the
+    next ray hits is known; their terms are added after that bounce's
+    emission, in the emitters' order. A path cut at `max_bounces` drops
+    the term still pending from its last hit, as the integrator's loop
+    does (radiance.rs recurses until the roulette ends the path, and has
+    no such cap)."""
     dt = scene.dtype
     state, ro, rd = primary(scene.cam, xs, ys, samples, dt, fused=False)
     zero = torch.zeros_like(ro[0])
@@ -293,38 +366,18 @@ def integrator_paths(scene, xs, ys, samples, *, assured: int, max_bounces: int, 
     mesh = scene.mesh
     S = len(scene.sph_rows)
     where = torch.where
+    dls = scene.dir_light_samp
+    # the pending diffuse hit whose shadow rays the next bounce casts
+    pend = dict(active=torch.zeros_like(active), pos=(zero,) * 3, norm=(zero,) * 3,
+                ci=(one,) * 3, self_idx=torch.full_like(xs, -1, dtype=torch.int64))
     if work is not None:
         work["paths"] += xs.numel()
     for _ in range(max_bounces):
         if not bool(active.any()):
             break
-        t_best = inf_like(zero)
-        kind = torch.zeros_like(bounce, dtype=torch.int64)
-        idx = torch.zeros_like(kind)
-        bu, bv = zero, zero
-        if S:
-            c = tuple(scene.sph["c"][:, k:k + 1] for k in range(3))
-            ts = sphere_roots(ro, rd, c, scene.sph["r"][:, None], "cpu")
-            ts = where(ts >= CPU_GUARD, ts, inf_like(ts))
-            tmin, amin = ts.min(dim=0)
-            better = tmin < t_best
-            t_best = where(better, tmin, t_best)
-            kind = where(better, 1, kind)
-            idx = where(better, amin, idx)
-        if mesh is not None:
-            ai = active.nonzero()[:, 0]
-            ao, ad = tuple(c[ai] for c in ro), tuple(c[ai] for c in rd)
-            tm, gm, um, vm = mesh_hit(ao, ad, t_best[ai], mesh["tables"], CPU_GUARD)
-            if work is not None:
-                w = walk_work(ao, ad, tm, mesh["tables"], CPU_GUARD)
-                work["slab"] += w["slab"]
-                work["tri"] += w["tri"]
-            won = torch.zeros_like(active).index_put((ai,), gm >= 0)
-            put = lambda full, part: full.index_put((ai,), part)
-            t_best = where(won, put(t_best, tm), t_best)
-            kind = where(won, 3, kind)
-            idx = where(won, put(idx, gm), idx)
-            bu, bv = where(won, put(bu, um), bu), where(won, put(bv, vm), bv)
+        t_best, kind, idx, bu, bv = _nearest_cpu(scene, ro, rd, active, work)
+        shadow = [_shadow_ray(scene, pend, kind, idx, e, work)
+                  for e in scene.emitters] if dls else []
 
         if mesh is not None:
             state, u = rng.draws(state, 8, dt)
@@ -375,6 +428,10 @@ def integrator_paths(scene, xs, ys, samples, *, assured: int, max_bounces: int, 
 
         ah = active & hit
         L = tuple(L[k] + where(ah, emissive[k] * ci[k], zero) for k in range(3))
+        for e, (light_dot, ok) in zip(scene.emitters, shadow):
+            s = light_dot * DLS_NORMZE
+            L = tuple(L[k] + where(ok, pend["ci"][k] * (scene.sph[f"em{k}"][e] * s), zero)
+                      for k in range(3))
         rr_due = bounce > assured
         rr_pass = where(rr_due, u7 < CPU_RR, True)
         atten = where(rr_due, torch.full_like(zero, CPU_RR), one)
@@ -383,10 +440,14 @@ def integrator_paths(scene, xs, ys, samples, *, assured: int, max_bounces: int, 
         ci = _where3(survive, tuple(ci[k] * (rgb[k] * w) for k in range(3)), ci)
         if work is not None:
             work["lane_bounces"] += int(active.sum())
+            work["dls_pending"] += int(pend["active"].sum())
             lobe = where(mkind == 3, 3, where((mkind == 1) | ((mkind == 2) & ds_diff), 1, 2))
             code = where(is_mt, 5, where(hit, where(rr_pass, lobe, 4), 0))[active]
             for i, b in enumerate(BRANCHES):
                 work["by_branch"][b] += int((code == i).sum())
+        if dls:
+            pend = dict(active=survive & ((mkind == 1) | ((mkind == 2) & ds_diff)), pos=pos,
+                        norm=norm, ci=ci, self_idx=where(is_sph, idx, -1))
         ro = _where3(survive, pos, ro)
         rd = _where3(survive, new_d, rd)
         bounce = bounce + survive.to(torch.int32)

@@ -1,7 +1,8 @@
 """The reference's own tables, worked out from the raw scene
 (benchmark.scenes.RawScene): sphere columns, the camera row, and for a
 mesh its per-triangle shading columns, its textures and its cluster walk
-tables (geometry.build_tables)."""
+tables (geometry.build_tables), with the rad_info flags it follows and the
+emissive spheres that direct-light sampling aims its shadow rays at."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -23,6 +24,8 @@ class RefScene:
     sph_rows: list  # (cx, cy, cz, r) a sphere, floats
     sph: dict  # columns of the spheres, (S,) or (S, 3) tensors
     mesh: Optional[dict]
+    dir_light_samp: bool = False  # rad_info.dir_light_samp (cpu semantics only)
+    emitters: tuple = ()  # the emissive spheres' indices, in table order
 
 
 def _material(mat: dict):
@@ -40,12 +43,12 @@ def _normalize_rows(a: np.ndarray, eps: float = 1e-20) -> np.ndarray:
     return a / np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), eps)
 
 
-IMPLEMENTED = {"dir_light_samp": False, "debug_single_ray": False}  # rad_info flags as followed
+IMPLEMENTED = {"dir_light_samp": (False, True), "debug_single_ray": (False,)}  # values followed
 
 
 def build(raw, device, dtype=torch.float32) -> RefScene:
     for k, v in raw.rad_info.items():
-        if k not in IMPLEMENTED or bool(v) != IMPLEMENTED[k]:
+        if bool(v) not in IMPLEMENTED.get(k, ()):
             raise NotImplementedError(f"the reference does not follow rad_info {k}: {v!r}")
     rnd = (lambda v: float(torch.tensor(v, dtype=dtype))) if dtype != torch.float32 else float
     f32 = lambda a: np.asarray(a, np.float32)
@@ -71,7 +74,8 @@ def build(raw, device, dtype=torch.float32) -> RefScene:
     sph_rows = [[rnd(v) for v in (*c[i], cols["r"][i])] for i in range(S)]
     return RefScene(dtype=dtype, cam=[rnd(v) for v in row], sph_rows=sph_rows, sph=sph,
                     mesh=_mesh(raw.primitives, row[0:3], device, dtype) if raw.primitives
-                    else None)
+                    else None, dir_light_samp=bool(raw.rad_info.get("dir_light_samp", False)),
+                    emitters=tuple(i for i in range(S) if cols["has_em"][i] > 0.5))
 
 
 def _mesh(prims: list, cam_o, device, dtype) -> dict:

@@ -39,8 +39,10 @@ def bound_s(ops: float, nbytes: float) -> float:
 
 def call_bound_s(kernel: str, work: dict, scene: dict) -> float | None:
     """The least seconds of a call's work for `kernel`: work from
-    reference.paths (already scaled to the whole call), scene: n_sph,
-    pixels, table_bytes (the walk's tables and textures)."""
+    reference.paths (already scaled to the whole call; the shadow rays'
+    walk tests are in `slab` and `tri`), scene: n_sph, pixels, table_bytes
+    (the walk's tables and textures), dls_emitters (the spheres that
+    direct-light sampling aims at; 0 without it)."""
     lb, br = work["lane_bounces"], work["by_branch"]
     walk = work["slab"] * SLAB_OPS + work["tri"] * TRI_OPS
     if kernel == "trace_tiles":

@@ -333,8 +333,8 @@ def run_rank(cell_name: str, seed: int, seconds: float, trace: bool, *, rank: in
         times=times, window_s=window_s, setup_s=setup_s, batch=traffic.batch, pixels=n_pix,
         world=world, build_s=build_s, summary=summary, traced=traced,
         work=None if work is None else _scaled(work, scale),
-        scene=dict(n_sph=len(raw.spheres), pixels=n_pix,
-                   table_bytes=_table_bytes(ref)))
+        scene=dict(n_sph=len(raw.spheres), pixels=n_pix, table_bytes=_table_bytes(ref),
+                   dls_emitters=len(ref.emitters) if ref.dir_light_samp else 0))
     metrics = {}
     for m in metrics_of(bench, cell_name, trace):
         v = reader(m["name"])(ctx)

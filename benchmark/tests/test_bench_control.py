@@ -4,6 +4,7 @@ bfloat16, in the program's place) and the faults a cell can have, planted
 under a run of the harness (which skips its look for a card)."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -17,7 +18,8 @@ import torch
 from benchmark import limits, run
 from benchmark.tests.tiny import overrides
 
-CELLS = ["walled-gpu-20000spp", "a380-gpu-10spp", "a380-cpu-10spp"]
+CELLS = ["walled-gpu-20000spp", "a380-gpu-10spp", "a380-cpu-10spp", "walled-cpu-dls-16spp",
+         "a380-cpu-dls-10spp"]
 REPO = Path(__file__).resolve().parents[2]
 
 
@@ -25,7 +27,9 @@ def install(fault: str):
     """Break the program's timed path: `unchanged` (a render leaves its
     target as it was), `half` (half of the batch rendered, the sum
     doubled), `altered` (every answer 1% off where it is produced),
-    `exchange` (no all-reduce between the ranks), `crash` (rank 1 fails)."""
+    `exchange` (no all-reduce between the ranks), `crash` (rank 1 fails),
+    `no_dls` (direct-light sampling switched off once the Renderer is
+    built)."""
     from raytrace_tpu_torch.render import renderer as rr
 
     if fault == "unchanged":
@@ -44,6 +48,12 @@ def install(fault: str):
         rr.Renderer.__init__ = crashing
         return
     init = rr.Renderer.__init__
+    if fault == "no_dls":
+        def without_dls(self, *a, **kw):
+            init(self, *a, **kw)
+            self.params = dataclasses.replace(self.params, dir_light_samp=False)
+        rr.Renderer.__init__ = without_dls
+        return
 
     def broken(self, *a, **kw):
         init(self, *a, **kw)
@@ -79,6 +89,21 @@ def test_a_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
         install(fault)
     res = run.run_rank(cell, 77, 0.3, False, device="cpu", overrides=overrides(cell))
     assert res["correct"] == (fault is None), res["check"]
+
+
+@pytest.mark.parametrize("cell,caught", [("walled-cpu-dls-16spp", True),
+                                         ("a380-cpu-dls-10spp", False)])
+def test_direct_light_sampling_left_out(cell, caught, monkeypatch):
+    """The program's render with direct-light sampling switched off is not
+    correct where shadow rays reach walled's two lights. a380's sun is its
+    one sphere, whose hits cast no ray: there the image is the same, and
+    the check cannot see the shadow rays' arithmetic."""
+    from raytrace_tpu_torch.render import renderer as rr
+
+    monkeypatch.setattr(rr.Renderer, "__init__", rr.Renderer.__init__)
+    install("no_dls")
+    res = run.run_rank(cell, 78, 0.3, False, device="cpu", overrides=overrides(cell))
+    assert res["correct"] != caught, res["check"]
 
 
 def _four_card_copy(root: Path) -> Path:

@@ -140,19 +140,63 @@ def test_check_pixels_rows_or_drawn_over_the_frame():
 
 
 def test_rad_info_flags_reach_the_program_and_the_reference_refuses_its_gaps():
+    """dir_light_samp reaches the program's scheme and the reference's
+    scene, with the emissive spheres it aims at; debug_single_ray, which
+    the reference does not follow, is refused."""
     from benchmark import scenes
     from benchmark.reference import scene as ref_scene
     from benchmark.system import scheme_of
     from benchmark.tests.tiny import overrides
 
-    cfg = dict(scenes.load_config("walled"), **overrides("walled")["config"],
-               rad_info={"dir_light_samp": True})
-    raw = scenes.raw_scene(cfg)
+    raw = scenes.raw_scene(dict(scenes.load_config("walled-cpu-dls"),
+                                **overrides("walled")["config"]))
     assert scheme_of(raw).render_info.rad_info.dir_light_samp is True
-    with pytest.raises(NotImplementedError, match="dir_light_samp"):
-        ref_scene.build(raw, "cpu")
+    ref = ref_scene.build(raw, "cpu")
+    assert ref.dir_light_samp and ref.emitters == (7, 8) and ref.mesh is None
     raw.rad_info = {"dir_light_samp": False}
-    assert ref_scene.build(raw, "cpu").mesh is None
+    assert scheme_of(raw).render_info.rad_info.dir_light_samp is False
+    assert not ref_scene.build(raw, "cpu").dir_light_samp
+    raw.rad_info = {"debug_single_ray": True}
+    assert scheme_of(raw).render_info.rad_info.debug_single_ray is True
+    with pytest.raises(NotImplementedError, match="debug_single_ray"):
+        ref_scene.build(raw, "cpu")
+    raw.rad_info = {"a_flag_of_no_scheme": False}
+    with pytest.raises(NotImplementedError, match="a_flag_of_no_scheme"):
+        ref_scene.build(raw, "cpu")
+
+
+def test_bounce_bounds_without_shadow_work_are_the_plain_ones():
+    """With no pending hit, shadow ray or emitter counted, the bounce
+    entries' bounds are the formulas of a render without direct-light
+    sampling, to the bit; with it, they add a flag a live lane and the
+    pending lanes' records, rays and terms by their documented counts."""
+    work = dict(lane_bounces=123_456.7, paths=31_234.5, near_roots=0, slab=0, tri=0,
+                dls_pending=0, shadow_rays=0, dls_hits=0,
+                by_branch={"miss": 2e4, "diffuse": 5.1e4, "mirror": 1.3e4, "dielectric": 1.7e4,
+                           "roulette": 2.2e4, "mesh": 0})
+    lb, br, n = work["lane_bounces"], work["by_branch"], 13
+    prims = max(lb * n * 24 / 33.5e12, (lb * 57 + n * 16) / 3.35e12)
+    ops = (br["miss"] * 22 + br["roulette"] * 41 + br["diffuse"] * 103 + br["mirror"] * 70
+           + br["dielectric"] * 93)
+    nbytes = (lb * 126 + (br["diffuse"] + br["mirror"] + br["dielectric"]) * 24
+              + work["paths"] * 20 + n * 57)
+    shade = max(ops / 33.5e12, nbytes / 3.35e12)
+    bounds = {m: run.reader(m).__globals__["bound_s"]
+              for m in ("bounce_prims_roofline", "bounce_shade_roofline")}
+    scene = dict(n_sph=n, pixels=720000, table_bytes=0.0, dls_emitters=0)
+    assert bounds["bounce_prims_roofline"](work, scene) == prims
+    assert bounds["bounce_shade_roofline"](work, scene) == shade
+    dls = dict(work, dls_pending=6e4, shadow_rays=4e4, dls_hits=3e4)
+    scene = dict(scene, dls_emitters=2)
+    assert bounds["bounce_prims_roofline"](dls, scene) == pytest.approx(max(
+        (lb * n * 24 + 6e4 * 2 * 21 + 4e4 * n * 24) / 33.5e12,
+        (lb * 57 + n * 16 + lb * 1 + 6e4 * (48 + 2 * 17)) / 3.35e12))
+    assert bounds["bounce_shade_roofline"](dls, scene) == pytest.approx(max(
+        (ops + 6e4 * 2 * 24 + 3e4 * 6) / 33.5e12, (nbytes + lb * 2 + 6e4 * (80 + 2)) / 3.35e12))
+    # nothing pending: DLS costs a live lane its flags alone
+    idle = dict(work, dls_pending=0)
+    assert bounds["bounce_prims_roofline"](idle, scene) == pytest.approx(
+        (lb * 58 + n * 16) / 3.35e12)
 
 
 def _command(args, cwd=REPO, env=None):

@@ -26,10 +26,13 @@ def _raw(config: str, cell: str):
 
 @pytest.mark.parametrize("config,cell", [("walled", "walled-gpu-20000spp"),
                                          ("a380", "a380-gpu-10spp"),
-                                         ("a380-cpu", "a380-cpu-10spp")])
+                                         ("a380-cpu", "a380-cpu-10spp"),
+                                         ("walled-cpu-dls", "walled-cpu-dls-16spp"),
+                                         ("a380-cpu-dls", "a380-cpu-dls-10spp")])
 def test_reference_equals_the_program_on_the_cpu(config, cell):
     """The program's batch sums (Renderer.render on the CPU: the fused
-    kernels' plain versions, the wavefront's eager loop) equal the
+    kernels' plain versions, the wavefront's eager loop, with direct-light
+    sampling's shadow rays where the configuration turns it on) equal the
     reference's on every pixel, bit for bit, on a resumed target."""
     from benchmark.system import System
 
@@ -50,19 +53,40 @@ def test_reference_equals_the_program_on_the_cpu(config, cell):
 
 def test_work_counts():
     """The counts the rooflines divide: every lane-bounce has one kind,
-    walk tests only where a mesh is, near roots only in the fused form."""
+    walk tests only where a mesh is, near roots only in the fused form,
+    shadow rays, and rays that reach their emitter, only where direct-light
+    sampling casts them: walled's two lights, not a380's sun, which is its
+    one sphere and whose hits cast no ray; pending hits only where it is
+    on. Turning it on leaves the other counts of a path that casts nothing
+    as they were."""
+    counts = {}
     for config, cell, fused in (("a380", "a380-gpu-10spp", True),
                                 ("a380-cpu", "a380-cpu-10spp", False),
-                                ("walled", "walled-gpu-20000spp", True)):
+                                ("walled", "walled-gpu-20000spp", True),
+                                ("walled-cpu", "walled-cpu-16spp", False),
+                                ("walled-cpu-dls", "walled-cpu-dls-16spp", False),
+                                ("a380-cpu-dls", "a380-cpu-dls-10spp", False)):
         raw = _raw(config, cell)
         work = paths.new_work()
         ys, xs = tr.row_pixels(np.arange(4), raw.width)
         check.reference_sums(ref_scene.build(raw, "cpu"), raw.use_gpu, ys, xs, 7, 2,
                              assured=raw.assured_depth, max_bounces=raw.max_bounces, work=work)
+        counts[config] = work
         assert work["paths"] == 2 * 4 * raw.width
         assert sum(work["by_branch"].values()) == work["lane_bounces"] >= work["paths"]
         assert (work["tri"] > 0) == bool(raw.primitives) == (work["slab"] > 0)
         assert work["near_roots"] > 0 if config == "walled" else fused or not work["near_roots"]
+        casts = config == "walled-cpu-dls"
+        assert (work["shadow_rays"] > 0) == (work["dls_hits"] > 0) == casts
+        assert work["dls_hits"] <= work["shadow_rays"] <= 2 * work["dls_pending"]
+        assert work["dls_pending"] < work["lane_bounces"]
+        if not config.endswith("-dls"):
+            assert work["dls_pending"] == 0
+    a380 = {k: v for k, v in counts["a380-cpu-dls"].items() if k != "dls_pending"}
+    assert a380 == {k: v for k, v in counts["a380-cpu"].items() if k != "dls_pending"}
+    off, on = counts["walled-cpu"], counts["walled-cpu-dls"]
+    assert {k: on[k] for k in ("paths", "lane_bounces", "by_branch")} == \
+        {k: off[k] for k in ("paths", "lane_bounces", "by_branch")}
 
 
 def _modules(code: str) -> set:
