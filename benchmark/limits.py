@@ -26,7 +26,7 @@ from .reference import scene as ref_scene
 
 def control_reading(cell: dict, seed: int, device: str, overrides=None) -> float:
     cfg = dict(scenes.load_config(cell["config"]), **(overrides or {}).get("config", {}))
-    raw = scenes.raw_scene(cfg)
+    raw = scenes.raw_scene(cfg, device)
     spec = dict(tr.load_traffic(cell["traffic"]), **(overrides or {}).get("traffic", {}))
     start = tr.Images(spec, seed).next_start()
     ys, xs = tr.check_pixels(raw.width, raw.height, cell["check"], seed)

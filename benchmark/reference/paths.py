@@ -13,8 +13,13 @@ after `assured` bounces (>) with survival 0.4, and with the scene's
 at each diffuse hit that goes on, a shadow ray toward the centre of every
 emissive sphere but the one it stands on and the one the next ray hits,
 adding light_dot E / (30 pi) times the path's throughput where the ray
-meets that sphere first. Both return the (N, 3) radiance of each lane's
-path, and with `work` add what the path's bounces cost to its counts (see
+meets that sphere first. In a scene with a sky (the upstream's
+DistantCubeMap, `sky_rgb`) a path that leaves the scene ends there and
+adds the sky's texel in its direction times its throughput: T I in the
+fused form, at the miss; T in the integrator's, after every other term of
+the path, where T is above 0 in some channel (the integrator's resolve of
+its miss record). Both return the (N, 3) radiance of each lane's path, and
+with `work` add what the path's bounces cost to its counts (see
 `new_work`).
 """
 from __future__ import annotations
@@ -30,6 +35,7 @@ CPU_GUARD = float(np.float32(20.0 * EPS))
 CPU_RR = 0.4
 DLS_NORMZE = float(np.float32(1.0 / (30.0 * np.pi)))  # radiance.rs:90
 BRANCHES = ("miss", "diffuse", "mirror", "dielectric", "roulette", "mesh")
+FACES = ("neg_z", "pos_z", "neg_x", "pos_x", "neg_y", "pos_y")  # the sky's faces, the upstream's ids
 
 
 def new_work() -> dict:
@@ -40,9 +46,12 @@ def new_work() -> dict:
     `paths`; direct-light sampling's `dls_pending` (lane-bounces that
     carry a pending diffuse hit, each of which a bounce before set it),
     `shadow_rays` (rays cast, over the emitters) and `dls_hits` (those that
-    reach their emitter)."""
+    reach their emitter); `sky_fetches` by face (FACES), in a sky scene
+    the lane-bounces that fetch the sky: every miss in the fused form, a
+    miss that adds a term in the integrator's."""
     return dict(lane_bounces=0, by_branch={b: 0 for b in BRANCHES}, near_roots=0, slab=0, tri=0,
-                paths=0, dls_pending=0, shadow_rays=0, dls_hits=0)
+                paths=0, dls_pending=0, shadow_rays=0, dls_hits=0,
+                sky_fetches={f: 0 for f in FACES})
 
 
 def _where3(m, a, b):
@@ -58,6 +67,16 @@ def _pow5(x):
     return x * (x2 * x2)
 
 
+def _nearest(s, n, dtype):
+    """trunc(clip(s n, 0, n - 1)) of the coordinates s on faces of n
+    texels, the clamp again on the integer (in bfloat16, n - 1 rounds up
+    to n)."""
+    nf = n.to(dtype)
+    zero = torch.zeros_like(s)
+    i = torch.minimum(torch.maximum(s * nf, zero), torch.clamp(nf - 1.0, min=0.0)).to(torch.int64)
+    return torch.minimum(i.clamp(min=0), (n - 1).clamp(min=0))
+
+
 def _texels(mesh, mi, bu, bv, dtype):
     """rgb_factor times the nearest base-colour texel at the barycentric
     (bu, bv) of triangles mi (clamped addressing; no texture: 1)."""
@@ -67,18 +86,45 @@ def _texels(mesh, mi, bu, bv, dtype):
     v = b0 * uv[:, 1] + bu * uv[:, 3] + bv * uv[:, 5]
     tid = mesh["tex_id"][mi]
     tex = mesh["textures"]
-    hf, wf = (torch.full_like(u, float(s)) for s in tex.shape[1:3])
-    zero = torch.zeros_like(u)
-    # the clamp again on the integer: in bfloat16, W - 1 rounds up to W
-    px = torch.minimum(torch.maximum(u * wf, zero), torch.clamp(wf - 1.0, min=0.0)).to(
-        torch.int64).clamp(0, tex.shape[2] - 1)
-    py = torch.minimum(torch.maximum(v * hf, zero), torch.clamp(hf - 1.0, min=0.0)).to(
-        torch.int64).clamp(0, tex.shape[1] - 1)
+    px = _nearest(u, torch.full_like(tid, tex.shape[2]), dtype)
+    py = _nearest(v, torch.full_like(tid, tex.shape[1]), dtype)
     raw = tex[tid.clamp(min=0), py, px].to(torch.float32)
     texel = (raw / torch.full_like(raw, 255.0)).to(dtype)
     fac = mesh["rgb_factor"][mi]
     one = torch.ones_like(u)
     return [fac[:, k] * torch.where(tid >= 0, texel[:, k], one) for k in range(3)]
+
+
+def sky_rgb(scene, d, work=None):
+    """The sky's texel in directions d (a 3-tuple of (N,) tensors, not
+    necessarily unit), as the upstream's DistantCubeMap fetches it
+    (elements/distant_cube_map.rs:28-76 == trace.wgsl:1187-1249): the
+    direction normalized (a square root, then a multiply by 1 / n), the
+    face of the dominant |axis| with >= ties (x beats y beats z; faces
+    [neg_z, pos_z, neg_x, pos_x, neg_y, pos_y]), uv = 0.5 (minor scale /
+    major) + 0.5 with the major axis signed, the nearest texel trunc(clip(uv
+    size, 0, size - 1)), over 255 (every face S x S texels, none empty).
+    With `work`, counts the fetches by face."""
+    sky, dt, where = scene.sky, scene.dtype, torch.where
+    x, y, z = normalize(*d)
+    ax, ay, az = x.abs(), y.abs(), z.abs()
+    is_x = (ax >= ay) & (ax >= az)
+    is_y = ~is_x & (ay >= ax) & (ay >= az)
+    face = where(is_x, where(x < 0.0, 2, 3),
+                 where(is_y, where(y < 0.0, 4, 5), where(z < 0.0, 0, 1)))
+    u = where(is_x, z, x)
+    v = where(is_x, y, where(is_y, z, y))
+    major = where(is_x, x, where(is_y, y, z))
+    su = 0.5 * (u * sky["us"][face] / major) + 0.5
+    sv = 0.5 * (v * sky["vs"][face] / major) + 0.5
+    size = torch.full_like(face, sky["size"])
+    idx = (face * size + _nearest(sv, size, dt)) * size + _nearest(su, size, dt)
+    raw = sky["pool"][idx].to(torch.float32)
+    texel = (raw / torch.full_like(raw, 255.0)).to(dt)
+    if work is not None:
+        for f, n in zip(FACES, torch.bincount(face, minlength=len(FACES)).tolist()):
+            work["sky_fetches"][f] += n
+    return tuple(texel[:, k] for k in range(3))
 
 
 def _mesh_attrs(mesh, mi, bu, bv, dtype):
@@ -177,6 +223,11 @@ def fused_paths(scene, xs, ys, samples, *, assured: int, max_bounces: int, work=
                                 zip((zero, torch.full_like(best, -1), zero, zero), (tm, gm, um, vm)))
             on_mesh = active & (gid >= 0)
         sph = active & ~on_mesh & is_sph
+        if scene.sky is not None:  # a miss: L += (T I) sky(d), the path ends
+            mi = (active & ~on_mesh & ~is_sph).nonzero()[:, 0]
+            sky = sky_rgb(scene, tuple(c[mi] for c in d), work)
+            L = [L[k].index_put((mi,), L[k][mi] + (ci[k][mi] * inten[mi]) * sky[k])
+                 for k in range(3)]
         state, u = rng.draws(state, n_draws, dt)
         u0, u1, u2, u3, u7 = u[0], u[1], u[2], u[3], u[-1]
         rr_kill = (depth >= float(assured)) & (u7 > max_thres)
@@ -349,7 +400,7 @@ def _shadow_ray(scene, pend, kind, idx, e: int, work):
 
 def integrator_paths(scene, xs, ys, samples, *, assured: int, max_bounces: int, work=None):
     """The CPU backend's paths as the integrator computes them, one
-    sample a lane (no cube map). With `scene.dir_light_samp`, a diffuse
+    sample a lane. With `scene.dir_light_samp`, a diffuse
     hit's shadow rays are cast one bounce later, once the sphere that the
     next ray hits is known; their terms are added after that bounce's
     emission, in the emitters' order. A path cut at `max_bounces` drops
@@ -432,6 +483,10 @@ def integrator_paths(scene, xs, ys, samples, *, assured: int, max_bounces: int, 
             s = light_dot * DLS_NORMZE
             L = tuple(L[k] + where(ok, pend["ci"][k] * (scene.sph[f"em{k}"][e] * s), zero)
                       for k in range(3))
+        if scene.sky is not None:  # a miss with T > 0 left: L += T sky(d), the path's last term
+            mi = (active & ~hit & ((ci[0] > 0.0) | (ci[1] > 0.0) | (ci[2] > 0.0))).nonzero()[:, 0]
+            sky = sky_rgb(scene, tuple(c[mi] for c in rd), work)
+            L = tuple(L[k].index_put((mi,), L[k][mi] + ci[k][mi] * sky[k]) for k in range(3))
         rr_due = bounce > assured
         rr_pass = where(rr_due, u7 < CPU_RR, True)
         atten = where(rr_due, torch.full_like(zero, CPU_RR), one)

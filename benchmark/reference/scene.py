@@ -2,7 +2,9 @@
 (benchmark.scenes.RawScene): sphere columns, the camera row, and for a
 mesh its per-triangle shading columns, its textures and its cluster walk
 tables (geometry.build_tables), with the rad_info flags it follows and the
-emissive spheres that direct-light sampling aims its shadow rays at."""
+emissive spheres that direct-light sampling aims its shadow rays at, and
+for a sky its six faces in one u8 texel pool with their size and uv
+scales (paths.sky_rgb)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -26,6 +28,7 @@ class RefScene:
     mesh: Optional[dict]
     dir_light_samp: bool = False  # rad_info.dir_light_samp (cpu semantics only)
     emitters: tuple = ()  # the emissive spheres' indices, in table order
+    sky: Optional[dict] = None  # _sky: pool (6 S S, 3) u8, size S, us / vs (6,)
 
 
 def _material(mat: dict):
@@ -75,7 +78,18 @@ def build(raw, device, dtype=torch.float32) -> RefScene:
     return RefScene(dtype=dtype, cam=[rnd(v) for v in row], sph_rows=sph_rows, sph=sph,
                     mesh=_mesh(raw.primitives, row[0:3], device, dtype) if raw.primitives
                     else None, dir_light_samp=bool(raw.rad_info.get("dir_light_samp", False)),
-                    emitters=tuple(i for i in range(S) if cols["has_em"][i] > 0.5))
+                    emitters=tuple(i for i in range(S) if cols["has_em"][i] > 0.5),
+                    sky=_sky(raw.sky, device, dtype) if raw.sky is not None else None)
+
+
+def _sky(sky: dict, device, dtype) -> dict:
+    """The six S x S faces' texels in one u8 pool, in the upstream's face
+    order, each face row-major from its first row: face f's texel (px, py)
+    is pool[f S S + px + py S]."""
+    faces = sky["faces"]
+    us, vs = (torch.tensor(s, dtype=torch.float32, device=device).to(dtype)
+              for s in zip(*sky["scales"]))
+    return dict(pool=faces.reshape(-1, 3).to(device), size=faces.shape[1], us=us, vs=vs)
 
 
 def _mesh(prims: list, cam_o, device, dtype) -> dict:

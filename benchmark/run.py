@@ -206,7 +206,7 @@ def run_rank(cell_name: str, seed: int, seconds: float, trace: bool, *, rank: in
                                 init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
     ctl = _Ctl(world)
     cfg = dict(scenes.load_config(cell["config"]), **(overrides or {}).get("config", {}))
-    raw = scenes.raw_scene(cfg)
+    raw = scenes.raw_scene(cfg, device)
     spec = dict(tr.load_traffic(cell["traffic"]), **(overrides or {}).get("traffic", {}))
     traffic = tr.Images(spec, seed)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -228,12 +228,14 @@ def run_rank(cell_name: str, seed: int, seconds: float, trace: bool, *, rank: in
     state = dict(pix=pix, prev=None, first=True, start=start, count=start)
     system.new_image(start)
     setup_s = time.monotonic() - t0
-    # set-up's parts, in order (scene_s lies in system_s); a checkout's
-    # first run also builds the kernels (nvcc) inside the warm call, which
-    # `kernels_built_s` takes out
+    # set-up's parts, in order (scene_s and sky_written_s, the harness's
+    # writing of the sky's faces, lie in system_s; making the faces lies in
+    # inputs_s); a checkout's first run also builds the kernels (nvcc)
+    # inside the warm call, which `kernels_built_s` takes out
     setup_parts = dict(imports_s=t_imports - t0, inputs_s=t_system - t_imports,
                        system_s=t_warm - t_system, scene_s=system.build_s,
-                       warm_call_s=time.monotonic() - t_warm, kernels_built_s=system.nvcc_s())
+                       warm_call_s=time.monotonic() - t_warm, kernels_built_s=system.nvcc_s(),
+                       sky_written_s=system.sky_written_s)
     _log("[setup] " + ", ".join(f"{k} {v:.3f}" for k, v in setup_parts.items())
          + f"; setup_s {setup_s:.3f}")
     if smi is not None:

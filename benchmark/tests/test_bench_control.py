@@ -19,7 +19,7 @@ from benchmark import limits, run
 from benchmark.tests.tiny import overrides
 
 CELLS = ["walled-gpu-20000spp", "a380-gpu-10spp", "a380-cpu-10spp", "walled-cpu-dls-16spp",
-         "a380-cpu-dls-10spp"]
+         "a380-cpu-dls-10spp", "biplane-gpu-200spp"]
 REPO = Path(__file__).resolve().parents[2]
 
 
@@ -29,7 +29,8 @@ def install(fault: str):
     doubled), `altered` (every answer 1% off where it is produced),
     `exchange` (no all-reduce between the ranks), `crash` (rank 1 fails),
     `no_dls` (direct-light sampling switched off once the Renderer is
-    built)."""
+    built), `no_sky` (the Renderer's cube map dropped once it is built:
+    misses come out black)."""
     from raytrace_tpu_torch.render import renderer as rr
 
     if fault == "unchanged":
@@ -53,6 +54,14 @@ def install(fault: str):
             init(self, *a, **kw)
             self.params = dataclasses.replace(self.params, dir_light_samp=False)
         rr.Renderer.__init__ = without_dls
+        return
+    if fault == "no_sky":
+        def without_sky(self, *a, **kw):
+            init(self, *a, **kw)
+            for tables in (self.tables, getattr(self.tables, "mesh", None)):
+                if tables is not None:
+                    tables.sky = None
+        rr.Renderer.__init__ = without_sky
         return
 
     def broken(self, *a, **kw):
@@ -103,6 +112,21 @@ def test_direct_light_sampling_left_out(cell, caught, monkeypatch):
     monkeypatch.setattr(rr.Renderer, "__init__", rr.Renderer.__init__)
     install("no_dls")
     res = run.run_rank(cell, 78, 0.3, False, device="cpu", overrides=overrides(cell))
+    assert res["correct"] != caught, res["check"]
+
+
+@pytest.mark.parametrize("cell,caught", [("biplane-gpu-200spp", True),
+                                         ("walled-gpu-20000spp", False),
+                                         ("a380-gpu-10spp", False)])
+def test_the_sky_left_out(cell, caught, monkeypatch):
+    """The program's render with its cube map dropped (misses black) is
+    not correct in the sky cell; in a cell without a sky it changes
+    nothing."""
+    from raytrace_tpu_torch.render import renderer as rr
+
+    monkeypatch.setattr(rr.Renderer, "__init__", rr.Renderer.__init__)
+    install("no_sky")
+    res = run.run_rank(cell, 79, 0.3, False, device="cpu", overrides=overrides(cell))
     assert res["correct"] != caught, res["check"]
 
 

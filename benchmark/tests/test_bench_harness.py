@@ -199,6 +199,48 @@ def test_bounce_bounds_without_shadow_work_are_the_plain_ones():
         (lb * 58 + n * 16) / 3.35e12)
 
 
+def test_fused_bounds_without_a_sky_are_the_plain_ones():
+    """trace_tiles' and mesh_trace's bounds of a scene without a sky, its
+    counts absent or 0, are the formulas of the bounds without one, to the
+    bit; a sky adds SKY_INSTR a fetch, of any face."""
+    from benchmark import roofline
+    from benchmark.reference import paths
+
+    br = {"miss": 2e4, "diffuse": 5.1e4, "mirror": 1.3e4, "dielectric": 1.7e4, "roulette": 2.2e4,
+          "mesh": 3.3e4}
+    work = dict(lane_bounces=1.567e5, paths=3.1e4, near_roots=4.4e5, slab=9.1e6, tri=2.3e6,
+                by_branch=br)
+    scene = dict(n_sph=5, pixels=720000, table_bytes=3.1e8)
+    lb = work["lane_bounces"]
+    tiles_ops = (lb * 5 * 13 + 4.4e5 * 4 + 2e4 * 3 + 5.1e4 * 66 + 1.3e4 * 32 + 1.7e4 * 35
+                 + 2.2e4 * 26 + 3.1e4 * 20)
+    tiles = max(tiles_ops / 33.5e12, (5 * 60 + 720000 * 24) / 3.35e12)
+    mesh_ops = (lb * 5 * 18 + 9.1e6 * 25 + 2.3e6 * 55 + 3.3e4 * 204
+                + (5.1e4 + 1.3e4 + 1.7e4 + 2.2e4) * 93 + 2e4 * 3 + 3.1e4 * 20)
+    mesh = max(mesh_ops / 33.5e12, (3.1e8 + 720000 * 24) / 3.35e12)
+    for w in (work, dict(work, sky_fetches={f: 0 for f in paths.FACES})):
+        assert roofline.call_bound_s("trace_tiles", w, scene) == tiles
+        assert roofline.call_bound_s("mesh_trace", w, scene) == mesh
+    sky = dict(work, sky_fetches=dict({f: 0 for f in paths.FACES}, pos_z=1.5e4, neg_y=4e3))
+    assert roofline.call_bound_s("trace_tiles", sky, dict(scene, pixels=7200)) == \
+        pytest.approx((tiles_ops + 1.9e4 * 46) / 33.5e12)
+    assert roofline.call_bound_s("mesh_trace", sky, dict(scene, table_bytes=0)) == \
+        pytest.approx((mesh_ops + 1.9e4 * 46) / 33.5e12)
+    call = run._scaled(dict(paths.new_work(), paths=10, sky_fetches=sky["sky_fetches"]), 100.0)
+    assert (call["paths"], call["sky_fetches"]["neg_y"]) == (1000.0, 4e5)
+
+
+def test_raw_scene_refuses_an_unknown_key():
+    """A key of no kind the harness knows (a sky under another name, say)
+    is refused, not dropped."""
+    from benchmark import scenes
+
+    cfg = scenes.load_config("biplane")
+    cfg["skybox"] = cfg.pop("sky")
+    with pytest.raises(ValueError, match="skybox"):
+        scenes.raw_scene(cfg)
+
+
 def _command(args, cwd=REPO, env=None):
     return subprocess.run([sys.executable, "-m", "benchmark.run", *args], cwd=cwd,
                           capture_output=True, text=True, timeout=600, env=env)
