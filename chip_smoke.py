@@ -73,7 +73,9 @@ Drives raytrace_tpu_torch's paths on the card and checks them:
    exact traversal needs on those rays (`walk_work`) in FP32 operations,
    and the bytes of the tables and rays;
 7b. the bounce kernels on the card: `bounce_prims` (with direct-light
-   sampling also on each emitter's shadow rays) and `bounce_shade` (the
+   sampling also on each emitter's shadow rays, and without a mesh the
+   render's launch that takes them all, timed in turns against the own
+   rays' launch and one an emitter) and `bounce_shade` (the
    CUDA entries of csrc/bounce_kernel.cu) against their plain versions
    (ops/bounce_kernel.prims_reference, shadow_reference,
    shade_reference: the integrator's torch pieces) on in-render lane
@@ -1184,13 +1186,15 @@ def time_turns(label, card, fns, reset=None):
 
 def bounce_parity(label, lanes, card):
     """bounce_prims (with direct-light sampling, each emitter's shadow
-    rays) and bounce_shade against their plain versions on the card, on
-    the lane state of `lanes`: the lanes that differ (a dead lane's hit is
-    not compared: the kernel writes a miss there, which nothing reads),
-    the lanes off the lane gate (|a - b| / (|b| + 1e-3) > 1e-3, under 1%
-    or raise), kernel and plain timed in turns, the bound and the share
-    reached. Returns {entry: {max_abs_err, ms, plain_ms, bound_ms,
-    bound_by, bitwise}}."""
+    rays; without a mesh also the render's launch with every emitter's
+    shadow rays in it) and bounce_shade against their plain versions on
+    the card, on the lane state of `lanes`: the lanes that differ (a dead
+    lane's hit is not compared: the kernel writes a miss there, which
+    nothing reads), the lanes off the lane gate (|a - b| / (|b| + 1e-3) >
+    1e-3, under 1% or raise), kernel and plain timed in turns (the launch
+    with the shadow rays against the own rays' and one an emitter's), the
+    bound and the share reached. Returns {entry: {max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, bitwise; fused_ms, separate_ms}}."""
     import torch
 
     from raytrace_tpu_torch.ops import bounce_kernel as bk
@@ -1239,6 +1243,18 @@ def bounce_parity(label, lanes, card):
                 itg.mesh_of(scene, params, st["dls"]["pos"], dk, sk, gid_out=gk[j])
                 itg.mesh_of(scene, params, st["dls"]["pos"], dp, sp, gid_out=gp[j])
         shadow_k, shadow_p = (emitters, fk, gk), (emitters, fp, gp)
+    fused = None
+    if lanes.dls and mesh is None:  # the render's launch: the shadow rays in bounce_prims'
+        ff, fq = torch.ones_like(fk), torch.ones_like(fk)  # a row left unwritten shows
+        fused = (st["dls"], emitters, ff)
+        kf = bk.bounce_prims(scene, params, st["ro"], st["rd"], act, shadow=fused)
+        pf = bk.prims_reference(scene, params, st["ro"], st["rd"], act,
+                                shadow=(st["dls"], emitters, fq))
+        ne = (ff != fq).any(0)
+        for k, (x, y) in enumerate(zip(kf, pf)):
+            ne |= (x != y) & (act if k < 5 else torch.ones_like(act))
+        s_off += int(ne.sum())
+        gated |= ne
     bad = float(gated.float().mean())
     print(f"[bounce] {label}: {live} live lanes of {n}; bounce_prims: {int(off.sum())} lanes "
           f"differ from the plain version (" + ", ".join(
@@ -1286,6 +1302,16 @@ def bounce_parity(label, lanes, card):
         ("kernel", lambda: bk.bounce_prims(scene, params, st["ro"], st["rd"], act)),
         ("kernel", lambda: bk.bounce_prims(scene, params, st["ro"], st["rd"], act)),
         ("plain", lambda: bk.prims_reference(scene, params, st["ro"], st["rd"], act))])
+    if fused is not None:  # one launch against the own rays' and one an emitter's
+        def separate():
+            hit = bk.bounce_prims(scene, params, st["ro"], st["rd"], act)
+            for j in range(len(scene.emitters)):
+                bk.shadow_prims(scene, params, st["dls"], hit, None, j, fused[2][j])
+
+        one = lambda: bk.bounce_prims(scene, params, st["ro"], st["rd"], act, shadow=fused)
+        f_ms = time_turns(f"bounce_prims with the shadow rays {label}", card, [
+            ("separate", separate), ("fused", one), ("fused", one), ("separate", separate)])
+        out["bounce_prims"].update(fused_ms=f_ms["fused"], separate_ms=f_ms["separate"])
     shade = lambda: bk.bounce_shade(scene, params, work, kp, mesh, shadow_k, lanes.unit, slots,
                                     lanes.cap)
     plain = lambda: bk.shade_reference(scene, params, work, kp, mesh, shadow_p, lanes.unit, slots,

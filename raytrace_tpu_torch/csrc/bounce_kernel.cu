@@ -16,12 +16,20 @@
 //                  lanes): integrator.prims_hit. gpu semantics take a
 //                  sphere's near root with its near < far test, cpu
 //                  semantics its least positive root and every hit at
-//                  t >= 20 EPS; both stages update on strict <. On an
-//                  emitter's shadow rays (emitter >= 0) it first forms the
-//                  ray (integrator.shadow_ray, the omit test on this
-//                  bounce's merged hit) and writes whether the ray is cast
-//                  and meets that emitter first among the spheres and free
-//                  triangles.
+//                  t >= 20 EPS; both stages update on strict <. Three
+//                  instantiations (bounce_prims_kernel<mode>): the lanes'
+//                  own rays; one emitter's shadow rays (emitter >= 0),
+//                  where it forms the ray (integrator.shadow_ray, the omit
+//                  test on this bounce's merged hit, read back with the
+//                  mesh's) and writes whether the ray is cast and meets
+//                  that emitter first among the spheres and free triangles;
+//                  and, with direct-light sampling in a scene without mesh
+//                  triangles (flag set), the lanes' own rays and then, in
+//                  the same thread, every emitter's shadow ray tested
+//                  against the hit just found, which is the merged hit
+//                  there, into the (n_emit, n) flags. A mesh scene's
+//                  shadow rays need the mesh hit first, so they stay
+//                  launches of their own, each followed by mesh_hit.
 //   bounce_shade   everything after the hits, in place on the lane state:
 //                  the mesh hit merged over the sphere / free-triangle hit,
 //                  the draws (8 in mesh scenes, 5 in meshless ones; weyl or
@@ -66,9 +74,16 @@
 // there on an NVIDIA H100 80GB HBM3 at 700 W: 0.0033 and 0.0209 ms a
 // launch, 67% and 61% of the bound (the plain versions 0.072 and 1.55 ms).
 // The design is the plain one: a thread per lane, coalesced column reads,
-// the scene's few rows through the uniform-load path. lanes_assign at the
-// 131,072-lane pool moves at most 12 MB (the flags read twice, the 80 B of
-// a fresh lane's state written for every lane, the tables read): 3.6 us
+// the scene's few rows through the uniform-load path. With the shadow rays
+// in its launch, on walled's direct-light pool (1200x600 in cpu semantics,
+// two emitters, 110,746 of 131,072 lanes pending; H100 80GB HBM3 at
+// 700 W), bounce_prims takes 0.0161 ms against 0.0199 for the own-ray
+// launch and the two shadow launches it replaces: the pending record is
+// read once, the merged hit stays in registers, the flags are the only
+// shadow output, and the iteration's graph holds two kernels fewer.
+// lanes_assign at the 131,072-lane pool moves at most 12 MB (the flags
+// read twice, the 80 B of a fresh lane's state written for every lane, the
+// tables read): 3.6 us
 // at 3.35 TB/s, and far less on a pool whose lanes mostly live. Its torch
 // version was about 175 launches of a few us each; the design spends two
 // launches, reads the 1-byte flags twice rather than keeping a scan's state
@@ -128,8 +143,9 @@ struct BounceArgs {
   const float* mt;
   const int* mgid;
   const float *mu, *mv;
-  // the shadow rays: one emitter's direction and flag (bounce_prims), every
-  // emitter's flags and mesh gids, (n_emit, n) (bounce_shade)
+  // the shadow rays: one emitter's direction and flag, or every emitter's
+  // (n_emit, n) flags (bounce_prims); every emitter's flags and mesh gids,
+  // (n_emit, n) (bounce_shade)
   float* d_l[3];
   bool* flag;
   const bool* flags;
@@ -259,44 +275,87 @@ __device__ __forceinline__ Hit prims_hit(const BounceArgs& A, float ox, float oy
   return h;
 }
 
+// integrator.shadow_ray toward sphere e from a pending hit at p with normal
+// n, made on sphere self (-1: none), given this bounce's merged hit (kind,
+// idx): the ray's direction, and whether the pending hit casts it
+__device__ __forceinline__ bool shadow_ray(const BounceArgs& A, int e, float px, float py,
+                                           float pz, float nx, float ny, float nz,
+                                           long long self, long long kind, long long idx,
+                                           float& dx, float& dy, float& dz) {
+  dx = __ldg(A.sph_c + 3 * e) - px;
+  dy = __ldg(A.sph_c + 3 * e + 1) - py;
+  dz = __ldg(A.sph_c + 3 * e + 2) - pz;
+  vnorm(dx, dy, dz, 1e-20f);
+  const float light_dot = dot3(dx, dy, dz, nx, ny, nz);
+  const bool omit = self == e || (kind == kSphere && idx == e);
+  return light_dot > 0.f && !omit;
+}
+
+constexpr int kOwnRays = 0, kShadowRays = 1, kOwnAndShadowRays = 2;
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) bounce_prims_kernel(const BounceArgs A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= A.n) return;
-  if (A.emitter < 0) {  // the lanes' own rays
+  if (kMode == kShadowRays) {  // the shadow ray toward sphere `emitter` from the pending hit
+    const int e = A.emitter;
+    const float px = A.dls_pos[0][i], py = A.dls_pos[1][i], pz = A.dls_pos[2][i];
+    // this bounce's merged hit: the mesh's where a triangle beat its seed
+    long long kind = A.kind[i], idx = A.idx[i];
+    if (A.mgid != nullptr && A.mgid[i] >= 0) {
+      kind = kMeshTri;
+      idx = A.mgid[i];
+    }
+    float dx, dy, dz;
+    const bool cand = shadow_ray(A, e, px, py, pz, A.dls_norm[0][i], A.dls_norm[1][i],
+                                 A.dls_norm[2][i], A.dls_self[i], kind, idx, dx, dy, dz) &&
+                      A.dls_active[i];
     Hit h{kInf, kNone, 0, 0.f, 0.f};
-    const bool live = A.active[i];
-    if (live) h = prims_hit(A, A.ro[0][i], A.ro[1][i], A.ro[2][i], A.rd[0][i], A.rd[1][i],
-                            A.rd[2][i]);
-    A.t[i] = h.t;
-    A.kind[i] = h.kind;
-    A.idx[i] = h.idx;
-    A.bu[i] = h.bu;
-    A.bv[i] = h.bv;
-    A.seed[i] = live ? h.t : -CUDART_INF_F;
+    if (cand) h = prims_hit(A, px, py, pz, dx, dy, dz);
+    A.d_l[0][i] = dx;
+    A.d_l[1][i] = dy;
+    A.d_l[2][i] = dz;
+    A.seed[i] = cand ? h.t : -CUDART_INF_F;
+    A.flag[i] = cand && h.kind == kSphere && h.idx == e;
     return;
   }
-  // the shadow ray toward sphere `emitter` from the pending hit
-  const int e = A.emitter;
-  const float px = A.dls_pos[0][i], py = A.dls_pos[1][i], pz = A.dls_pos[2][i];
-  float dx = __ldg(A.sph_c + 3 * e) - px, dy = __ldg(A.sph_c + 3 * e + 1) - py,
-        dz = __ldg(A.sph_c + 3 * e + 2) - pz;
-  vnorm(dx, dy, dz, 1e-20f);
-  const float light_dot = dot3(dx, dy, dz, A.dls_norm[0][i], A.dls_norm[1][i], A.dls_norm[2][i]);
-  // this bounce's merged hit: the mesh's where a triangle beat its seed
-  long long kind = A.kind[i], idx = A.idx[i];
-  if (A.mgid != nullptr && A.mgid[i] >= 0) {
-    kind = kMeshTri;
-    idx = A.mgid[i];
-  }
-  const bool omit = A.dls_self[i] == e || (kind == kSphere && idx == e);
-  const bool cand = A.dls_active[i] && light_dot > 0.f && !omit;
+  // the lanes' own rays
   Hit h{kInf, kNone, 0, 0.f, 0.f};
-  if (cand) h = prims_hit(A, px, py, pz, dx, dy, dz);
-  A.d_l[0][i] = dx;
-  A.d_l[1][i] = dy;
-  A.d_l[2][i] = dz;
-  A.seed[i] = cand ? h.t : -CUDART_INF_F;
-  A.flag[i] = cand && h.kind == kSphere && h.idx == e;
+  const bool live = A.active[i];
+  if (live) h = prims_hit(A, A.ro[0][i], A.ro[1][i], A.ro[2][i], A.rd[0][i], A.rd[1][i],
+                          A.rd[2][i]);
+  A.t[i] = h.t;
+  A.kind[i] = h.kind;
+  A.idx[i] = h.idx;
+  A.bu[i] = h.bu;
+  A.bv[i] = h.bv;
+  A.seed[i] = live ? h.t : -CUDART_INF_F;
+  if (kMode == kOwnRays) return;
+  // every emitter's shadow ray from the pending hit, tested against the hit
+  // just found (without mesh triangles, the merged hit); a lane with nothing
+  // pending casts none and reads no more of its record
+  const bool pending = A.dls_active[i];
+  float px = 0.f, py = 0.f, pz = 0.f, nx = 0.f, ny = 0.f, nz = 0.f;
+  long long self = -1;
+  if (pending) {
+    px = A.dls_pos[0][i];
+    py = A.dls_pos[1][i];
+    pz = A.dls_pos[2][i];
+    nx = A.dls_norm[0][i];
+    ny = A.dls_norm[1][i];
+    nz = A.dls_norm[2][i];
+    self = A.dls_self[i];
+  }
+  for (int j = 0; j < A.n_emit; ++j) {
+    const int e = __ldg(A.emitters + j);
+    bool ok = false;
+    float dx, dy, dz;
+    if (pending && shadow_ray(A, e, px, py, pz, nx, ny, nz, self, h.kind, h.idx, dx, dy, dz)) {
+      const Hit s = prims_hit(A, px, py, pz, dx, dy, dz);
+      ok = s.kind == kSphere && s.idx == e;
+    }
+    A.flag[static_cast<size_t>(j) * A.n + i] = ok;
+  }
 }
 
 // integrator._diff_dir: cosine-weighted direction in the frame (xd, n x xd, n)
@@ -787,7 +846,10 @@ int launch(void (*kernel)(BounceArgs), const BounceArgs* a, void* stream) {
 }  // namespace
 
 extern "C" int bounce_prims_launch(const BounceArgs* a, void* stream) {
-  return launch(bounce_prims_kernel, a, stream);
+  if (a->emitter >= 0) return launch(bounce_prims_kernel<kShadowRays>, a, stream);
+  return launch(a->flag != nullptr ? bounce_prims_kernel<kOwnAndShadowRays>
+                                   : bounce_prims_kernel<kOwnRays>,
+                a, stream);
 }
 
 extern "C" int bounce_shade_launch(const BounceArgs* a, void* stream) {

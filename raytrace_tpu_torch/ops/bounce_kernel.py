@@ -5,22 +5,29 @@ The JAX package runs the integrator's bounce under `jit`: `closest_hit`
 (raytrace_tpu/render/integrator.py:219-368), `_shade_hit` (:701-850) and
 `_bounce_step` (:857-983) inside the wavefront's `lax.while_loop`
 (raytrace_tpu/render/wavefront.py:195-296), which XLA compiles into a
-few fused device programs. These two entries of `csrc/bounce_kernel.cu`
+few fused device programs. These entries of `csrc/bounce_kernel.cu`
 are the hand-written counterpart, a thread per lane, and one wavefront
 iteration on the card is (`render/wavefront.Lanes._iteration`):
 
-    bounce_prims -> mesh_hit -> [with direct-light sampling, for each
-    emitter: bounce_prims on its shadow rays -> mesh_hit] -> bounce_shade
-    -> lanes_assign
+    bounce_prims -> [a mesh: mesh_hit] -> [with direct-light sampling,
+    each emitter's shadow rays: inside bounce_prims' launch in a scene
+    without mesh triangles, else for each emitter bounce_prims on its
+    shadow rays -> mesh_hit] -> bounce_shade -> lanes_assign
 
 - `bounce_prims`: the brute nearest hit over every sphere and free
   triangle of the scene's columns (no cap on their counts), in both
   semantics with the cpu guard, and the mesh walk's seed (DEAD_SEED on
-  dead lanes). Its plain version is `integrator.prims_hit`. On an
-  emitter's shadow rays (`shadow_prims`) it also forms the ray
-  (`integrator.shadow_ray`, whose omit test reads this bounce's merged
-  hit) and writes whether the ray's nearest sphere / free-triangle hit is
-  that emitter, which `bounce_shade` reads with the shadow mesh hit's gid.
+  dead lanes). Its plain version is `integrator.prims_hit`. A shadow ray
+  is formed by `integrator.shadow_ray`, whose omit test reads this
+  bounce's merged hit, and its flag says whether the ray is cast and its
+  nearest sphere / free-triangle hit is the emitter. In a scene without
+  mesh triangles the sphere / free-triangle hit is the merged hit, so the
+  launch that finds it also tests every emitter's shadow ray against it
+  (`bounce_prims(..., shadow=)`, counted in LAUNCHES as
+  "bounce_prims_dls" besides "bounce_prims"). In a mesh scene the merged
+  hit needs `mesh_hit` first, so each emitter's shadow rays are a launch
+  of their own (`shadow_prims`), and `bounce_shade` reads their flags
+  with the shadow mesh hit's gid.
 - `bounce_shade`: the mesh hit merged (`integrator.merge_mesh`), then
   `integrator.shade_step` (the draws, the shading of the three kinds with
   the mesh attributes and texel fetch of `mesh_kernel.mesh_attrs`, the
@@ -56,7 +63,7 @@ from ..render import integrator as itg
 from . import cubemap, raygen, rng
 
 # launches of each CUDA entry point in this process (read by chip_smoke.py)
-LAUNCHES = {"bounce_prims": 0, "bounce_shade": 0, "lanes_assign": 0}
+LAUNCHES = {"bounce_prims": 0, "bounce_shade": 0, "lanes_assign": 0, "bounce_prims_dls": 0}
 
 
 def _merged(scene, params, prims, mesh):
@@ -64,14 +71,21 @@ def _merged(scene, params, prims, mesh):
     return hit if mesh is None else itg.merge_mesh(scene, params, None, None, hit, mesh)
 
 
-def bounce_prims(scene, params, ro, rd, active):
+def bounce_prims(scene, params, ro, rd, active, shadow=None):
     """The nearest sphere / free-triangle hit of each lane's ray: (t,
     kind, idx, bu, bv, seed), integrator.prims_hit's values (the kernel
-    writes a miss on dead lanes, whose hit nothing reads)."""
+    writes a miss on dead lanes, whose hit nothing reads). shadow: with
+    direct-light sampling in a scene without mesh triangles, (pd,
+    emitters, flags): the pending hits (the lane state's "dls"), the
+    emitters' sphere indices ((E,) int32) and an (E, N) bool buffer, into
+    which the same launch writes every emitter's shadow-ray flags tested
+    against this hit (shadow_prims' flags, one emitter a row)."""
+    if shadow is not None and scene.n_mesh_tris:
+        raise ValueError("a mesh scene's shadow rays need its mesh hit: shadow_prims")
     if active.device.type == "cuda":
-        return _launch_prims(scene, params, dict(ro=ro, rd=rd, active=active))
+        return _launch_prims(scene, params, dict(ro=ro, rd=rd, active=active, shadow=shadow))
     if active.device.type == "cpu":
-        return prims_reference(scene, params, ro, rd, active)
+        return prims_reference(scene, params, ro, rd, active, shadow)
     raise ValueError(f"bounce_prims runs on cpu or cuda tensors, not {active.device}")
 
 
@@ -81,7 +95,9 @@ def shadow_prims(scene, params, pd, prims, mesh, j: int, flag):
     bounce_prims' values, and mesh, mesh_hit's or None): writes into the
     (N,) bool buffer `flag` the lanes whose ray is cast and meets that
     emitter first among the spheres and free triangles, and returns (d_l,
-    seed), the ray's direction and its mesh seed."""
+    seed), the ray's direction and its mesh seed. The wavefront takes it
+    in mesh scenes only, where the seed starts the shadow mesh_hit; a
+    meshless scene's shadow rays go in bounce_prims' own launch."""
     if flag.device.type == "cuda":
         return _launch_prims(scene, params, dict(dls=pd, prims=prims, mesh=mesh, flag=flag), j)
     if flag.device.type == "cpu":
@@ -130,10 +146,16 @@ def lanes_assign(scene, params, new, st, unit, xs, ys, n_work: int, queue):
 # --- the plain versions (any device) -----------------------------------------
 
 
-def prims_reference(scene, params, ro, rd, active):
-    """bounce_prims' plain version: integrator.prims_hit."""
+def prims_reference(scene, params, ro, rd, active, shadow=None):
+    """bounce_prims' plain version: integrator.prims_hit, then with
+    shadow each emitter's shadow_reference on that hit."""
     hit, seed = itg.prims_hit(scene, params, ro, rd, active)
-    return (*hit, seed)
+    prims = (*hit, seed)
+    if shadow is not None:
+        pd, _, flags = shadow
+        for j in range(len(scene.emitters)):
+            shadow_reference(scene, params, pd, prims, None, j, flags[j])
+    return prims
 
 
 def shadow_reference(scene, params, pd, prims, mesh, j: int, flag):
@@ -356,7 +378,18 @@ def _launch_prims(scene, params, lanes, j=None):
         a.active = _ptr("active", active, _BOOL, dev, n)
         out = [torch.empty(n, dtype=dt, device=dev) for dt in (_F32, _I64, _I64, _F32, _F32, _F32)]
         _set_hits(a, out, None, dev, n)
+        shadow = lanes["shadow"]
+        if shadow is not None:  # every emitter's shadow rays in the same launch
+            if not a.dls:
+                raise ValueError("shadow rays need direct-light sampling")
+            pd, emitters, flags = shadow
+            _set_dls(a, pd, dev, n)
+            a.n_emit = len(scene.emitters)
+            a.emitters = _ptr("emitters", emitters, _I32, dev, a.n_emit)
+            a.flag = _ptr("flags", flags, _BOOL, dev, a.n_emit * n)
         _run("bounce_prims", a, dev)
+        if shadow is not None:
+            LAUNCHES["bounce_prims_dls"] += 1
         return tuple(out)
     pd, flag = lanes["dls"], lanes["flag"]
     dev, n = flag.device, flag.numel()

@@ -8,10 +8,12 @@ A fixed pool of lanes runs the integrator's bounce, and every iteration
      per-(pixel, sample) streams as `trace_paths`): the sphere /
      free-triangle hit (`ops/bounce_kernel.bounce_prims`), the mesh hit
      (`mesh_hit`), with direct-light sampling each emitter's shadow rays
-     through the same two, then the shading (`bounce_kernel.bounce_shade`,
-     which also does step 2); the CUDA kernels on the card, the
-     integrator's pieces (`prims_hit`, `merge_mesh`, `shade_step`) on the
-     CPU;
+     (in a scene without mesh triangles inside bounce_prims' own launch,
+     whose hit is then the merged one; in a mesh scene through the same
+     two, a launch of each an emitter), then the shading
+     (`bounce_kernel.bounce_shade`, which also does step 2); the CUDA
+     kernels on the card, the integrator's pieces (`prims_hit`,
+     `merge_mesh`, `shadow_ray`, `shade_step`) on the CPU;
   2. the per-lane bounce cap kills lanes at max_depth bounces (and with
      them a pending direct-light term, as trace_paths drops pendings at
      its loop's end); lanes whose path ended retire their radiance, with
@@ -173,14 +175,17 @@ class Lanes:
         """One iteration over the buffers: the bounce's kernels (bounce
         and cap, retire), then assign."""
         st, scene, params = self.st, self.scene, self.params
-        prims = bk.bounce_prims(scene, params, st["ro"], st["rd"], st["active"])
-        mesh = (mesh_of(scene, params, st["ro"], st["rd"], prims[5]) if scene.n_mesh_tris
-                else None)
-        if self.dls:
-            _, flags, gids = self.shadow
-            for j in range(len(scene.emitters)):
-                d_l, seed = bk.shadow_prims(scene, params, st["dls"], prims, mesh, j, flags[j])
-                if gids is not None:
+        # without mesh triangles the shadow rays go in bounce_prims' own launch
+        shadow = (st["dls"], *self.shadow[:2]) if self.dls and not scene.n_mesh_tris else None
+        prims = bk.bounce_prims(scene, params, st["ro"], st["rd"], st["active"], shadow=shadow)
+        mesh = None
+        if scene.n_mesh_tris:  # the merged hit first, then each emitter's shadow rays
+            mesh = mesh_of(scene, params, st["ro"], st["rd"], prims[5])
+            if self.dls:
+                _, flags, gids = self.shadow
+                for j in range(len(scene.emitters)):
+                    d_l, seed = bk.shadow_prims(scene, params, st["dls"], prims, mesh, j,
+                                                flags[j])
                     mesh_of(scene, params, st["dls"]["pos"], d_l, seed, gid_out=gids[j])
         bk.bounce_shade(scene, params, st, prims, mesh, self.shadow, self.unit, self.slots,
                         self.cap)

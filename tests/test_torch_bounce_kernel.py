@@ -21,6 +21,11 @@ they rest on against its unsplit formulation.
   mesh_hit -> bounce_shade -> assign, through the dispatchers' plain
   versions) bitwise the parent's iteration over the unsplit bounce: every
   buffer after every iteration, images and stats.
+- bounce_prims with every emitter's shadow rays in its launch (a scene
+  without mesh triangles) bitwise prims_reference then shadow_reference
+  for each emitter, and the launches an iteration takes: that one in
+  such a scene, and the emitters' own bounce_prims and mesh_hit launches
+  in a mesh scene.
 - On the card (`-m cuda`): each entry against its plain version on
   in-render lane states, bitwise, and the graphed render against the
   torch bounce's graph (Lanes._torch_iteration), bitwise.
@@ -32,7 +37,7 @@ import pytest
 import torch
 
 from raytrace_tpu_torch.models import procedural
-from raytrace_tpu_torch.models.config import ModelMember
+from raytrace_tpu_torch.models.config import ModelMember, Tagged, parse_member
 from raytrace_tpu_torch.models.walled import walled_scheme
 from raytrace_tpu_torch.ops import bounce_kernel as bk
 from raytrace_tpu_torch.ops import mesh_kernel as mk
@@ -419,11 +424,17 @@ def test_shade_step_matches_jax(scenes, case):
 
 def _walled_cases(tmp_path):
     """(scheme, Renderer keywords) of the iteration cases: walled in cpu
-    semantics with direct-light sampling (two emitters), in gpu
+    semantics with direct-light sampling (two emitters), and with a
+    diffuse free triangle under its small light besides; walled in gpu
     semantics; the 2,097-triangle surface with its textures in cpu
     semantics with direct-light sampling; outdoor spheres under a sky."""
     dls = walled_scheme(W, H, assured=2)
     dls.render_info.rad_info.dir_light_samp = True
+    tri = walled_scheme(W, H, assured=2)
+    tri.render_info.rad_info.dir_light_samp = True
+    tri.scene_members.append(parse_member(Tagged("FreeTriangle", {
+        "verts": [[-1.0, 0.3, -9.0], [3.0, 0.3, -9.0], [1.0, 0.3, -5.5]], "norm": [0, 1, 0],
+        "rgb": [0.8, 0.8, 0.3], "mat": {"divert_ray": "Diff"}})))
     surf = procedural.a380_cam_scheme(W, H)
     surf.scene_members.append(ModelMember(path="<2,097-triangle surface>", loaded=[
         procedural.make_mesh(2097, n_textures=2, tex_size=16)]))
@@ -431,7 +442,7 @@ def _walled_cases(tmp_path):
     surf.render_info.rad_info = copy.copy(surf.render_info.rad_info)
     surf.render_info.rad_info.dir_light_samp = True
     sky = procedural.outdoor_scheme(procedural.sky_cubemap(str(tmp_path), size=16), W, H)
-    return {"walled-dls": (dls, dict(mode="cpu")),
+    return {"walled-dls": (dls, dict(mode="cpu")), "walled-tri-dls": (tri, dict(mode="cpu")),
             "walled-gpu": (walled_scheme(W, H, assured=2), dict(mode="gpu", use_fused=False)),
             "surface-dls": (surf, dict(mode="cpu")), "sky": (sky, dict(mode="cpu"))}
 
@@ -458,7 +469,8 @@ def test_split_is_the_parent_formulation(case, tmp_path):
         st = new
 
 
-@pytest.mark.parametrize("case", ["walled-dls", "walled-gpu", "surface-dls", "sky"])
+@pytest.mark.parametrize("case", ["walled-dls", "walled-tri-dls", "walled-gpu", "surface-dls",
+                                  "sky"])
 def test_iteration_is_the_parent_iteration(case, tmp_path, monkeypatch):
     """Lanes._iteration against the parent's iteration (_torch_iteration
     over the parent's unsplit bounce), every buffer after every
@@ -482,6 +494,96 @@ def test_iteration_is_the_parent_iteration(case, tmp_path, monkeypatch):
     assert torch.equal(new._image(), old._image())
 
 
+# --- every emitter's shadow rays in bounce_prims' launch ----------------------
+
+
+def _lanes(case, tmp_path):
+    """The CPU lane pool of an iteration case, its first work handed out."""
+    scheme, kw = _walled_cases(tmp_path)[case]
+    r = Renderer(scheme, device="cpu", samples_per_launch=2, **kw)
+    lanes = wf.Lanes(r.tables, r.params, r._xs, r._ys, 2, r.width, 256)
+    lanes._start(0)
+    return lanes
+
+
+def _fused_and_plain(lanes):
+    """bounce_prims with the shadow rays in its launch, and prims_reference
+    then shadow_reference for each emitter, on the lanes' state: ((hit,
+    flags), (hit, flags)); both flag buffers start True on every lane, so
+    a row left unwritten shows."""
+    scene, params, st = lanes.scene, lanes.params, lanes.st
+    emitters, flags, _ = lanes.shadow
+    fused, plain = torch.ones_like(flags), torch.ones_like(flags)
+    hit = bk.bounce_prims(scene, params, st["ro"], st["rd"], st["active"],
+                          shadow=(st["dls"], emitters, fused))
+    ref = bk.prims_reference(scene, params, st["ro"], st["rd"], st["active"])
+    for j in range(len(scene.emitters)):
+        bk.shadow_reference(scene, params, st["dls"], ref, None, j, plain[j])
+    return (hit, fused), (ref, plain)
+
+
+@pytest.mark.parametrize("case", ["walled-dls", "walled-tri-dls"])
+def test_fused_shadow_rays_are_prims_then_shadow_reference(case, tmp_path):
+    lanes = _lanes(case, tmp_path)
+    assert lanes.dls and not lanes.scene.n_mesh_tris
+    pending = cast = 0
+    for _ in range(6):
+        (hit, fused), (ref, plain) = _fused_and_plain(lanes)
+        for a, b in zip(hit, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert torch.equal(fused, plain)
+        pending += int(lanes.st["dls"]["active"].sum())
+        cast += int(fused.sum())
+        lanes._iteration()
+    assert pending > 0 and cast > 0  # shadow rays were cast and some reached their emitter
+    if case == "walled-tri-dls":
+        assert int((ref[1] == itg.KIND_FREETRI).sum()) > 0
+
+
+def test_fused_shadow_rays_refuse_a_mesh_scene(tmp_path):
+    lanes = _lanes("surface-dls", tmp_path)
+    st = lanes.st
+    with pytest.raises(ValueError, match="mesh hit"):
+        bk.bounce_prims(lanes.scene, lanes.params, st["ro"], st["rd"], st["active"],
+                        shadow=(st["dls"], *lanes.shadow[:2]))
+
+
+@pytest.mark.parametrize("case", ["walled-dls", "surface-dls"])
+def test_iteration_launches_the_shadow_rays(case, tmp_path, monkeypatch):
+    """Lanes._iteration's calls an iteration: without a mesh one
+    bounce_prims with the shadow rays, no shadow_prims and no mesh_hit;
+    with one the bounce_prims entry 1 + E times (bounce_prims and E
+    shadow_prims) and mesh_hit 1 + E times (E of them the shadow rays')."""
+    lanes = _lanes(case, tmp_path)
+    calls = {"bounce_prims": 0, "fused": 0, "shadow_prims": 0, "mesh_of": 0, "shadow_mesh": 0}
+
+    def counted(name, fn):
+        def wrap(*args, **kw):
+            calls[name] += 1
+            if name == "bounce_prims":
+                calls["fused"] += kw.get("shadow") is not None
+            if name == "mesh_of":
+                calls["shadow_mesh"] += "gid_out" in kw
+            return fn(*args, **kw)
+        return wrap
+
+    monkeypatch.setattr(bk, "bounce_prims", counted("bounce_prims", bk.bounce_prims))
+    monkeypatch.setattr(bk, "shadow_prims", counted("shadow_prims", bk.shadow_prims))
+    monkeypatch.setattr(wf, "mesh_of", counted("mesh_of", wf.mesh_of))
+    launches = dict(bk.LAUNCHES)
+    n = 3
+    for _ in range(n):
+        lanes._iteration()
+    e = len(lanes.scene.emitters)
+    if case == "walled-dls":
+        want = {"bounce_prims": n, "fused": n, "shadow_prims": 0, "mesh_of": 0, "shadow_mesh": 0}
+    else:
+        want = {"bounce_prims": n, "fused": 0, "shadow_prims": e * n, "mesh_of": (1 + e) * n,
+                "shadow_mesh": e * n}
+    assert e > 0 and calls == want
+    assert bk.LAUNCHES == launches  # CPU tensors never reach the CUDA kernel
+
+
 # --- on the card ---------------------------------------------------------------
 
 
@@ -491,7 +593,8 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["walled-dls", "walled-gpu", "surface-dls", "sky"])
+@pytest.mark.parametrize("case", ["walled-dls", "walled-tri-dls", "walled-gpu", "surface-dls",
+                                  "sky"])
 def test_entries_match_their_plain_versions_on_the_card(case, tmp_path):
     _card()
     scheme, kw = _walled_cases(tmp_path)[case]
@@ -517,6 +620,11 @@ def test_entries_match_their_plain_versions_on_the_card(case, tmp_path):
                         itg.mesh_of(scene, params, st["dls"]["pos"], d_l, seed, gid_out=gids[j])
                 shadows[s] = (emitters, flags, gids)
             assert torch.equal(shadows[0][1], shadows[1][1])
+            if mesh is None:  # the launch the render takes: the shadow rays in bounce_prims'
+                (hit, fused), (ref, plain) = _fused_and_plain(lanes)
+                for k, (x, y) in enumerate(zip(hit, ref)):
+                    assert torch.equal(x[act], y[act]) if k < 5 else torch.equal(x, y)
+                assert torch.equal(fused, plain) and torch.equal(fused, shadows[1][1])
         a, b = wf._clone(st), wf._clone(st)
         sa, sb = lanes.slots.clone(), lanes.slots.clone()
         bk.bounce_shade(scene, params, a, kp, mesh, shadows[0], lanes.unit, sa, lanes.cap)
@@ -528,7 +636,7 @@ def test_entries_match_their_plain_versions_on_the_card(case, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["walled-dls", "surface-dls", "sky"])
+@pytest.mark.parametrize("case", ["walled-dls", "walled-tri-dls", "surface-dls", "sky"])
 def test_graphed_render_is_the_torch_bounce_graph(case, tmp_path, monkeypatch):
     _card()
     scheme, kw = _walled_cases(tmp_path)[case]
@@ -557,6 +665,13 @@ def test_graphed_render_is_the_torch_bounce_graph(case, tmp_path, monkeypatch):
         out[kind] = (img, dict(r.stats), dict(bk.LAUNCHES), sum(steps))
     (img, st, n, n_steps), (img_t, st_t, n_t, n_steps_t) = out["kernels"], out["torch"]
     np.testing.assert_array_equal(img, img_t)
-    # a replay launches STEP_ITERATIONS iterations
-    assert st == st_t and n_steps == n_steps_t and n["bounce_shade"] == wf.STEP_ITERATIONS * n_steps
+    # a replay launches STEP_ITERATIONS iterations; walled's bounce_prims
+    # takes the shadow rays in each of its launches, the surface's none
+    launched = wf.STEP_ITERATIONS * n_steps
+    assert st == st_t and n_steps == n_steps_t and n["bounce_shade"] == launched
+    if case.startswith("walled"):
+        assert n["bounce_prims"] == n["bounce_prims_dls"] == launched
+    else:
+        assert n["bounce_prims_dls"] == 0 and n["bounce_prims"] == launched * (
+            1 + (len(r.tables.emitters) if case == "surface-dls" else 0))
     assert n_t.pop("lanes_assign") == n["lanes_assign"] > 0 and not any(n_t.values())
