@@ -39,7 +39,9 @@
 //                  direct-light terms in the emitters' order after the
 //                  emissive term, debug_single_ray, the bounce cap and the
 //                  retire (a retiring lane's radiance, with
-//                  resolve_sky_dense's sky term, into its work unit's slot):
+//                  resolve_sky_dense's sky term, into its work unit's slot,
+//                  and, given the counter, the sky's fetches counted: one
+//                  atomic a warp, its ballot's popcount):
 //                  integrator.shade_step and the wavefront's cap and retire.
 //   lanes_assign   the refill (Lanes._assign; its plain version is
 //                  ops/bounce_kernel.assign_reference), two launches: the
@@ -150,9 +152,11 @@ struct BounceArgs {
   bool* flag;
   const bool* flags;
   const int* sgid;
-  // the retire: each lane's work unit, the (n_work + 1, 3) slots
+  // the retire: each lane's work unit, the (n_work + 1, 3) slots; with a
+  // sky, the 0-dim count of the retiring lanes that fetched it (or null)
   const long long* unit;
   float* slots;
+  long long* sky_fetches;
   long long pool_len, sky_len;
   int n, n_sph, n_ft, n_mesh, n_emit, pool_kind, sky_kind;
   int cpu, pcg, dls, debug, miss, assured, cap, emitter;
@@ -681,11 +685,22 @@ __global__ void __launch_bounds__(kThreads) bounce_shade_kernel(const BounceArgs
     A.dls_self[i] = kind == kSphere ? idx : -1;
   }
   if (!alive) {  // the path ended: its radiance, with the sky where it missed
-    if (A.miss && (mwr > 0.f || mwg > 0.f || mwb > 0.f)) {
-      const float3 c = sky_rgb(A.face, sky, mdx, mdy, mdz);
-      lr = lr + mwr * c.x;
-      lg = lg + mwg * c.y;
-      lb = lb + mwb * c.z;
+    if (A.miss) {
+      const bool fetch = mwr > 0.f || mwg > 0.f || mwb > 0.f;
+      if (A.sky_fetches != nullptr) {  // one atomic a warp: its fetching lanes' count
+        const unsigned here = __activemask();
+        const unsigned fetching = __ballot_sync(here, fetch);
+        if (fetching != 0u && static_cast<int>(threadIdx.x & 31) == __ffs(here) - 1) {
+          atomicAdd(reinterpret_cast<unsigned long long*>(A.sky_fetches),
+                    static_cast<unsigned long long>(__popc(fetching)));
+        }
+      }
+      if (fetch) {
+        const float3 c = sky_rgb(A.face, sky, mdx, mdy, mdz);
+        lr = lr + mwr * c.x;
+        lg = lg + mwg * c.y;
+        lb = lb + mwb * c.z;
+      }
     }
     float* slot = A.slots + 3 * A.unit[i];
     slot[0] = lr;

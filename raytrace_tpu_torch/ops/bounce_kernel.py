@@ -34,7 +34,8 @@ iteration on the card is (`render/wavefront.Lanes._iteration`):
   gpu or cpu radiance and roulette, the miss record, the direct-light
   terms, debug_single_ray), the bounce cap and the retire (a retiring
   lane's radiance, with `resolve_sky_dense`'s sky term, into its work
-  unit's slot), written in place on `Lanes`' buffers. A dead lane keeps
+  unit's slot, and the retiring lanes that fetched the sky added to a
+  device counter), written in place on `Lanes`' buffers. A dead lane keeps
   its whole state, its stream and direct-light record included, so a
   replay on a drained pool changes nothing; the plain version writes
   the slots' discard row, which nothing reads, and the kernel does not.
@@ -105,7 +106,8 @@ def shadow_prims(scene, params, pd, prims, mesh, j: int, flag):
     raise ValueError(f"shadow_prims runs on cpu or cuda tensors, not {flag.device}")
 
 
-def bounce_shade(scene, params, st, prims, mesh, shadow, unit, slots, cap: int):
+def bounce_shade(scene, params, st, prims, mesh, shadow, unit, slots, cap: int,
+                 sky_fetches=None):
     """One bounce after the hits, in place: st, the lane state's buffers
     (init_lanes' tree), becomes the next state with the bounce cap
     applied, and each lane whose path ended writes its radiance (with the
@@ -114,11 +116,14 @@ def bounce_shade(scene, params, st, prims, mesh, shadow, unit, slots, cap: int):
     (emitters, flags, gids): the emitters' sphere indices ((E,) int32),
     shadow_prims' flags ((E, N) bool) and the shadow mesh hits' gids ((E,
     N) int32, or None without a mesh); else None. slots: the (n_work + 1,
-    3) f32 sums, the last row the discard row."""
+    3) f32 sums, the last row the discard row. sky_fetches: a 0-dim int64
+    buffer to which the retiring lanes that fetch the sky are added (those
+    whose path missed with a weight > 0 left), or None; nothing is added
+    without a sky."""
     if unit.device.type == "cuda":
-        _launch_shade(scene, params, st, prims, mesh, shadow, unit, slots, cap)
+        _launch_shade(scene, params, st, prims, mesh, shadow, unit, slots, cap, sky_fetches)
     elif unit.device.type == "cpu":
-        shade_reference(scene, params, st, prims, mesh, shadow, unit, slots, cap)
+        shade_reference(scene, params, st, prims, mesh, shadow, unit, slots, cap, sky_fetches)
     else:
         raise ValueError(f"bounce_shade runs on cpu or cuda tensors, not {unit.device}")
 
@@ -168,7 +173,8 @@ def shadow_reference(scene, params, pd, prims, mesh, j: int, flag):
     return d_l, seed
 
 
-def shade_reference(scene, params, st, prims, mesh, shadow, unit, slots, cap):
+def shade_reference(scene, params, st, prims, mesh, shadow, unit, slots, cap,
+                    sky_fetches=None):
     """bounce_shade's plain version: integrator.merge_mesh and shade_step,
     then the wavefront's cap and retire."""
     where = torch.where
@@ -188,6 +194,8 @@ def shade_reference(scene, params, st, prims, mesh, shadow, unit, slots, cap):
     L = new["L"]
     if "miss_d" in new:  # a retiring path that missed adds its sky term
         L = itg.resolve_sky_dense(scene, L, new["miss_d"], new["miss_w"], term)
+        if sky_fetches is not None:
+            count_fetches(sky_fetches, new["miss_w"], term)
     discard = torch.full_like(unit, slots.shape[0] - 1)
     slots.index_put_((where(term, unit, discard),), torch.stack(L, dim=1))
     # a dead lane keeps its state: the bounce leaves every field of such a
@@ -198,6 +206,14 @@ def shade_reference(scene, params, st, prims, mesh, shadow, unit, slots, cap):
             new["dls"][k] = _map2(lambda a, b: where(was_active, a, b), new["dls"][k],
                                   st["dls"][k])
     _copy_into(st, new)
+
+
+def count_fetches(counter, miss_w, term):
+    """Add to the 0-dim int64 `counter` the lanes of the bool mask `term`
+    (those that retire) whose miss record has a weight > 0 in some
+    channel: the lanes whose retire fetches the sky."""
+    missed = (miss_w[0] > 0.0) | (miss_w[1] > 0.0) | (miss_w[2] > 0.0)
+    counter.add_((missed & term).sum())
 
 
 def assign_reference(scene, params, new, st, unit, xs, ys, n_work: int, queue):
@@ -266,7 +282,7 @@ _PTRS = (
     + [f"{k}{c}" for k in ("miss_d", "miss_w") for c in range(3)]
     + ["dls_active"] + [f"{k}{c}" for k in ("dls_pos", "dls_norm", "dls_ci") for c in range(3)]
     + ["dls_self", "t", "kind", "idx", "bu", "bv", "seed", "mt", "mgid", "mu", "mv"]
-    + [f"d_l{c}" for c in range(3)] + ["flag", "flags", "sgid", "unit", "slots"])
+    + [f"d_l{c}" for c in range(3)] + ["flag", "flags", "sgid", "unit", "slots", "sky_fetches"])
 _LONGS = ("pool_len", "sky_len")
 _INTS = ("n", "n_sph", "n_ft", "n_mesh", "n_emit", "pool_kind", "sky_kind", "cpu", "pcg", "dls",
          "debug", "miss", "assured", "cap", "emitter")
@@ -408,7 +424,7 @@ def _launch_prims(scene, params, lanes, j=None):
     return d_l, seed
 
 
-def _launch_shade(scene, params, st, prims, mesh, shadow, unit, slots, cap):
+def _launch_shade(scene, params, st, prims, mesh, shadow, unit, slots, cap, sky_fetches):
     dev, n = unit.device, unit.numel()
     a = _args(scene, params, dev, n)
     for k in ("ro", "rd", "L", "ci"):
@@ -438,6 +454,8 @@ def _launch_shade(scene, params, st, prims, mesh, shadow, unit, slots, cap):
     if slots.dim() != 2 or slots.shape[1] != 3:
         raise ValueError("slots must be (n_work + 1, 3)")
     a.slots = _ptr("slots", slots, _F32, dev)
+    if a.miss:  # without a sky the pointer stays null
+        a.sky_fetches = _ptr("sky_fetches", sky_fetches, _I64, dev, 1)
     a.cap = cap
     _run("bounce_shade", a, dev)
 

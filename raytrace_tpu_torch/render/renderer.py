@@ -188,11 +188,12 @@ class Renderer:
     animation pipeline builds the next frame's while this one renders),
     else build_scene(scheme). `generator`: "weyl" or "pcg", every draw's
     family (`params.generator`). `driver` names the one taken; after a
-    wavefront render, `stats` holds its iterations and lane-bounces
-    (summed over the ranks). `group`: the torch.distributed process group
-    to shard samples over (module docstring; default the world when it
-    has more than one process); a differentiable Renderer takes none of
-    more than one process (the distributed differentiable path is
+    wavefront render, `stats` holds its iterations, lane-bounces and sky
+    fetches (the paths that ended at the sky), summed over the ranks.
+    `group`: the torch.distributed process group to shard samples over
+    (module docstring; default the world when it has more than one
+    process); a differentiable Renderer takes none of more than one
+    process (the distributed differentiable path is
     parallel.distributed.make_train_step)."""
 
     def __init__(self, scheme: Scheme, device="cuda", samples_per_launch: int = 256,
@@ -228,7 +229,7 @@ class Renderer:
             self.samples_per_launch = samples_per_launch
             self.camera = build_camera(scheme.cam, self.width, self.height)
             self.target = RenderTarget(self.width, self.height)
-            self.stats = {"iterations": 0, "lane_bounces": 0}
+            self.stats = {"iterations": 0, "lane_bounces": 0, "sky_fetches": 0}
             self.driver = _pick_driver(
                 {"fused": use_fused, "mesh_fused": use_mesh_fused, "wavefront": use_wavefront},
                 {"fused": tk.supports(self.scene, self.params),
@@ -300,7 +301,7 @@ class Renderer:
         """render's batches: each one `_step` (the chosen driver's batch), the
         add of its sums into the target on the device, and the hook."""
         span = profiling.span
-        self.stats = {"iterations": 0, "lane_bounces": 0}
+        self.stats = {"iterations": 0, "lane_bounces": 0, "sky_fetches": 0}
         bar = None
         if progress:
             try:

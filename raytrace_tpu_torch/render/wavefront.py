@@ -18,7 +18,8 @@ A fixed pool of lanes runs the integrator's bounce, and every iteration
      them a pending direct-light term, as trace_paths drops pendings at
      its loop's end); lanes whose path ended retire their radiance, with
      the cube map's term where the path missed (trace_paths' post-loop
-     resolve, :212-230, in its dense form `resolve_sky_dense`);
+     resolve, :212-230, in its dense form `resolve_sky_dense`), and those
+     that fetched the sky are counted on the device;
   3. dead lanes take the next work units off a queue counter: ranked by
      a prefix sum over the pool, handed out sample-major over the
      tile-ordered pixel table, seeded from (x, y, sample) and raygen'd
@@ -34,10 +35,10 @@ and outputs keep their addresses. The loop's unit is a step
 (`Lanes._step`): STEP_ITERATIONS iterations one after another. On CUDA
 tensors one step is captured once as a CUDA graph and replayed; the host
 reads one flag (any lane active) after each replay, so it waits on the
-device once a step, and counts nothing itself: the iterations and
-lane-bounces are counted on the device. An iteration on a drained pool
-changes nothing, so the iterations a step runs past the pool's last
-live one cost only their kernels' early exits (at most
+device once a step, and counts nothing itself: the iterations,
+lane-bounces and sky fetches are counted on the device. An iteration on
+a drained pool changes nothing, so the iterations a step runs past the
+pool's last live one cost only their kernels' early exits (at most
 STEP_ITERATIONS - 1 a batch). Every value that differs between batches
 (the first sample id) is a device buffer, written before the batch's
 replays. On CPU tensors the same `_step` runs eagerly in the same loop,
@@ -99,14 +100,16 @@ class Lanes:
     tables, n_samples, width, pool), in static buffers: the lane state of
     `init_lanes` (`st`), each lane's work unit, the queue counter, the
     (sample, pixel) slots, the batch's first sample id, the device's
-    iteration and lane-bounce counts and the any-lane-active flag. On
-    the card the step's CUDA graph is captured at the first replay and
-    kept (`graph`, with the kernel launches it holds, `graph_launches`:
-    STEP_ITERATIONS iterations' worth, and the host seconds of its
-    capture and instantiation, `capture_s`). `steps` is the last batch's
-    steps (replays on the card): it launched STEP_ITERATIONS * steps
-    iterations, and the launch counts (mk.LAUNCHES, bk.LAUNCHES) count
-    every one, those past the pool's last live iteration too."""
+    iteration, lane-bounce and sky-fetch counts (`sky_fetches`: the
+    retiring lanes that fetched the sky, 0 without one) and the
+    any-lane-active flag. On the card the step's CUDA graph is captured
+    at the first replay and kept (`graph`, with the kernel launches it
+    holds, `graph_launches`: STEP_ITERATIONS iterations' worth, and the
+    host seconds of its capture and instantiation, `capture_s`). `steps`
+    is the last batch's steps (replays on the card): it launched
+    STEP_ITERATIONS * steps iterations, and the launch counts
+    (mk.LAUNCHES, bk.LAUNCHES) count every one, those past the pool's
+    last live iteration too."""
 
     def __init__(self, scene, params: IntegratorParams, xs_tab, ys_tab, n_samples: int,
                  width: int, pool: int):
@@ -130,6 +133,7 @@ class Lanes:
         self.discard = torch.full((pool,), self.n_work, **i64)  # the slots' discard row
         self.q, self.sample_base = torch.zeros((), **i64), torch.zeros((), **i64)
         self.iters, self.lane_bounces = torch.zeros((), **i64), torch.zeros((), **i64)
+        self.sky_fetches = torch.zeros((), **i64)
         self.flag = torch.zeros((), dtype=torch.bool, device=dev)
         self.slots = torch.zeros((self.n_work + 1, 3), dtype=torch.float32, device=dev)
         self.shadow = None
@@ -156,7 +160,8 @@ class Lanes:
         sample id, and hand out the first work units."""
         for buf, v in zip(_leaves(self.st), _leaves(self._fresh())):
             buf.copy_(v)
-        for t in (self.unit, self.q, self.iters, self.lane_bounces, self.slots):
+        for t in (self.unit, self.q, self.iters, self.lane_bounces, self.sky_fetches,
+                  self.slots):
             t.zero_()
         self.sample_base.fill_(sample_base)
         self._assign(self.st)
@@ -188,7 +193,7 @@ class Lanes:
                                                 flags[j])
                     mesh_of(scene, params, st["dls"]["pos"], d_l, seed, gid_out=gids[j])
         bk.bounce_shade(scene, params, st, prims, mesh, self.shadow, self.unit, self.slots,
-                        self.cap)
+                        self.cap, self.sky_fetches if self.sky else None)
         self._assign(st)
 
     def _step(self):
@@ -212,6 +217,7 @@ class Lanes:
         L = new["L"]
         if self.sky:  # a retiring path that missed adds its sky term
             L = resolve_sky_dense(self.scene, L, new["miss_d"], new["miss_w"], term)
+            bk.count_fetches(self.sky_fetches, new["miss_w"], term)
         self.slots.index_put_((where(term, self.unit, self.discard),), torch.stack(L, dim=1))
         # a dead lane keeps its state: the bounce leaves every field of
         # such a lane as it was but its stream and the direct-light
@@ -317,17 +323,21 @@ class Lanes:
         return self._loop(self._step, sample_base)
 
     def stats(self) -> dict:
-        """The last batch's {"iterations", "lane_bounces"}, from the
-        device's counts (an iteration counts where a lane was live at its
-        start); the iterations launched past them go to the
-        wavefront.drained_iterations counter."""
+        """The last batch's {"iterations", "lane_bounces", "sky_fetches"},
+        from the device's counts (an iteration counts where a lane was live
+        at its start; a sky fetch where a retiring lane's path missed with
+        a weight > 0 left), read in one copy; the iterations launched past
+        them go to the wavefront.drained_iterations counter."""
         with profiling.span("wavefront.stats"):
-            iterations, lane_bounces = torch.stack((self.iters, self.lane_bounces)).tolist()
+            iterations, lane_bounces, sky_fetches = torch.stack(
+                (self.iters, self.lane_bounces, self.sky_fetches)).tolist()
         profiling.count("wavefront.iterations", iterations)
         profiling.count("wavefront.lane_bounces", lane_bounces)
+        profiling.count("wavefront.sky_fetches", sky_fetches)
         profiling.count("wavefront.drained_iterations",
                         STEP_ITERATIONS * self.steps - iterations)
-        return {"iterations": iterations, "lane_bounces": lane_bounces}
+        return {"iterations": iterations, "lane_bounces": lane_bounces,
+                "sky_fetches": sky_fetches}
 
 
 def wavefront_batch(scene, params: IntegratorParams, xs_tab, ys_tab, sample_base: int,
@@ -337,8 +347,9 @@ def wavefront_batch(scene, params: IntegratorParams, xs_tab, ys_tab, sample_base
     of every pixel of the (n_pix,) int32 tables xs_tab, ys_tab (dispatch
     order, e.g. 32x32 tiles) on the scene's device. Returns the (n_pix, 3)
     f32 sums indexed by the flat pixel y * width + x (with
-    return_stats, also {"iterations", "lane_bounces"}: the loop's
-    iterations and the lanes active at their starts, summed). `cache`: a
+    return_stats, also {"iterations", "lane_bounces", "sky_fetches"}: the
+    loop's iterations, the lanes active at their starts, summed, and the
+    paths that ended at the sky). `cache`: a
     dict that keeps the `Lanes` (and on the card their CUDA graphs)
     between calls, the last CACHED_LANES made; without one, each call
     allocates its own (and captures its graph anew). Raises on a

@@ -70,7 +70,7 @@ def _buffers(lanes):
     """Every buffer an iteration writes, but the slots' discard row (a
     scratch row that the lanes that do not retire overwrite)."""
     return [*wf._leaves(lanes.st), lanes.unit, lanes.q, lanes.iters, lanes.lane_bounces,
-            lanes.flag, lanes.slots[:lanes.n_work]]
+            lanes.sky_fetches, lanes.flag, lanes.slots[:lanes.n_work]]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -164,27 +164,40 @@ def test_renderer_batches_through_one_pool_are_fresh_calls(tmp_path):
 
 @pytest.mark.parametrize("case", CASES)
 def test_device_counts_are_the_loops(case, tmp_path):
-    """The device counts the iterations that found a live lane; the loop
-    runs whole steps, so it calls the iteration fewer than
-    STEP_ITERATIONS times more."""
+    """The device counts the iterations that found a live lane, and the
+    retiring lanes whose path missed with a weight left (the sky's
+    fetches: none without a sky), as the loop sees them between the
+    shade and the refill; the loop runs whole steps, so it calls the
+    iteration fewer than STEP_ITERATIONS times more."""
     r = _renderer(case, tmp_path)
     lanes = _lanes(r)
-    calls, live, active = [0], [0], [0]
-    body = lanes._iteration
+    calls, live, active, fetched = [0], [0], [0], [0]
+    body, assign, was = lanes._iteration, lanes._assign, [None]
 
     def counted():
         calls[0] += 1
         n = int(lanes.st["active"].sum())
         live[0] += n > 0
         active[0] += n
+        was[0] = lanes.st["active"].clone()
         body()
 
-    lanes._iteration = counted
+    def refill(new):  # after the shade: the retiring lanes and their miss records
+        if was[0] is not None and "miss_w" in new:
+            mw = new["miss_w"]
+            fetched[0] += int((was[0] & ~new["active"] & ((mw[0] > 0) | (mw[1] > 0) | (mw[2] > 0)))
+                              .sum())
+        was[0] = None
+        assign(new)
+
+    lanes._iteration, lanes._assign = counted, refill
     lanes.run(3)
-    assert lanes.stats() == {"iterations": live[0], "lane_bounces": active[0]}
+    assert lanes.stats() == {"iterations": live[0], "lane_bounces": active[0],
+                             "sky_fetches": fetched[0]}
     assert calls[0] == wf.STEP_ITERATIONS * lanes.steps
     assert 0 <= calls[0] - live[0] < wf.STEP_ITERATIONS
     assert live[0] > 1 and active[0] >= r.width * r.height * N_SAMPLES
+    assert (fetched[0] > 0) == (case == "sky")
 
 
 def test_dense_sky_resolve_is_the_gather(tmp_path):
@@ -346,15 +359,14 @@ def test_assign_plain_version_is_the_torch_assign(case, src, tmp_path):
         assert not bool(new.st["dls"]["active"][fresh].any())
 
 
-def test_assign_args_follow_the_cu_struct():
-    """ops/bounce_kernel.AssignArgs lays out csrc/bounce_kernel.cu's
-    AssignArgs field by field (an array [k] as k fields, the camera row
-    as one)."""
+def _cu_fields(struct: str) -> list:
+    """The fields of csrc/bounce_kernel.cu's `struct`, in order (an array
+    [k] as k fields, the camera row as one)."""
     import re
     from pathlib import Path
 
     src = (Path(bk.__file__).parent.parent / "csrc" / "bounce_kernel.cu").read_text()
-    body = re.search(r"struct AssignArgs \{(.*?)\};", src, re.S).group(1)
+    body = re.search(r"struct " + struct + r" \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     names = []
     for decl in filter(str.strip, body.split(";")):
@@ -364,7 +376,24 @@ def test_assign_args_follow_the_cu_struct():
             n = int(m.group(2) or 0)
             names += ([m.group(1)] if not n or m.group(1) == "cam"
                       else [f"{m.group(1)}{c}" for c in range(n)])
-    assert names == [k for k, _ in bk.AssignArgs._fields_]
+    return names
+
+
+def test_assign_args_follow_the_cu_struct():
+    """ops/bounce_kernel.AssignArgs lays out csrc/bounce_kernel.cu's
+    AssignArgs field by field."""
+    assert _cu_fields("AssignArgs") == [k for k, _ in bk.AssignArgs._fields_]
+
+
+def test_bounce_args_follow_the_cu_struct():
+    """ops/bounce_kernel.BounceArgs lays out csrc/bounce_kernel.cu's
+    BounceArgs field by field, the sky's fetch counter among its
+    pointers."""
+    import ctypes
+
+    fields = bk.BounceArgs._fields_
+    assert _cu_fields("BounceArgs") == [k for k, _ in fields]
+    assert dict(fields)["sky_fetches"] is ctypes.c_void_p
 
 
 def test_lanes_assign_refuses_other_devices(tmp_path):
